@@ -1,0 +1,195 @@
+"""Sparse gossip engine: neighbor-indexed push-pull over a flat buffer.
+
+Port of the uncompressed half of `repro/core/gossip.py`:
+
+1. `mix_rows(idx, w, x)` — out[i] = sum_j w[i,j] * x[idx[i,j]], summed in
+   j order with separate multiply and add ops.
+2. `FlatLayout` / `FlatClientState` — the shared leaves of the stacked
+   client params live in ONE (m, d_flat) buffer across rounds, packed in
+   the reference's wire order (sorted keys: conv1, conv2, dense, gb1, gb2,
+   gn1, gn2 for the CNN); the tree form is rebuilt only at the loss / eval
+   boundary.
+3. `mix_flat` — one push-pull transmission on the resident buffer.  Mode
+   "sparse" sends the buffer through `kernels.ops.gossip_gather`: the CUDA
+   kernel for a CUDA buffer, the plain version (equal to `mix_rows`) for a
+   CPU buffer.  Mode "dense" contracts against the (m, m) matrix.  mu
+   always mixes through `mix_rows` in f32.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import NamedTuple
+
+import torch
+
+from .. import tree
+from ..kernels import ops
+from . import partition
+from .topology import SparseTopology
+
+MODES = ("dense", "sparse")
+
+
+def mix_rows(idx: torch.Tensor, w: torch.Tensor,
+             x: torch.Tensor) -> torch.Tensor:
+    """out[i] = sum_j w[i,j] * x[idx[i,j]] for stacked x: (m,) or (m, ...).
+    Unrolled over the neighbor axis k in j order; w is cast to x's dtype."""
+    k = idx.shape[1]
+    bshape = (-1,) + (1,) * (x.dim() - 1)
+
+    def term(j):
+        return w[:, j].reshape(bshape).to(x.dtype) * x[idx[:, j].long()]
+
+    out = term(0)
+    for j in range(1, k):
+        out = out + term(j)
+    return out
+
+
+def no_sparsity(P) -> bool:
+    """True when a SparseTopology has no sparsity to exploit (k >= m, e.g.
+    the fully connected form): every engine entry point densifies then."""
+    return isinstance(P, SparseTopology) and P.k >= P.m
+
+
+def mix_any(P, x: torch.Tensor) -> torch.Tensor:
+    """One gossip contraction of stacked per-client values x with either
+    topology representation (densified when no_sparsity)."""
+    if isinstance(P, SparseTopology) and not no_sparsity(P):
+        return mix_rows(P.idx, P.w, x)
+    Pd = P.dense() if isinstance(P, SparseTopology) else P
+    return torch.einsum("mn,n...->m...", Pd.to(x.dtype), x)
+
+
+# ---------------------------------------------------------------------------
+# flat-buffer layout
+# ---------------------------------------------------------------------------
+def flat_width(params: dict, mask: dict) -> int:
+    """d_flat: total shared parameters per client of stacked params."""
+    return sum(math.prod(leaf.shape[1:]) for path, leaf in tree.paths(params)
+               if tree.get(mask, path))
+
+
+def flatten_shared(params: dict, mask: dict, dtype=None) -> torch.Tensor:
+    """Ravel the shared leaves of stacked (m, ...) params into one
+    (m, d_flat) buffer in wire order (sorted keys).  `dtype` is the wire
+    dtype; defaults to the leaves' common dtype."""
+    u, _ = partition.split(params, mask)
+    leaves = tree.leaves(u)
+    m = leaves[0].shape[0]
+    dt = dtype if dtype is not None else functools.reduce(
+        torch.promote_types, (x.dtype for x in leaves))
+    return torch.cat([x.reshape(m, -1).to(dt) for x in leaves], dim=1)
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatLayout:
+    """Static descriptor of the shared part's wire layout: per shared leaf
+    (sorted-key order) its path, unstacked shape, dtype and size."""
+    paths: tuple
+    shapes: tuple
+    dtypes: tuple
+    sizes: tuple
+    d_flat: int
+
+    @classmethod
+    def build(cls, params: dict, mask: dict) -> "FlatLayout":
+        """`params` is a stacked (m, ...) tree."""
+        u, _ = partition.split(params, mask)
+        items = list(tree.paths(u))
+        shapes = tuple(tuple(leaf.shape[1:]) for _, leaf in items)
+        sizes = tuple(math.prod(s) for s in shapes)
+        return cls(tuple(p for p, _ in items), shapes,
+                   tuple(leaf.dtype for _, leaf in items), sizes, sum(sizes))
+
+    @property
+    def offsets(self) -> tuple:
+        out, off = [], 0
+        for n in self.sizes:
+            out.append(off)
+            off += n
+        return tuple(out)
+
+    def pack(self, params: dict, mask: dict, dtype=None) -> torch.Tensor:
+        """Stacked shared leaves -> (m, d_flat) buffer (wire order)."""
+        return flatten_shared(params, mask, dtype=dtype)
+
+    def unravel_row(self, row: torch.Tensor) -> dict:
+        """One client's (d_flat,) row -> shared subtree of views (cast to
+        each leaf's dtype) — the loss_fn leaf boundary."""
+        return tree.from_paths(
+            (p, row[off:off + n].reshape(shape).to(dt))
+            for p, shape, dt, n, off in zip(self.paths, self.shapes,
+                                            self.dtypes, self.sizes,
+                                            self.offsets))
+
+    def unravel(self, flat: torch.Tensor) -> dict:
+        """(m, d_flat) buffer -> stacked shared subtree."""
+        m = flat.shape[0]
+        return tree.from_paths(
+            (p, flat[:, off:off + n].reshape((m,) + shape).to(dt))
+            for p, shape, dt, n, off in zip(self.paths, self.shapes,
+                                            self.dtypes, self.sizes,
+                                            self.offsets))
+
+
+class FlatClientState(NamedTuple):
+    """Resident representation of the stacked client parameters: the shared
+    part in one (m, d_flat) buffer, the personal leaves as a pruned tree."""
+    flat: torch.Tensor
+    personal: dict
+
+    @classmethod
+    def create(cls, params: dict, mask: dict,
+               layout: FlatLayout | None = None):
+        """-> (state, layout).  Packs the shared part once; an all-personal
+        mask yields an empty (m, 0) buffer."""
+        layout = layout or FlatLayout.build(params, mask)
+        _, v = partition.split(params, mask)
+        if layout.d_flat == 0:
+            leaf = tree.leaves(params)[0]
+            return cls(torch.zeros((leaf.shape[0], 0), dtype=torch.float32,
+                                   device=leaf.device), v), layout
+        return cls(flatten_shared(params, mask), v), layout
+
+    def to_tree(self, layout: FlatLayout) -> dict:
+        """The stacked params tree (eval boundary)."""
+        return partition.merge(layout.unravel(self.flat), self.personal)
+
+
+def _transmit(P, x: torch.Tensor, mu: torch.Tensor, mode: str):
+    """The bare push-pull contraction of (x, mu)."""
+    sparse = isinstance(P, SparseTopology)
+    if no_sparsity(P):
+        mode = "dense"
+    if mode == "dense" or not sparse:
+        Pd = P.dense() if sparse else P
+        return (torch.einsum("mn,nd->md", Pd.to(x.dtype), x),
+                torch.einsum("mn,n->m", Pd, mu))
+    return ops.gossip_gather(P.idx, P.w, x), mix_rows(P.idx, P.w, mu)
+
+
+def mix_flat(P, flat: torch.Tensor, mu: torch.Tensor, *,
+             mode: str = "sparse", wire_dtype=None, edge_gate=None,
+             codec=None):
+    """One push-pull transmission on the resident buffer: flat' = P flat,
+    mu' = P mu.  A wire_dtype narrows only the payload of the mix (the
+    buffer returns in its resident dtype); mu always mixes in f32."""
+    if mode == "pallas":
+        raise ValueError("gossip mode 'pallas' has no meaning in the port: "
+                         "'sparse' runs the CUDA gossip_gather kernel on a "
+                         "CUDA buffer")
+    if mode not in MODES:
+        raise ValueError(f"gossip mode {mode!r}; known: {MODES}")
+    if edge_gate is not None:
+        raise NotImplementedError("edge_gate (the async mailbox mix) is "
+                                  "ported with the async runtime (ROADMAP "
+                                  "queue 1 item 11)")
+    if codec is not None:
+        raise NotImplementedError("wire codecs are ported with compression "
+                                  "(ROADMAP queue 1 item 10)")
+    x = flat.to(wire_dtype) if wire_dtype is not None else flat
+    mixed, mu2 = _transmit(P, x, mu, mode)
+    return mixed.to(flat.dtype), mu2

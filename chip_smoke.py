@@ -7,19 +7,27 @@
 Phases, one JSON line each (any failed check exits nonzero and the final
 line is never printed):
 
-1. device   — the card's name and power limit; both TF32 flags set False
-              (parity against f32 needs full-precision convs and matmuls);
-2. build    — the CUDA kernels built from src/repro_torch/csrc/ (one nvcc
-              per source, all started together);
-3. kernels  — each kernel against its plain torch version on the card;
-4. train    — run_experiment("dfedpgp", SimConfig(rounds=5)) at the paper
-              defaults on CUDA; gossip_gather must launch once per round;
-5. parity   — 2 rounds on CUDA and on the CPU from one init, tables and
-              batches: the kernel on the main path against the plain path;
-6. serve    — mixed-user batches served from the trained state through
-              head_gather_matmul, against force="ref" and serve_naive;
-7. timings  — each kernel at the main path's shape: kernel, plain and
-              library-call ms (CUDA events), the card's bound, launches.
+1. device     — the card's name and power limit; both TF32 flags set False
+                (parity against f32 needs full-precision convs and matmuls);
+2. build      — the CUDA kernels built from src/repro_torch/csrc/ (one
+                nvcc per source, all started together);
+3. kernels    — each kernel against its plain torch version on the card,
+                at the main paths' shapes and awkward ones;
+4. train      — run_experiment("dfedpgp", SimConfig(rounds=5)) at the paper
+                defaults on CUDA; gossip_gather must launch once per round;
+5. parity     — 2 rounds on CUDA and on the CPU from one init, tables and
+                batches: the kernel on the main path against the plain path;
+6. sampled    — run_experiment with participation="uniform", frac 0.25:
+                gossip_scatter twice and gossip_gather once per round,
+                dormant clients frozen bit for bit, sum(mu) = m; one
+                sample-all round against round_fn_flat;
+7. kernel_mix — 3 rounds of DFedPGP(mix_fn_flat=make_kernel_mix_flat()):
+                pushsum_mix once per round; one round against "sparse";
+                2 tree-form rounds (SimConfig(resident=False));
+8. serve      — mixed-user batches served from the trained state through
+                head_gather_matmul, against force="ref" and serve_naive;
+9. timings    — each kernel at its path's shape: kernel, plain and
+                library-call ms (CUDA events), the card's bound, launches.
 
 The last line is {"ok": true, "device": {...}}.  The script imports
 nothing of JAX.
@@ -34,8 +42,8 @@ import sys
 import time
 from pathlib import Path
 
-PHASES = ("device", "build", "kernels", "train", "parity", "serve",
-          "timings")
+PHASES = ("device", "build", "kernels", "train", "parity", "sampled",
+          "kernel_mix", "serve", "timings")
 # published peaks (NVIDIA data sheets, dense): bytes/s of device memory and
 # f32 FLOP/s outside the tensor cores
 PEAKS = {"PCIe": (2.0e12, 51e12), "NVL": (3.9e12, 60e12),
@@ -252,8 +260,97 @@ def phase_kernels(ctx):
                         "shape": [B, d, n, m],
                         "dtype": f"{hdt}/{wdt}".replace("torch.", ""),
                         "max_abs_err": err, "ok": True})
+    results += _scatter_cases(ctx)
+    results += _pushsum_cases(ctx)
     torch.cuda.synchronize()
     emit("kernels", cases=len(results), results=results)
+
+
+def _scatter_cases(ctx):
+    """gossip_scatter against its plain version on the card: f32 and bf16
+    U, f32 X into a bf16 U, set and accumulate, unsorted rows, n in {0, 1,
+    25, m}, d in {1, 5, 513, 13,328} (13,328 takes the vector path, the
+    others and a 4-byte-offset X the scalar one).  Set is an exact copy and
+    accumulate one f32 add then one rounding on both sides: bitwise.  The
+    kernel writes into U's storage: data_ptr unchanged, dormant rows
+    untouched."""
+    torch = ctx["torch"]
+    from repro_torch.kernels import ops
+    f32, bf16 = torch.float32, torch.bfloat16
+    m, results, worst = 100, [], 0.0
+    g = torch.Generator(device="cuda").manual_seed(7)
+    cases = [(n, d, xt, ut, acc) for n in (0, 1, 25, m)
+             for d in (1, 5, 513, 13328)
+             for xt, ut in ((f32, f32), (bf16, bf16), (f32, bf16))
+             for acc in (False, True)]
+    for i, (n, d, xt, ut, acc) in enumerate(cases):
+        rows = torch.randperm(m, generator=g, device="cuda")[:n].to(
+            torch.int32)
+        X = torch.randn((n, d), generator=g, device="cuda").to(xt)
+        if i % 7 == 3 and n:
+            # a 4-byte offset: the kernel must fall back to scalar access
+            X = torch.empty(n * d + 1, device="cuda", dtype=xt)[1:].view(
+                n, d).copy_(X)
+        U0 = torch.randn((m, d), generator=g, device="cuda").to(ut)
+        U, want = U0.clone(), U0.clone()
+        ptr = U.data_ptr()
+        got = ops.gossip_scatter(rows, X, U, accumulate=acc, force="cuda")
+        ops.gossip_scatter(rows, X, want, accumulate=acc, force="ref")
+        torch.cuda.synchronize()
+        dormant = torch.ones(m, dtype=torch.bool, device="cuda")
+        dormant[rows.long()] = False
+        err = max_abs(got, want)
+        worst = max(worst, err)
+        check(got is U and U.data_ptr() == ptr and got.dtype == ut,
+              f"gossip_scatter {(n, d)} did not write in place")
+        check(torch.equal(got, want) and torch.equal(got[dormant],
+                                                     U0[dormant]),
+              f"gossip_scatter {(n, d)} X {xt} U {ut} acc={acc} err {err}")
+        results.append({"kernel": "gossip_scatter", "shape": [m, n, d],
+                        "dtype": f"{xt}->{ut}".replace("torch.", ""),
+                        "accumulate": acc, "check": "bitwise == ref",
+                        "max_abs_err": err, "ok": True})
+    ctx["scatter_err"] = worst
+    return results
+
+
+def _pushsum_cases(ctx):
+    """pushsum_mix against P.float() @ U.float() (cuBLAS, TF32 off) at m in
+    {1, 7, 8, 100, 257}, d in {1, 511, 513, 13,328}, f32 and bf16 U.  Both
+    sum m f32 products in other orders: rtol/atol 1e-5 for f32 U; a bf16
+    output rounds once on each side, so one bf16 ulp, rtol/atol 8e-3."""
+    torch = ctx["torch"]
+    from repro_torch.kernels import ops
+    f32, bf16 = torch.float32, torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(11)
+    results, worst = [], {}
+    for m in (1, 7, 8, 100, 257):
+        P = torch.rand((m, m), generator=g, device="cuda")
+        P = (P / P.sum(1, keepdim=True)).contiguous()
+        for d in (1, 511, 513, 13328):
+            U32 = torch.randn((m, d), generator=g, device="cuda")
+            for dt in (f32, bf16):
+                U = U32.to(dt)
+                got = ops.pushsum_mix(P, U, force="cuda")
+                want = (P.float() @ U.float()).to(dt)
+                torch.cuda.synchronize()
+                tol = 1e-5 if dt == f32 else 8e-3
+                err = max_abs(got, want)
+                worst[str(dt)] = max(worst.get(str(dt), 0.0), err)
+                check(got.dtype == dt and torch.allclose(
+                    got.float(), want.float(), rtol=tol, atol=tol),
+                    f"pushsum_mix {(m, d)} {dt} err {err}")
+                if (m, d, dt) == (100, 13328, f32):
+                    ctx["pushsum_err"] = err
+                results.append({"kernel": "pushsum_mix", "shape": [m, d],
+                                "dtype": str(dt).split(".")[-1],
+                                "rtol_atol": tol, "max_abs_err": err,
+                                "ok": True})
+    empty = ops.pushsum_mix(torch.zeros((0, 0), device="cuda"),
+                            torch.zeros((0, 8), device="cuda"), force="cuda")
+    check(empty.shape == (0, 8), "pushsum_mix m=0")
+    ctx["pushsum_worst_err"] = worst
+    return results
 
 
 def phase_train(ctx):
@@ -330,6 +427,203 @@ def phase_parity(ctx):
             tree.get(b.opt_v.momentum, path))
     emit("parity", rounds=sim.rounds, m=sim.m, rtol=1e-4, atol=5e-5,
          max_abs_err=errs)
+
+
+def _paper_algo(sim, torch, **kw):
+    """The DFedPGP run_experiment builds at the paper defaults, with extra
+    fields `kw` (e.g. mix_fn_flat)."""
+    from repro_torch.core import dfedpgp, partition
+    from repro_torch.models import cnn
+    from repro_torch.optim import SGD
+    cfg = cnn.CNNConfig(image_size=sim.image_size, n_classes=sim.n_classes)
+    opt = SGD(lr=sim.lr, momentum=sim.momentum,
+              weight_decay=sim.weight_decay)
+    mask = partition.build_mask(cnn.init_params(torch.Generator(), cfg),
+                                partition.classifier_personal)
+    return dfedpgp.DFedPGP(loss_fn=lambda p, b: cnn.loss_fn(p, b, cfg),
+                           mask=mask, opt_u=opt, opt_v=opt,
+                           k_v=sim.k_personal, k_u=sim.k_local,
+                           lr_decay=sim.lr_decay, **kw), cfg
+
+
+def _clone_flat_state(state):
+    from repro_torch import tree
+    from repro_torch.core.dfedpgp import FlatDFedPGPState
+    from repro_torch.optim import SGDState
+    return FlatDFedPGPState(
+        state.flat.clone(), tree.tree_map(lambda a: a.clone(),
+                                          state.personal),
+        state.mu.clone(), SGDState(state.opt_u.momentum.clone()),
+        SGDState(tree.tree_map(lambda a: a.clone(), state.opt_v.momentum)),
+        state.round.clone())
+
+
+def _round_batches(sim, data, seed, torch):
+    from repro_torch.data import sample_batches
+    b = sample_batches(torch.Generator().manual_seed(seed), data,
+                       sim.k_local + sim.k_personal, sim.batch)
+    kv = sim.k_personal
+    return {"v": {k: a[:, :kv] for k, a in b.items()},
+            "u": {k: a[:, kv:] for k, a in b.items()}}
+
+
+def phase_sampled(ctx):
+    """Partial participation at the paper defaults: 5 rounds of 25 of 100
+    clients through run_experiment, then one sample-all round against
+    round_fn_flat from the same state."""
+    torch = ctx["torch"]
+    from repro_torch import tree
+    from repro_torch.core import sampling, topology
+    from repro_torch.data import make_dataset
+    from repro_torch.fl.simulator import SimConfig, run_experiment
+    from repro_torch.kernels import ops
+    from repro_torch.models import cnn
+    sim = SimConfig(rounds=5, participation="uniform",
+                    participation_frac=0.25)
+    cfg = cnn.CNNConfig(image_size=sim.image_size, n_classes=sim.n_classes)
+    init = cnn.init_params(torch.Generator().manual_seed(3), cfg, (sim.m,))
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = run_experiment("dfedpgp", sim, device="cuda", eval_every=1,
+                          return_state=True, init_params=init)
+    seconds = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    check(counts["gossip_scatter"] == 2 * sim.rounds
+          and counts["gossip_gather"] == sim.rounds
+          and counts["pushsum_mix"] == 0,
+          f"sampled run launches {counts} in {sim.rounds} rounds")
+    check(all(map(lambda v: v == v and v < 1e3, hist["loss"])),
+          f"non-finite loss {hist['loss']}")
+    st, layout = hist["state"], hist["layout"]
+    sampler = sampling.get_sampler("uniform", sim.m, sim.participation_frac,
+                                   sim.seed)
+    ever = torch.zeros(sim.m, dtype=torch.bool)
+    for r in range(sim.rounds):
+        ever[torch.as_tensor(sampler.active_at(r)).long()] = True
+    dormant = (~ever).cuda()
+    algo, _ = _paper_algo(sim, torch)
+    st0, _ = algo.init_flat(init, device="cuda")
+    frozen = torch.equal(st.flat[dormant], st0.flat[dormant]) and \
+        torch.equal(st.mu[dormant], st0.mu[dormant]) and \
+        torch.equal(st.opt_u.momentum[dormant], st0.opt_u.momentum[dormant])
+    for path, leaf in tree.paths(st.personal):
+        frozen &= torch.equal(leaf[dormant],
+                              tree.get(st0.personal, path)[dormant])
+    check(bool(dormant.any()) and frozen,
+          f"{int(dormant.sum())} dormant clients: rows not frozen")
+    check(bool((st.flat[~dormant] != st0.flat[~dormant]).any()),
+          "active rows did not move")
+    mu_sum = float(st.mu.sum())
+    check(abs(mu_sum - sim.m) <= 1e-6 * sim.m, f"sum mu = {mu_sum}")
+
+    # sample-all on the sampled path vs round_fn_flat, one round from one
+    # state (same tables, batches): the same local steps on the same rows;
+    # the mixes sum in one order.  Tolerance rtol 1e-5, atol 1e-6; whether
+    # it came out bitwise is reported
+    data = make_dataset(sim.seed, sim.m, n_train=sim.n_train,
+                        n_test=sim.n_test, device="cuda")
+    P = topology.get_schedule("random", sim.m, sim.n_neighbors, 9).at(0)
+    b = _round_batches(sim, data, 900, torch)
+    everyone = torch.arange(sim.m, dtype=torch.int32)
+    ops.reset_launch_counts()
+    a_state, _ = algo.round_fn_sampled(
+        _clone_flat_state(st), topology.induced_subgraph(P, everyone).to(
+            "cuda"), everyone, b, layout)
+    sample_all_counts = ops.launch_counts()
+    f_state, _ = algo.round_fn_flat(_clone_flat_state(st), P.to("cuda"), b,
+                                    layout)
+    torch.cuda.synchronize()
+    errs, bitwise = {}, True
+    for name, x, y in (("flat", a_state.flat, f_state.flat),
+                       ("mu", a_state.mu, f_state.mu),
+                       ("opt_u", a_state.opt_u.momentum,
+                        f_state.opt_u.momentum)):
+        errs[name] = max_abs(x, y)
+        bitwise &= torch.equal(x, y)
+        check(torch.allclose(x, y, rtol=1e-5, atol=1e-6),
+              f"sample-all vs round_fn_flat {name}: {errs[name]}")
+    ms = [s * 1e3 for s in hist["round_s"]]
+    emit("sampled", m=sim.m, frac=sim.participation_frac,
+         n_active=sampler.n_active, rounds=sim.rounds, launches=counts,
+         loss=hist["loss"], acc=hist["acc"], round_ms=ms,
+         ms_per_round_after_first=statistics.median(ms[1:]),
+         seconds=round(seconds, 3), dormant_clients=int(dormant.sum()),
+         dormant_rows_frozen=True, mu_sum=mu_sum,
+         sample_all={"launches": sample_all_counts, "rtol": 1e-5,
+                     "atol": 1e-6, "max_abs_err": errs,
+                     "bitwise": bool(bitwise)})
+    ctx.update(sampled_launches=counts, sampled_state=st)
+
+
+def phase_kernel_mix(ctx):
+    """3 rounds of DFedPGP(mix_fn_flat=make_kernel_mix_flat()) at the paper
+    defaults: the dense pushsum_mix kernel, once per round; then one round
+    from one state against the default "sparse" round; then 2 tree-form
+    rounds through run_experiment(resident=False)."""
+    torch = ctx["torch"]
+    from repro_torch.core import topology
+    from repro_torch.core.kernel_mix import make_kernel_mix_flat
+    from repro_torch.data import make_dataset
+    from repro_torch.fl.simulator import SimConfig, run_experiment
+    from repro_torch.kernels import ops
+    from repro_torch.models import cnn
+    sim = SimConfig()
+    algo, cfg = _paper_algo(sim, torch, mix_fn_flat=make_kernel_mix_flat())
+    sparse_algo, _ = _paper_algo(sim, torch)
+    data = make_dataset(sim.seed, sim.m, n_train=sim.n_train,
+                        n_test=sim.n_test, device="cuda")
+    init = cnn.init_params(torch.Generator().manual_seed(4), cfg, (sim.m,))
+    state, layout = algo.init_flat(init, device="cuda")
+    sched = topology.get_schedule("random", sim.m, sim.n_neighbors, 4)
+    rounds, ms, losses = 3, [], []
+    ops.reset_launch_counts()
+    for r in range(rounds):
+        b = _round_batches(sim, data, 400 + r, torch)
+        t0 = time.perf_counter()
+        state, metrics = algo.round_fn_flat(state, sched.at(r).to("cuda"),
+                                            b, layout)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss_u"]))
+    counts = ops.launch_counts()
+    check(counts["pushsum_mix"] == rounds and counts["gossip_gather"] == 0,
+          f"kernel-mix run launches {counts} in {rounds} rounds")
+    mu_sum = float(state.mu.sum())
+    check(bool(torch.isfinite(state.flat).all())
+          and abs(mu_sum - sim.m) <= 1e-5 * sim.m,
+          f"kernel-mix state: finite flat, sum mu {mu_sum}")
+    # one round from one state: dense P sums 100 terms (89 exact zeros)
+    # with FMAs in column order, the sparse gather 11 in neighbor order
+    # with rounded products: rtol 1e-5, atol 1e-6
+    b = _round_batches(sim, data, 499, torch)
+    P = sched.at(rounds).to("cuda")
+    dense, _ = algo.round_fn_flat(_clone_flat_state(state), P, b, layout)
+    sparse, _ = sparse_algo.round_fn_flat(_clone_flat_state(state), P, b,
+                                          layout)
+    torch.cuda.synchronize()
+    errs = {"flat": max_abs(dense.flat, sparse.flat),
+            "mu": max_abs(dense.mu, sparse.mu)}
+    check(torch.allclose(dense.flat, sparse.flat, rtol=1e-5, atol=1e-6)
+          and torch.allclose(dense.mu, sparse.mu, rtol=1e-5, atol=1e-6),
+          f"kernel mix vs sparse round: {errs}")
+    ctx["kernel_mix_launches"] = counts
+
+    # the tree-form round (resident=False) through run_experiment: its
+    # shared leaves flatten and mix through gossip_gather once per round
+    tree_sim = SimConfig(rounds=2, resident=False)
+    ops.reset_launch_counts()
+    tree_hist = run_experiment("dfedpgp", tree_sim, device="cuda",
+                               eval_every=1)
+    tree_counts = ops.launch_counts()
+    check(tree_counts["gossip_gather"] == tree_sim.rounds
+          and all(map(lambda v: v == v and v < 1e3, tree_hist["loss"])),
+          f"tree-form run: launches {tree_counts}, loss {tree_hist['loss']}")
+    emit("kernel_mix", m=sim.m, rounds=rounds, launches=counts,
+         loss=losses, round_ms=ms, mu_sum=mu_sum,
+         vs_sparse={"rtol": 1e-5, "atol": 1e-6, "max_abs_err": errs},
+         tree_form={"rounds": tree_sim.rounds, "launches": tree_counts,
+                    "loss": tree_hist["loss"], "acc": tree_hist["acc"],
+                    "round_ms": [t * 1e3 for t in tree_hist["round_s"]]})
 
 
 def phase_serve(ctx):
@@ -480,8 +774,59 @@ def phase_timings(ctx):
         "bound_by": big["bound_by"], "library_ms": big["library_ms"],
         "call_ms": big["call_ms"], "shape": [1024, 64, 10, 100],
         "dtype": "float32"})
+    # gossip_scatter at the sampled path's shape (m=100, n=25 of frac
+    # 0.25, f32) and at bench scale (m=4096, n=1024): X read once and n
+    # rows written (plus the row ids); no operations
+    per_shape = {}
+    g = torch.Generator(device="cuda").manual_seed(12)
+    for m, n in ((100, 25), (4096, 1024)):
+        d = 13328
+        U = torch.randn((m, d), generator=g, device="cuda")
+        X = torch.randn((n, d), generator=g, device="cuda")
+        rows = torch.randperm(m, generator=g, device="cuda")[:n].sort()[
+            0].to(torch.int32)
+        rl = rows.long()
+        t = measure(lambda: ops.gossip_scatter(rows, X, U, force="cuda"),
+                    lambda: ops.gossip_scatter(rows, X, U, force="ref"),
+                    lambda: U.index_copy_(0, rl, X))
+        sb_ms, sb_by = bound(2 * n * d * 4 + n * 4, 0)
+        per_shape[f"{m}x{n}"] = dict(t, bound_ms=sb_ms, bound_us=sb_ms * 1e3,
+                                     bound_by=sb_by, shape=[m, n, d])
+    main = per_shape["100x25"]
+    kernels.append({
+        "name": "gossip_scatter", "route": "cuda",
+        "source": "src/repro_torch/csrc/gossip_scatter.cu",
+        "replaces": "src/repro/kernels/gossip_scatter.py:149",
+        "launches": ctx["sampled_launches"]["gossip_scatter"],
+        "max_abs_err": ctx["scatter_err"], "ms": main["ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+        "call_ms": main["call_ms"], "shape": [100, 25, 13328],
+        "dtype": "float32"})
+
+    # pushsum_mix at the kernel-mix path's shape (m=100, d=13,328, f32):
+    # P and U read once, the output written once; 2*m*m*d operations
+    m, d = 100, 13328
+    Pd = topology.get_schedule("random", m, 10, 0).at(0).to("cuda").dense()
+    U = torch.randn((m, d), device="cuda")
+    t = measure(lambda: ops.pushsum_mix(Pd, U, force="cuda"),
+                lambda: ops.pushsum_mix(Pd, U, force="ref"),
+                lambda: torch.matmul(Pd, U))
+    pb_ms, pb_by = bound(m * m * 4 + 2 * m * d * 4, 2 * m * m * d)
+    kernels.append({
+        "name": "pushsum_mix", "route": "cuda",
+        "source": "src/repro_torch/csrc/pushsum_mix.cu",
+        "replaces": "src/repro/kernels/pushsum_mix.py:53",
+        "launches": ctx["kernel_mix_launches"]["pushsum_mix"],
+        "max_abs_err": ctx["pushsum_err"], "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": pb_ms, "bound_by": pb_by,
+        "library_ms": t["library_ms"], "call_ms": t["call_ms"],
+        "shape": [m, m, d], "dtype": "float32"})
+    pushsum_detail = dict(t, bound_us=pb_ms * 1e3, bound_by=pb_by)
     emit("timings", card=ctx["smi"], gossip_gather=gossip_detail,
+         gossip_scatter_by_shape=per_shape, pushsum_mix=pushsum_detail,
          round_profile=profile_rounds(ctx),
+         round_profile_sampled=profile_rounds(ctx, frac=0.25),
          head_gather_matmul_by_batch=per_b,
          note="ms/plain_ms/library_ms: device time per call summed over "
               "the kernels each puts on the card (torch.profiler, 50 "
@@ -491,40 +836,38 @@ def phase_timings(ctx):
     ctx["kernels"] = kernels
 
 
-def profile_rounds(ctx, rounds: int = 3) -> dict:
-    """Where a round's time goes: torch.profiler over `rounds` resident
-    rounds continuing from the trained state (after one warm round), with
-    the device's busy share and the kernels that take most of it."""
+def profile_rounds(ctx, rounds: int = 3, frac: float = 1.0) -> dict:
+    """Where a round's time goes: torch.profiler over `rounds` rounds
+    continuing from the trained state (after one warm round), with the
+    device's busy share and the kernels that take most of it.  frac < 1
+    profiles sampled rounds (uniform participation, the host's sampler
+    and induced-subgraph work included) from the sampled phase's state."""
     torch = ctx["torch"]
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import dfedpgp, partition, topology
-    from repro_torch.data import make_dataset, sample_batches
-    from repro_torch.models import cnn
-    from repro_torch.optim import SGD
+    from repro_torch.core import sampling, topology
+    from repro_torch.data import make_dataset
     sim, layout = ctx["sim"], ctx["train_layout"]
-    cfg = cnn.CNNConfig(image_size=sim.image_size, n_classes=sim.n_classes)
-    opt = SGD(lr=sim.lr, momentum=sim.momentum,
-              weight_decay=sim.weight_decay)
-    mask = partition.build_mask(cnn.init_params(torch.Generator(), cfg),
-                                partition.classifier_personal)
-    algo = dfedpgp.DFedPGP(loss_fn=lambda p, b: cnn.loss_fn(p, b, cfg),
-                           mask=mask, opt_u=opt, opt_v=opt,
-                           k_v=sim.k_personal, k_u=sim.k_local,
-                           lr_decay=sim.lr_decay)
+    algo, _ = _paper_algo(sim, torch)
     data = make_dataset(sim.seed, sim.m, n_train=sim.n_train,
                         n_test=sim.n_test, device="cuda")
     sched = topology.get_schedule("random", sim.m, sim.n_neighbors, 1)
-    kv = sim.k_personal
+    sampler = sampling.get_sampler("uniform", sim.m, frac, 1) \
+        if frac < 1.0 else None
 
     def one_round(state, r):
-        b = sample_batches(torch.Generator().manual_seed(500 + r), data,
-                           sim.k_local + sim.k_personal, sim.batch)
-        b = {"v": {k: a[:, :kv] for k, a in b.items()},
-             "u": {k: a[:, kv:] for k, a in b.items()}}
-        return algo.round_fn_flat(state, sched.at(r).to("cuda"), b,
-                                  layout)[0]
+        b = _round_batches(sim, data, 500 + r, torch)
+        if sampler is None:
+            return algo.round_fn_flat(state, sched.at(r).to("cuda"), b,
+                                      layout)[0]
+        active = torch.as_tensor(sampler.active_at(r))
+        idx = active.long().cuda()
+        b = {part: {k: a.index_select(0, idx) for k, a in bp.items()}
+             for part, bp in b.items()}
+        P = topology.induced_subgraph(sched.at(r), active).to("cuda")
+        return algo.round_fn_sampled(state, P, active, b, layout)[0]
 
-    state = one_round(ctx["train_state"], 0)
+    start = ctx["train_state"] if sampler is None else ctx["sampled_state"]
+    state = one_round(start, 0)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -537,7 +880,8 @@ def profile_rounds(ctx, rounds: int = 3) -> dict:
     check(bool(events), "torch.profiler saw no device time")
     busy_ms = sum(_dev_us(e) for e in events) / 1e3
     top = sorted(events, key=_dev_us, reverse=True)[:10]
-    return {"rounds": rounds, "wall_ms_per_round": wall_ms / rounds,
+    return {"rounds": rounds, "frac": frac,
+            "wall_ms_per_round": wall_ms / rounds,
             "device_busy_ms_per_round": busy_ms / rounds,
             "device_busy_share": busy_ms / wall_ms,
             "device_events_per_round": sum(e.count for e in events) / rounds,
@@ -571,14 +915,17 @@ def main(argv=None) -> int:
 
     ctx = {"torch": torch}
     wanted = set(only) | {"device"}
-    needs = {"serve": {"train"}, "timings": {"kernels", "train", "serve"}}
+    needs = {"serve": {"train"},
+             "timings": {"kernels", "train", "sampled", "kernel_mix",
+                         "serve"}}
     for phase in only:
         missing = needs.get(phase, set()) - wanted
         if missing:
             ap.error(f"phase {phase} needs {sorted(missing)}")
     fns = {"device": phase_device, "build": phase_build,
            "kernels": phase_kernels, "train": phase_train,
-           "parity": phase_parity, "serve": phase_serve,
+           "parity": phase_parity, "sampled": phase_sampled,
+           "kernel_mix": phase_kernel_mix, "serve": phase_serve,
            "timings": phase_timings}
     t0 = time.perf_counter()
     for phase in PHASES:

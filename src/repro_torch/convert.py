@@ -4,14 +4,16 @@ The reference's CNN parameter dict and the port's have the same keys and
 layouts (HWIO conv kernels, (in, out) dense weights), so conversion is a
 copy of each array.  Where the reference keeps None placeholders at the
 other partition side's leaves, the port's pruned trees drop them.  Inputs
-are numpy arrays (or anything `numpy.asarray` accepts).
+are numpy arrays (or anything `numpy.asarray` accepts): the reference's
+tree-form and resident DFedPGP states and its hetero `ClientProfile`.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .core.dfedpgp import FlatDFedPGPState
+from .core.dfedpgp import DFedPGPState, FlatDFedPGPState
+from .hetero.profiles import ClientProfile
 from .optim import SGDState
 
 
@@ -47,3 +49,28 @@ def flat_state_from_reference(*, flat, personal, mu, mom_u, mom_v, round,
         opt_v=SGDState(params_from_reference(mom_v, device)),
         round=torch.tensor(int(np.asarray(round)), dtype=torch.int32,
                            device=device))
+
+
+def tree_state_from_reference(*, params, mu, mom_u, mom_v, round,
+                              device="cpu") -> DFedPGPState:
+    """The reference DFedPGPState's arrays -> the port's tree-form state:
+    params, mom_u (opt_u momentum) and mom_v (opt_v momentum) are full
+    trees — the momentum trees with their (m,) scalar placeholders at the
+    other part's leaves, as the reference keeps them."""
+    return DFedPGPState(
+        params=params_from_reference(params, device),
+        mu=_tensor(mu, device).to(torch.float32),
+        opt_u=SGDState(params_from_reference(mom_u, device)),
+        opt_v=SGDState(params_from_reference(mom_v, device)),
+        round=torch.tensor(int(np.asarray(round)), dtype=torch.int32,
+                           device=device))
+
+
+def profile_from_reference(*, step_cost, push_delay, avail_period,
+                           avail_duty, avail_phase) -> ClientProfile:
+    """The reference ClientProfile's (m,) arrays -> the port's (numpy)."""
+    return ClientProfile(np.asarray(step_cost, np.float32),
+                         np.asarray(push_delay, np.int32),
+                         np.asarray(avail_period, np.float32),
+                         np.asarray(avail_duty, np.float32),
+                         np.asarray(avail_phase, np.float32))

@@ -9,11 +9,16 @@ Port of the uncompressed half of `repro/core/gossip.py`:
    the reference's wire order (sorted keys: conv1, conv2, dense, gb1, gb2,
    gn1, gn2 for the CNN); the tree form is rebuilt only at the loss / eval
    boundary.
-3. `mix_flat` — one push-pull transmission on the resident buffer.  Mode
-   "sparse" sends the buffer through `kernels.ops.gossip_gather`: the CUDA
-   kernel for a CUDA buffer, the plain version (equal to `mix_rows`) for a
-   CPU buffer.  Mode "dense" contracts against the (m, m) matrix.  mu
-   always mixes through `mix_rows` in f32.
+3. `mix_flat` — one push-pull transmission on the resident buffer, and
+   `gossip_mix` / `mix_tree`, its tree-form counterparts.  The modes keep
+   the reference's meanings:
+     "dense"  — the (m, m) contraction in the payload dtype;
+     "sparse" — `mix_rows` in the payload dtype.  An f32 payload goes
+                through `kernels.ops.gossip_gather` (the CUDA kernel on a
+                CUDA buffer), which equals `mix_rows` bit for bit in f32;
+     "pallas" — the fused gather that accumulates in f32 and rounds once:
+                `kernels.ops.gossip_gather` in every payload dtype.
+   mu always mixes through `mix_rows` in f32.
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ from ..kernels import ops
 from . import partition
 from .topology import SparseTopology
 
-MODES = ("dense", "sparse")
+MODES = ("dense", "sparse", "pallas")
 
 
 def mix_rows(idx: torch.Tensor, w: torch.Tensor,
@@ -63,6 +68,12 @@ def mix_any(P, x: torch.Tensor) -> torch.Tensor:
     return torch.einsum("mn,n...->m...", Pd.to(x.dtype), x)
 
 
+def mix_tree(P, params: dict) -> dict:
+    """mix_any over every leaf of a stacked params tree (the per-leaf
+    gossip of the tree-form engines)."""
+    return tree.tree_map(lambda a: mix_any(P, a), params)
+
+
 # ---------------------------------------------------------------------------
 # flat-buffer layout
 # ---------------------------------------------------------------------------
@@ -82,6 +93,14 @@ def flatten_shared(params: dict, mask: dict, dtype=None) -> torch.Tensor:
     dt = dtype if dtype is not None else functools.reduce(
         torch.promote_types, (x.dtype for x in leaves))
     return torch.cat([x.reshape(m, -1).to(dt) for x in leaves], dim=1)
+
+
+def unflatten_shared(flat: torch.Tensor, params: dict, mask: dict) -> dict:
+    """Inverse of flatten_shared: slice the (m, d_flat) buffer back into the
+    shared leaves (cast to each leaf's dtype); personal leaves pass through
+    from `params` untouched."""
+    _, v = partition.split(params, mask)
+    return partition.merge(FlatLayout.build(params, mask).unravel(flat), v)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,7 +179,7 @@ class FlatClientState(NamedTuple):
 
 
 def _transmit(P, x: torch.Tensor, mu: torch.Tensor, mode: str):
-    """The bare push-pull contraction of (x, mu)."""
+    """The bare push-pull contraction of (x, mu) in the payload's dtype."""
     sparse = isinstance(P, SparseTopology)
     if no_sparsity(P):
         mode = "dense"
@@ -168,7 +187,16 @@ def _transmit(P, x: torch.Tensor, mu: torch.Tensor, mode: str):
         Pd = P.dense() if sparse else P
         return (torch.einsum("mn,nd->md", Pd.to(x.dtype), x),
                 torch.einsum("mn,n->m", Pd, mu))
-    return ops.gossip_gather(P.idx, P.w, x), mix_rows(P.idx, P.w, mu)
+    if mode == "pallas" or x.dtype == torch.float32:
+        mixed = ops.gossip_gather(P.idx, P.w, x)
+    else:
+        mixed = mix_rows(P.idx, P.w, x)
+    return mixed, mix_rows(P.idx, P.w, mu)
+
+
+def _check_mode(mode: str) -> None:
+    if mode not in MODES:
+        raise ValueError(f"gossip mode {mode!r}; known: {MODES}")
 
 
 def mix_flat(P, flat: torch.Tensor, mu: torch.Tensor, *,
@@ -177,12 +205,7 @@ def mix_flat(P, flat: torch.Tensor, mu: torch.Tensor, *,
     """One push-pull transmission on the resident buffer: flat' = P flat,
     mu' = P mu.  A wire_dtype narrows only the payload of the mix (the
     buffer returns in its resident dtype); mu always mixes in f32."""
-    if mode == "pallas":
-        raise ValueError("gossip mode 'pallas' has no meaning in the port: "
-                         "'sparse' runs the CUDA gossip_gather kernel on a "
-                         "CUDA buffer")
-    if mode not in MODES:
-        raise ValueError(f"gossip mode {mode!r}; known: {MODES}")
+    _check_mode(mode)
     if edge_gate is not None:
         raise NotImplementedError("edge_gate (the async mailbox mix) is "
                                   "ported with the async runtime (ROADMAP "
@@ -193,3 +216,33 @@ def mix_flat(P, flat: torch.Tensor, mu: torch.Tensor, *,
     x = flat.to(wire_dtype) if wire_dtype is not None else flat
     mixed, mu2 = _transmit(P, x, mu, mode)
     return mixed.to(flat.dtype), mu2
+
+
+def gossip_mix(params: dict, mu: torch.Tensor, P, mask: dict, *,
+               mode: str = "sparse", wire_dtype=None):
+    """One push-pull transmission of the shared part of a stacked params
+    tree, plus the mu update -> (params', mu').  "dense" (or a dense P)
+    mixes leaf by leaf; "sparse"/"pallas" flatten the shared leaves in wire
+    order, mix the buffer as `mix_flat` does, and slice it back."""
+    _check_mode(mode)
+    sparse = isinstance(P, SparseTopology)
+    if sparse and not any(tree.leaves(mask)):
+        # all-personal mask: nothing to mix but mu
+        return params, mix_any(P, mu)
+    if no_sparsity(P):
+        mode = "dense"
+    if mode == "dense" or not sparse:
+        Pd = P.dense() if sparse else P
+
+        def mix_leaf(a, shared):
+            if not shared:
+                return a
+            x = a.to(wire_dtype) if wire_dtype is not None else a
+            return torch.einsum("mn,n...->m...", Pd.to(x.dtype), x
+                                ).to(a.dtype)
+
+        return (tree.tree_map(mix_leaf, params, mask),
+                torch.einsum("mn,n->m", Pd, mu))
+    flat = flatten_shared(params, mask, dtype=wire_dtype)
+    mixed, mu2 = _transmit(P, flat, mu, mode)
+    return unflatten_shared(mixed, params, mask), mu2

@@ -1,23 +1,27 @@
 """Shared local-SGD machinery (port of `repro/core/local.py`).
 
-The reference writes the local steps per client and vmaps the round; the
-port writes the client axis out: every step takes all m clients' gradients
-at once with `torch.func.vmap(torch.func.grad_and_value(...))`, and the
-optimizer update runs on the stacked (m, ...) tensors — elementwise, so it
-is each client's own update.  `scan` over the steps is a Python loop.
+As in the reference, `sgd_steps` and `masked_grads` are one client's
+functions: batches lead with the step axis (K, B, ...), and a round runs
+them under `torch.func.vmap` over the stacked client axis.  The resident
+u-steps write the client axis out instead (`step_batch`, `n_steps` take
+stacked (m, K, B, ...) batches): each step takes all m clients' gradients
+with `vmap(grad_and_value(...))` and updates the stacked buffer.  `scan`
+over the steps is a Python loop.
 """
 from __future__ import annotations
 
 from typing import Callable
 
 import torch
-from torch.func import grad_and_value, vmap
+from torch.func import grad_and_value
 
+from .. import tree
+from ..optim import SGDState
 from . import partition
 
 
 def step_batch(batches: dict, k: int) -> dict:
-    """Step k of per-client batches with leaves (m, K, B, ...)."""
+    """Step k of stacked batches with leaves (m, K, B, ...)."""
     return {name: leaf[:, k] for name, leaf in batches.items()}
 
 
@@ -36,17 +40,43 @@ def flat_view_loss(loss_fn: Callable, layout) -> Callable:
     return wrapped
 
 
-def sgd_steps(loss_fn: Callable, opt, params, opt_state, batches: dict,
-              lr_scale, extra: tuple = ()):
-    """Run K SGD steps on stacked params of m clients.
+def masked_grads(grads: dict, mask: dict, keep_shared: bool) -> dict:
+    """One client's gradients with the other part's leaves zeroed: inactive
+    leaves become SCALAR zeros, so SGD leaves the parameter unchanged, adds
+    no weight decay there, and keeps that part's momentum a scalar
+    placeholder."""
+    return tree.tree_map(
+        lambda g, shared: g if shared == keep_shared
+        else torch.zeros((), dtype=g.dtype, device=g.device), grads, mask)
 
-    loss_fn(p, batch, *extra) is one client's loss; batches leaves are
-    (m, K, B, ...) and each `extra` tensor is (m, ...) per-client data held
-    fixed (not differentiated).  -> (params, opt_state, (m,) mean loss)."""
-    value_and_grads = vmap(grad_and_value(loss_fn))
+
+def sgd_steps(loss_fn: Callable, opt, params, opt_state, batches: dict,
+              lr_scale, step_gate=None, grad_filter=None, extra: tuple = ()):
+    """K SGD steps of ONE client (vmap it over the clients) on a params
+    tree (dict).  batches leaves are (K, B, ...); loss_fn(p, batch,
+    *extra), with `extra` held fixed (not differentiated).
+    grad_filter(grads, params) -> grads runs before the update (e.g. part
+    masking); step_gate (K,) in {0, 1} gates whole steps, an off step
+    leaving params and momentum unchanged.  -> (params, opt_state, mean
+    loss)."""
+    value_and_grad = grad_and_value(loss_fn)
     losses = []
-    for k in range(n_steps(batches)):
-        g, loss = value_and_grads(params, step_batch(batches, k), *extra)
-        params, opt_state = opt.update(g, opt_state, params, lr_scale)
+    for k in range(next(iter(batches.values())).shape[0]):
+        g, loss = value_and_grad(params, {n: a[k] for n, a in
+                                          batches.items()}, *extra)
+        if grad_filter is not None:
+            g = grad_filter(g, params)
+        p2, s2 = opt.update(g, opt_state, params, lr_scale)
+        if step_gate is not None:
+            gate = step_gate[k]
+
+            def sel(new, old):
+                return tree.tree_map(lambda a, b: (gate * a + (1.0 - gate)
+                                                   * b).to(a.dtype), new, old)
+            p2, s2 = sel(p2, params), SGDState(sel(s2.momentum,
+                                                   opt_state.momentum))
+        params, opt_state = p2, s2
         losses.append(loss)
-    return params, opt_state, torch.stack(losses, dim=1).mean(dim=1)
+    if not losses:
+        return params, opt_state, torch.full((), float("nan"))
+    return params, opt_state, torch.stack(losses).mean()

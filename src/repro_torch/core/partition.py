@@ -46,6 +46,11 @@ def merge(u: dict, v: dict) -> dict:
     return out
 
 
+def where(mask: dict, a: dict, b: dict) -> dict:
+    """Per-leaf select of two full trees: mask ? a : b."""
+    return tree.tree_map(lambda shared, x, y: x if shared else y, mask, a, b)
+
+
 def count_params(params: dict, mask: dict | None = None,
                  shared: bool = True) -> int:
     if mask is None:

@@ -2,8 +2,10 @@
 
 Port of the parts of `repro/core/topology.py` the resident DFedPGP round
 needs: the neighbor-indexed `SparseTopology`, the directed kinds (random,
-exponential, ring, full), the dense-degree ceiling and the
-`TopologySchedule` registry.  Pull form: every row is row-stochastic.
+exponential, ring, full), the dense-degree ceiling, the
+`TopologySchedule` registry and, for partial participation, the
+`induced_subgraph` of the round's active clients.  Pull form: every row
+is row-stochastic.
 
 The exponential, ring and full tables are deterministic and equal the
 reference's table for table.  `random` draws from a `torch.Generator`
@@ -115,6 +117,68 @@ def fully_connected(m: int) -> SparseTopology:
 
 
 # ---------------------------------------------------------------------------
+# partial participation: induced subgraphs
+# ---------------------------------------------------------------------------
+def _sum_in_order(x: torch.Tensor) -> torch.Tensor:
+    """Row sums of an (n, k) table added in column order (the order the
+    reference's XLA reduction takes), (n, 1)."""
+    out = x[:, :1]
+    for j in range(1, x.shape[1]):
+        out = out + x[:, j:j + 1]
+    return out
+
+
+def induced_subgraph(P: SparseTopology, active,
+                     renorm: str = "row") -> SparseTopology:
+    """The subgraph induced by the `active` clients, re-indexed to the
+    compact [0, n_active) ids (compact id p is the position of active[p]).
+
+    Edges with a dormant endpoint are dropped (padded to (self, 0)) and the
+    surviving weights are scaled so each row ("row", the pull form) or each
+    sender column ("col", the push form) sums to what it summed to in the
+    full graph.  The factor is orig_sum / alive_sum, NOT a renormalization
+    to 1: when every edge survives the two sums are the same float, the
+    factor is exactly 1.0 and the induced weights equal the originals bit
+    for bit — which makes a sampled round with every client active equal
+    the full round.  A row whose every positive edge went dormant keeps its
+    whole weight on itself.  O(n*k + m) work on P's device."""
+    if renorm not in ("row", "col"):
+        raise ValueError(f"renorm must be 'row' or 'col'; got {renorm!r}")
+    m, k = P.idx.shape
+    _check_dense_degree(k, "induced_subgraph of a dense-width (k = m) table")
+    dev = P.idx.device
+    active = torch.as_tensor(active, device=dev).long()
+    n = active.shape[0]
+    pos = torch.full((m,), -1, dtype=torch.long, device=dev)
+    pos[active] = torch.arange(n, device=dev)
+    gidx = P.idx[active].long()                # (n, k) global neighbor ids
+    gw = P.w[active]
+    cpos = pos[gidx]                           # compact ids, -1 if dormant
+    alive = (cpos >= 0) & (gw > 0)
+    rows_c = torch.arange(n, device=dev)[:, None].expand(n, k)
+    cidx = torch.where(alive, cpos, rows_c)    # dead edges -> (self, 0) pad
+    wz = torch.where(alive, gw, torch.zeros_like(gw))
+    if renorm == "row":
+        orig = _sum_in_order(gw)
+        live = _sum_in_order(wz)
+        w = wz * torch.where(live > 0, orig / live, torch.zeros_like(live))
+        first = torch.zeros((1, k), dtype=torch.bool, device=dev)
+        first[0, 0] = True
+        w = torch.where((live <= 0) & first, orig.expand(n, k), w)
+    else:
+        # per-SENDER column sums, full graph vs induced: both add the same
+        # values in the same order when every client is active -> 1.0
+        orig_col = torch.zeros((m,), dtype=torch.float32, device=dev)
+        orig_col.index_add_(0, P.idx.reshape(-1).long(), P.w.reshape(-1))
+        alive_col = torch.zeros((m,), dtype=torch.float32, device=dev)
+        alive_col.index_add_(0, gidx.reshape(-1), wz.reshape(-1))
+        scale = torch.where(alive_col > 0, orig_col / alive_col,
+                            torch.zeros_like(alive_col))
+        w = wz * scale[gidx]
+    return SparseTopology(cidx.to(torch.int32), w.to(torch.float32))
+
+
+# ---------------------------------------------------------------------------
 # round schedules
 # ---------------------------------------------------------------------------
 def _round_seed(seed: int, t: int) -> int:
@@ -156,6 +220,11 @@ class TopologySchedule:
         if self.kind == "ring":
             return ring(self.m)
         return fully_connected(self.m)
+
+    def induced(self, t, active, renorm: str = "row") -> SparseTopology:
+        """The round-t pattern restricted to the `active` subset (CPU
+        tables, compact ids)."""
+        return induced_subgraph(self.at(t), active, renorm)
 
 
 def get_schedule(kind: str, m: int, n: int = 0,

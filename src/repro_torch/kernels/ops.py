@@ -16,11 +16,15 @@ from __future__ import annotations
 
 from . import ref
 from .gossip_gather import gossip_gather_cuda
+from .gossip_scatter import gossip_scatter_cuda
 from .head_gather import head_gather_matmul_cuda
+from .pushsum_mix import pushsum_mix_cuda
 
 FORCES = ("auto", "cuda", "ref")
 KERNELS = {"gossip_gather": gossip_gather_cuda,
-           "head_gather_matmul": head_gather_matmul_cuda}
+           "gossip_scatter": gossip_scatter_cuda,
+           "head_gather_matmul": head_gather_matmul_cuda,
+           "pushsum_mix": pushsum_mix_cuda}
 
 
 def _use_kernel(force: str, t) -> bool:
@@ -47,6 +51,14 @@ def _reject_ref_knobs(**knobs):
             f"force='auto' or 'cuda' to run the kernel)")
 
 
+def pushsum_mix(P, U, force: str = "auto"):
+    """U' = P @ U over the stacked client axis — the dense push-sum mix;
+    f32 accumulate, output in U's dtype."""
+    if _use_kernel(force, U):
+        return pushsum_mix_cuda(P, U)
+    return ref.pushsum_mix_ref(P, U)
+
+
 def gossip_gather(idx, w, U, force: str = "auto", block_d: int | None = None):
     """out[i] = sum_j w[i,j] * U[idx[i,j]] — the sparse gossip transmission
     over the flat client buffer; f32 accumulate, output in U's dtype.
@@ -55,6 +67,18 @@ def gossip_gather(idx, w, U, force: str = "auto", block_d: int | None = None):
         return gossip_gather_cuda(idx, w, U, block_d=block_d)
     _reject_ref_knobs(block_d=block_d)
     return ref.gossip_gather_ref(idx, w, U)
+
+
+def gossip_scatter(rows, X, U, accumulate: bool = False, force: str = "auto",
+                   block_d: int | None = None):
+    """U[rows] = X (or += X summed in f32) — the write-back of the compact
+    partial-participation working set into the resident buffer, IN PLACE
+    on both paths: U is written and returned, its dormant rows untouched.
+    block_d tunes the kernel's columns per block (kernel only)."""
+    if _use_kernel(force, U):
+        return gossip_scatter_cuda(rows, X, U, accumulate, block_d=block_d)
+    _reject_ref_knobs(block_d=block_d)
+    return ref.gossip_scatter_ref(rows, X, U, accumulate)
 
 
 def head_gather_matmul(uid, H, W, b, force: str = "auto",

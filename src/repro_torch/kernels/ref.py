@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the port's kernels (the allclose targets).
 
-Counterpart of `repro/kernels/ref.py` for the ops this slice ports.  The
+Counterpart of `repro/kernels/ref.py` for the ops ported so far.  The
 wrappers in `ops` take these for tensors that lie on the CPU, the tests
 compare them with the JAX reference, and `chip_smoke.py` holds each CUDA
 kernel against them on the card.
@@ -8,6 +8,12 @@ kernel against them on the card.
 from __future__ import annotations
 
 import torch
+
+
+def pushsum_mix_ref(P: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
+    """U' = P @ U — f32 product, output in U's dtype.  A CUDA caller wants
+    torch.backends.cuda.matmul.allow_tf32 False for a full-f32 product."""
+    return (P.to(torch.float32) @ U.to(torch.float32)).to(U.dtype)
 
 
 def gossip_gather_ref(idx: torch.Tensor, w: torch.Tensor,
@@ -25,6 +31,19 @@ def gossip_gather_ref(idx: torch.Tensor, w: torch.Tensor,
         term = wf[:, j, None] * U[idx[:, j].long()].to(torch.float32)
         out = term if j == 0 else out + term
     return out.to(U.dtype)
+
+
+def gossip_scatter_ref(rows: torch.Tensor, X: torch.Tensor, U: torch.Tensor,
+                       accumulate: bool = False) -> torch.Tensor:
+    """U[rows] = X — or U[rows] += X summed in f32 when accumulate — written
+    INTO U, which is returned (the in-place write of the CUDA kernel, the
+    torch form of the reference's aliased output).  X is cast to U's dtype
+    first, as the reference does; rows must be unique."""
+    r = rows.long()
+    Xc = X.to(U.dtype)
+    if accumulate:
+        Xc = (U[r].to(torch.float32) + Xc.to(torch.float32)).to(U.dtype)
+    return U.index_copy_(0, r, Xc)
 
 
 def head_gather_matmul_ref(uid: torch.Tensor, H: torch.Tensor,

@@ -194,8 +194,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(runtime="async"), "item 11"), (dict(codec="topk"), "item 10"),
-    (dict(participation="uniform"), "item 7"), (dict(resident=False),
-                                                "item 8"),
+    (dict(stale_discount=True), "item 11"), (dict(mailbox_depth=8),
+                                             "item 11"),
     (dict(spec=object()), "item 13")])
 def test_unported_simconfig_knobs_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -206,12 +206,19 @@ def test_unported_simconfig_knobs_raise(kw, item):
 def test_unported_algorithms_and_dfedpgp_knobs_raise():
     with pytest.raises(NotImplementedError, match="item 9"):
         tsim.run_experiment("osgp", tsim.SimConfig(m=4), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tsim.run_experiment("dfedpgp", tsim.SimConfig(m=4, codec_ratio=0.5),
+                            device="cpu")
     mask = {"a": True}
-    for kw, item in ((dict(mix_fn_flat=print), "item 8"),
+    for kw, item in ((dict(grad_hook_flat=print), "item 14"),
                      (dict(grad_hook=print), "item 14"),
                      (dict(codec="x"), "item 10"),
                      (dict(telemetry=True), "item 13")):
         with pytest.raises(NotImplementedError, match=item):
             tdfedpgp.DFedPGP(loss_fn=print, mask=mask, **kw)
-    with pytest.raises(ValueError, match="no meaning"):
-        tdfedpgp.DFedPGP(loss_fn=print, mask=mask, gossip="pallas")
+    # the reference's three gossip modes are all accepted; others raise
+    for mode in ("dense", "sparse", "pallas"):
+        assert tdfedpgp.DFedPGP(loss_fn=print, mask=mask,
+                                gossip=mode).gossip == mode
+    with pytest.raises(ValueError, match="known"):
+        tdfedpgp.DFedPGP(loss_fn=print, mask=mask, gossip="ppermute")

@@ -22,7 +22,9 @@ from repro_torch.core import gossip as tgossip
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.gossip_gather import gossip_gather_cuda
+from repro_torch.kernels.gossip_scatter import gossip_scatter_cuda
 from repro_torch.kernels.head_gather import head_gather_matmul_cuda
+from repro_torch.kernels.pushsum_mix import pushsum_mix_cuda
 
 torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parents[1]
@@ -125,19 +127,40 @@ def test_ops_dispatch_rules_on_cpu():
         ops.head_gather_matmul(uid, H, W, b, force="cuda")
     with pytest.raises(ValueError, match="force"):
         ops.gossip_gather(idx, w, U, force="pallas")
+    P = torch.full((5, 5), 0.2)
+    rows = torch.tensor([1, 3], dtype=torch.int32)
+    with pytest.raises(ValueError, match="force='cuda'"):
+        ops.pushsum_mix(P, U, force="cuda")
+    with pytest.raises(ValueError, match="force='cuda'"):
+        ops.gossip_scatter(rows, U[:2], U.clone(), force="cuda")
+    assert torch.equal(ops.pushsum_mix(P, U), tref.pushsum_mix_ref(P, U))
+    assert ops.launch_counts() == before
     # the kernel wrappers refuse CPU tensors outright
     with pytest.raises(ValueError, match="CUDA tensors"):
         gossip_gather_cuda(idx, w, U)
     with pytest.raises(ValueError, match="CUDA tensors"):
         head_gather_matmul_cuda(uid, H, W, b)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        pushsum_mix_cuda(P, U)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        gossip_scatter_cuda(rows, U[:2], U)
+    # every kernel ops dispatches to is built from its own source
+    assert set(ops.KERNELS) == {"gossip_gather", "gossip_scatter",
+                                "head_gather_matmul", "pushsum_mix"}
+    assert set(_build.SOURCES) == {"gossip_gather", "gossip_scatter",
+                                   "head_gather", "pushsum_mix"}
 
 
 @pytest.mark.parametrize("op,knob", [("gossip_gather", "block_d"),
+                                     ("gossip_scatter", "block_d"),
                                      ("head_gather_matmul", "block_n")])
 @pytest.mark.parametrize("force", ["auto", "ref"])
 def test_kernel_knobs_raise_on_plain_dispatch(op, knob, force):
     if op == "gossip_gather":
         args = tuple(torch.as_tensor(a) for a in _gather_inputs(5, 2, 16, 0))
+    elif op == "gossip_scatter":
+        args = (torch.tensor([0, 2], dtype=torch.int32), torch.ones(2, 3),
+                torch.zeros(4, 3))
     else:
         args = (torch.tensor([0, 1], dtype=torch.int32), torch.ones(2, 4),
                 torch.ones(2, 4, 3), torch.zeros(2, 3))
@@ -176,3 +199,16 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 20
+
+
+def test_port_sources_import_no_jax_or_reference():
+    # no import statement of the port or of chip_smoke.py names jax or the
+    # JAX package `repro` (repro_torch is the port itself)
+    import re
+    pat = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)")
+    files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    bad = [f"{f.relative_to(REPO)}:{i}: {line.strip()}" for f in files
+           for i, line in enumerate(f.read_text().splitlines(), 1)
+           if pat.match(line)]
+    assert len(files) > 30 and not bad, bad

@@ -16,6 +16,7 @@ from repro_torch import convert, tree
 from repro_torch.core import gossip as tgossip
 from repro_torch.core import partition as tpartition
 from repro_torch.core import topology as ttopology
+from repro_torch.kernels import ref as tref
 from repro_torch.models import cnn as tcnn
 from repro_torch.optim import SGD as TSGD
 from repro_torch.optim import SGDState as TSGDState
@@ -217,7 +218,88 @@ def test_mix_flat_dense_and_no_sparsity_paths():
     sparse, _ = tgossip.mix_flat(Pr, flat, mu, mode="sparse")
     np.testing.assert_allclose(dense.numpy(), sparse.numpy(), rtol=1e-5,
                                atol=1e-5)
-    with pytest.raises(ValueError, match="no meaning"):
-        tgossip.mix_flat(Pr, flat, mu, mode="pallas")
+    # "pallas" is the f32-accumulate gather: for an f32 payload it equals
+    # "sparse" bit for bit; an unknown mode raises
+    pallas, _ = tgossip.mix_flat(Pr, flat, mu, mode="pallas")
+    assert torch.equal(pallas, sparse)
+    with pytest.raises(ValueError, match="known"):
+        tgossip.mix_flat(Pr, flat, mu, mode="matrix")
     with pytest.raises(NotImplementedError, match="item 11"):
         tgossip.mix_flat(Pr, flat, mu, edge_gate=torch.ones(m, 2))
+
+
+# ---------------------------------------------------------------------------
+# bf16 wire: each gossip mode keeps the reference mode's meaning
+# ---------------------------------------------------------------------------
+def _wire_inputs(m, d, seed=0):
+    P = jtopology.get_schedule("random", m, 4, seed=1).at(seed)
+    rng = np.random.default_rng(seed)
+    flat = rng.standard_normal((m, d)).astype(np.float32)
+    mu = (1.0 + 0.3 * rng.random(m)).astype(np.float32)
+    Pt = ttopology.SparseTopology(torch.as_tensor(np.array(P.idx)),
+                                  torch.as_tensor(np.array(P.w)))
+    return P, Pt, flat, mu
+
+
+@pytest.mark.parametrize("m,d", [(13, 517), (40, 1000)])
+def test_bf16_wire_sparse_matches_reference_sparse(m, d):
+    # "sparse" is mix_rows in the wire dtype: w cast to bf16, each product
+    # and sum in bf16, on both sides.  Measured equal bit for bit, for the
+    # flat buffer and the tree-form gossip_mix
+    P, Pt, flat, mu = _wire_inputs(m, d)
+    fj, mj = jgossip.mix_flat(P, jnp.asarray(flat), jnp.asarray(mu),
+                              mode="sparse", wire_dtype=jnp.bfloat16)
+    ft, mt = tgossip.mix_flat(Pt, torch.as_tensor(flat), torch.as_tensor(mu),
+                              mode="sparse", wire_dtype=torch.bfloat16)
+    assert ft.dtype == torch.float32
+    np.testing.assert_array_equal(ft.numpy(), np.asarray(fj))
+    np.testing.assert_array_equal(mt.numpy(), np.asarray(mj))
+    params = {"a": flat[:, :d // 2].copy(), "b": flat[:, d // 2:].copy()}
+    mask = {"a": True, "b": True}
+    pj, _ = jgossip.gossip_mix(jax.tree.map(jnp.asarray, params),
+                               jnp.asarray(mu), P, mask, mode="sparse",
+                               wire_dtype=jnp.bfloat16)
+    pt, _ = tgossip.gossip_mix({k: torch.as_tensor(v) for k, v in
+                                params.items()}, torch.as_tensor(mu), Pt,
+                               mask, mode="sparse", wire_dtype=torch.bfloat16)
+    for k in params:
+        np.testing.assert_array_equal(pt[k].numpy(), np.asarray(pj[k]))
+
+
+def test_bf16_wire_pallas_matches_reference_pallas():
+    # "pallas" accumulates the bf16 payload in f32 and rounds once, on
+    # both sides (the reference's kernel in interpret mode).  They sum in
+    # other orders, so an ulp-level f32 difference can flip the bf16
+    # rounding: one bf16 ulp, rtol/atol 8e-3 (measured max 3.9e-3)
+    P, Pt, flat, mu = _wire_inputs(13, 517)
+    fj, mj = jgossip.mix_flat(P, jnp.asarray(flat), jnp.asarray(mu),
+                              mode="pallas", wire_dtype=jnp.bfloat16)
+    ft, mt = tgossip.mix_flat(Pt, torch.as_tensor(flat), torch.as_tensor(mu),
+                              mode="pallas", wire_dtype=torch.bfloat16)
+    np.testing.assert_allclose(ft.numpy(), np.asarray(fj), rtol=8e-3,
+                               atol=8e-3)
+    np.testing.assert_array_equal(mt.numpy(), np.asarray(mj))
+    # the port's "pallas" is the plain gossip_gather on a CPU buffer, and
+    # it is not the port's "sparse" (which rounds in bf16 at every step)
+    wire = torch.as_tensor(flat).to(torch.bfloat16)
+    assert torch.equal(ft, tref.gossip_gather_ref(Pt.idx, Pt.w, wire).float())
+    sparse, _ = tgossip.mix_flat(Pt, torch.as_tensor(flat),
+                                 torch.as_tensor(mu), mode="sparse",
+                                 wire_dtype=torch.bfloat16)
+    assert not torch.equal(ft, sparse)
+
+
+def test_mix_tree_matches_reference():
+    # every leaf through mix_rows (sparse P) or the dense einsum: the
+    # neighbor sum in j order on both sides, rtol/atol 1e-6
+    P, Pt, flat, _ = _wire_inputs(13, 40)
+    params = {"a": flat[:, :10].reshape(13, 2, 5).copy(),
+              "b": {"c": flat[:, 10:].copy()}}
+    tparams = tree.tree_map(torch.as_tensor, params)
+    for jp, tp in ((P, Pt), (P.dense(), Pt.dense())):
+        want = jgossip.mix_tree(jp, jax.tree.map(jnp.asarray, params))
+        got = tgossip.mix_tree(tp, tparams)
+        for path, leaf in tree.paths(got):
+            np.testing.assert_allclose(
+                leaf.numpy(), np.asarray(tree.get(want, path)), rtol=1e-6,
+                atol=1e-6)

@@ -24,10 +24,17 @@ line is never printed):
 7. kernel_mix — 3 rounds of DFedPGP(mix_fn_flat=make_kernel_mix_flat()):
                 pushsum_mix once per round; one round against "sparse";
                 2 tree-form rounds (SimConfig(resident=False));
-8. serve      — mixed-user batches served from the trained state through
+8. compress   — run_experiment with codec="topk", gossip="pallas": one
+                topk_gather and one gossip_gather per round, the exact
+                wire_bytes meter (and the uncompressed one of `train`), a
+                crossing on the card against the CPU, value conservation
+                on a ring, gamma "auto" and qsgd rounds, sampled codec
+                rounds (4 gossip_scatter per round, dormant rows frozen);
+9. serve      — mixed-user batches served from the trained state through
                 head_gather_matmul, against force="ref" and serve_naive;
-9. timings    — each kernel at its path's shape: kernel, plain and
-                library-call ms (CUDA events), the card's bound, launches.
+10. timings   — each kernel at its path's shape: kernel, plain and
+                library-call ms (CUDA events), the card's bound, launches;
+                profiles of a full, a sampled and a codec round.
 
 The last line is {"ok": true, "device": {...}}.  The script imports
 nothing of JAX.
@@ -43,7 +50,7 @@ import time
 from pathlib import Path
 
 PHASES = ("device", "build", "kernels", "train", "parity", "sampled",
-          "kernel_mix", "serve", "timings")
+          "kernel_mix", "compress", "serve", "timings")
 # published peaks (NVIDIA data sheets, dense): bytes/s of device memory and
 # f32 FLOP/s outside the tensor cores
 PEAKS = {"PCIe": (2.0e12, 51e12), "NVL": (3.9e12, 60e12),
@@ -262,6 +269,7 @@ def phase_kernels(ctx):
                         "max_abs_err": err, "ok": True})
     results += _scatter_cases(ctx)
     results += _pushsum_cases(ctx)
+    results += _topk_cases(ctx)
     torch.cuda.synchronize()
     emit("kernels", cases=len(results), results=results)
 
@@ -353,6 +361,107 @@ def _pushsum_cases(ctx):
     return results
 
 
+def _payload_case(torch, m, k, d, K, seed, vdt, cdt, repeat=True,
+                  dup=False, oob=False):
+    """Random neighbor table and sparse payload on the card: K distinct
+    columns per row (the codec's contract) unless `dup` repeats one, and
+    `oob` puts one column at d + 3 (dropped)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    idx = torch.randint(0, m, (m, k), generator=g, device="cuda",
+                        dtype=torch.int32)
+    if repeat and k > 1:
+        idx[:, 1] = idx[:, 0]
+    w = torch.rand((m, k), generator=g, device="cuda")
+    w = (w / w.sum(1, keepdim=True)).contiguous()
+    vals = torch.randn((m, K), generator=g, device="cuda").to(vdt)
+    cols = torch.rand((m, d), generator=g, device="cuda").topk(
+        K, dim=1).indices
+    if dup and K > 1:
+        cols[:, -1] = cols[:, 0]
+    if oob:
+        cols[:, 0] = d + 3
+    return idx, w, vals, cols.to(cdt).contiguous()
+
+
+def _topk_cases(ctx):
+    """topk_gather against topk_gather_ref on the card: the JAX sweep
+    shapes (tests/test_compress.py:165-167), the codec path's shape
+    (m 100, k 11, K 833, d 13,328) with its real table and with k = 1,
+    repeated neighbor ids, f32 and bf16 values, uint16 and int32 columns
+    (d > 65535 takes int32), out-of-range columns, duplicate columns, and
+    block_d of 128 and of a whole row (dynamic shared memory above 48 KB).
+    Both sum each column's neighbors in j order with rounded products and
+    round once: bitwise where a row's columns are distinct; duplicates add
+    in the atomics' order, rtol/atol 2e-5 (f32) and 8e-3 (bf16).  Also the
+    codec wire's uint16 on the card: the int64 -> uint16 cast and a
+    host/device copy."""
+    torch = ctx["torch"]
+    from repro_torch.core import gossip, topology
+    from repro_torch.kernels import ops
+    f32, bf16, u16, i32 = (torch.float32, torch.bfloat16, torch.uint16,
+                           torch.int32)
+    ids = torch.arange(65536, device="cuda")
+    wire = ids.to(u16)
+    check(torch.equal(wire.cpu().cuda().long(), ids) and wire.dtype == u16,
+          "uint16 cast / host-device copy on the card")
+    results = [{"kernel": "topk_gather", "check": "int64 -> uint16 cast "
+                "and host/device copy on the card", "ok": True}]
+    Pw = gossip.wire_only(topology.get_schedule("random", 100, 10, 0).at(
+        0).to("cuda"))
+    cases = [dict(m=m, k=k, d=d, K=K) for m, k, d, K in (
+        (5, 2, 64, 3), (33, 4, 1100, 17), (8, 1, 512, 1), (17, 3, 129, 129),
+        (16, 4, 700, 44), (100, 11, 13328, 833), (100, 1, 13328, 833),
+        (13, 3, 70001, 500), (7, 0, 50, 5))]
+    cases += [dict(m=9, k=3, d=260, K=20, oob=True),
+              dict(m=9, k=3, d=260, K=20, dup=True),
+              dict(m=100, k=11, d=13328, K=833, table=True),
+              dict(m=37, k=5, d=13328, K=833, block_d=128),
+              dict(m=37, k=5, d=13328, K=833, block_d=13328)]
+    worst = {}
+    for i, c in enumerate(cases):
+        m, k, d, K = c["m"], c["k"], c["d"], c["K"]
+        cdts = (i32,) if d > 65535 else (u16, i32)
+        for vdt in (f32, bf16):
+            for cdt in cdts:
+                idx, w, vals, cols = _payload_case(
+                    torch, m, k, d, K, 300 + i, vdt, cdt,
+                    dup=c.get("dup", False), oob=c.get("oob", False))
+                if c.get("table"):
+                    idx, w = Pw.idx, Pw.w.contiguous()
+                got = ops.topk_gather(idx, w, vals, cols, d, force="cuda",
+                                      block_d=c.get("block_d"))
+                want = ops.topk_gather(idx, w, vals, cols, d, force="ref")
+                torch.cuda.synchronize()
+                err = max_abs(got, want)
+                bitwise = torch.equal(got, want)
+                tol = 2e-5 if vdt == f32 else 8e-3
+                if c.get("dup"):
+                    ok = torch.allclose(got.float(), want.float(), rtol=tol,
+                                        atol=tol)
+                    check_name = f"allclose({tol}) vs ref"
+                else:
+                    ok = bitwise
+                    check_name = "bitwise == ref"
+                key = f"{vdt}/{cdt}".replace("torch.", "")
+                worst[key] = max(worst.get(key, 0.0), err)
+                check(ok and got.dtype == vdt and got.shape == (m, d),
+                      f"topk_gather {c} {key} err {err} bitwise {bitwise}")
+                if (m, k, K, vdt, cdt) == (100, 11, 833, f32, u16) \
+                        and c.get("table"):
+                    ctx["topk_err"] = err
+                results.append({"kernel": "topk_gather", "shape": [m, k, d, K],
+                                "dtype": key, "case": {
+                                    n: v for n, v in c.items()
+                                    if n not in ("m", "k", "d", "K")},
+                                "check": check_name, "bitwise": bitwise,
+                                "max_abs_err": err, "ok": True})
+    empty = ops.topk_gather(*(t[:0] for t in _payload_case(
+        torch, 4, 2, 8, 3, 0, f32, u16)), 8, force="cuda")
+    check(empty.shape == (0, 8), "topk_gather m=0")
+    ctx["topk_worst_err"] = worst
+    return results
+
+
 def phase_train(ctx):
     torch = ctx["torch"]
     from repro_torch.fl.simulator import SimConfig, run_experiment
@@ -373,7 +482,7 @@ def phase_train(ctx):
     check(bool(torch.isfinite(st.flat).all()) and st.flat.shape
           == (sim.m, 13328) and st.flat.device.type == "cuda", "trained buffer")
     ctx.update(train_state=st, train_layout=hist["layout"], sim=sim,
-               train_launches=counts)
+               train_launches=counts, train_hist=hist)
     ms = [s * 1e3 for s in hist["round_s"]]
     emit("train", m=sim.m, n_neighbors=sim.n_neighbors, batch=sim.batch,
          k_local=sim.k_local, k_personal=sim.k_personal, rounds=sim.rounds,
@@ -450,12 +559,14 @@ def _clone_flat_state(state):
     from repro_torch import tree
     from repro_torch.core.dfedpgp import FlatDFedPGPState
     from repro_torch.optim import SGDState
+
+    def c(a):
+        return None if a is None else a.clone()
     return FlatDFedPGPState(
-        state.flat.clone(), tree.tree_map(lambda a: a.clone(),
-                                          state.personal),
-        state.mu.clone(), SGDState(state.opt_u.momentum.clone()),
-        SGDState(tree.tree_map(lambda a: a.clone(), state.opt_v.momentum)),
-        state.round.clone())
+        c(state.flat), tree.tree_map(c, state.personal), c(state.mu),
+        SGDState(c(state.opt_u.momentum)),
+        SGDState(tree.tree_map(c, state.opt_v.momentum)), c(state.round),
+        c(state.ef), c(state.ref))
 
 
 def _round_batches(sim, data, seed, torch):
@@ -626,6 +737,168 @@ def phase_kernel_mix(ctx):
                     "round_ms": [t * 1e3 for t in tree_hist["round_s"]]})
 
 
+def phase_compress(ctx):
+    """Compressed directed gossip at the paper defaults (codec="topk",
+    ratio 1/16: K = 833 of d = 13,328; gossip="pallas"): 5 rounds through
+    run_experiment with 1 topk_gather + 1 gossip_gather per round and the
+    exact wire meter; one crossing on the card against the CPU; value
+    conservation on a column-stochastic table; 3 rounds each of
+    codec_gamma="auto" and codec="qsgd"; 3 sampled codec rounds (frac 0.25:
+    4 gossip_scatter per round, dormant rows of flat, opt_u, ef and ref
+    frozen bit for bit)."""
+    torch = ctx["torch"]
+    from repro_torch import tree
+    from repro_torch.compress import get_codec
+    from repro_torch.core import gossip, sampling, topology
+    from repro_torch.fl.simulator import SimConfig, run_experiment
+    from repro_torch.kernels import ops
+    from repro_torch.models import cnn
+    from repro_torch.obs import gauges
+    sim = SimConfig(rounds=5, codec="topk", gossip="pallas")
+    codec = get_codec(sim.codec, ratio=sim.codec_ratio, seed=sim.seed)
+    d = 13328
+    K = codec.k_of(d)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = run_experiment("dfedpgp", sim, device="cuda", eval_every=1,
+                          return_state=True)
+    seconds = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    check(counts["topk_gather"] == sim.rounds
+          and counts["gossip_gather"] == sim.rounds
+          and counts["gossip_scatter"] == 0 and counts["pushsum_mix"] == 0,
+          f"codec run launches {counts} in {sim.rounds} rounds")
+    finite = all(v == v and abs(v) < 1e3 for v in hist["loss"] + hist["acc"])
+    st = hist["state"]
+    check(finite and all(bool(torch.isfinite(t).all())
+                         for t in (st.flat, st.ef, st.ref))
+          and st.ef.shape == st.ref.shape == (sim.m, d),
+          f"codec run: loss {hist['loss']}, acc {hist['acc']}")
+
+    # the wire meter: the reference bootstrap (one f32 row per client),
+    # then every non-self edge of each round's table carries K (value,
+    # uint16 column) pairs and mu; the uncompressed run of `train` (same
+    # tables) carries f32 rows and mu
+    sched = topology.get_schedule(sim.topology, sim.m, sim.n_neighbors,
+                                  sim.seed)
+    edges = [gauges.edge_count(sched.at(r)) for r in range(sim.rounds)]
+    row_c, row_u = K * 6 + 4, 4 * d + 4
+    want = [sim.m * 4 * d + sum(edges[:r + 1]) * row_c
+            for r in range(sim.rounds)]
+    want_u = [sum(edges[:r + 1]) * row_u for r in range(sim.rounds)]
+    plain_wire = ctx["train_hist"]["wire_bytes"]
+    check(hist["wire_bytes"] == want and plain_wire == want_u,
+          f"wire_bytes {hist['wire_bytes']} want {want}; uncompressed "
+          f"{plain_wire} want {want_u}")
+
+    # one crossing from the trained codec state on the card and on the
+    # CPU, same inputs: the kernels against the plain versions, plus
+    # cuda's and the CPU's torch.topk / scatter.  rtol/atol 1e-5 on the
+    # mixed rows (two gathers summed in another order than the plain
+    # decode-then-gather), 1e-6 on ef', ref' and mu'
+    P = sched.at(sim.rounds)
+    gpu = gossip.mix_flat(P.to("cuda"), st.flat, st.mu, mode="pallas",
+                          codec=codec, ef=st.ef, ref=st.ref)
+    cpu = gossip.mix_flat(P, st.flat.cpu(), st.mu.cpu(), mode="pallas",
+                          codec=codec, ef=st.ef.cpu(), ref=st.ref.cpu())
+    cross = {}
+    for name, a, b, tol in zip(("mixed", "mu", "ef", "ref"), gpu, cpu,
+                               (1e-5, 1e-6, 1e-6, 1e-6)):
+        cross[name] = max_abs(a.cpu(), b)
+        check(torch.allclose(a.cpu(), b, rtol=tol, atol=tol),
+              f"codec crossing card vs CPU {name}: {cross[name]}")
+
+    # column-stochastic table (ring): sum(mixed) + sum(ef') = sum(flat +
+    # ef) per column, sum(mu') = m.  f32 sums over 100 rows of O(1)
+    # values: rtol/atol 2e-4
+    ring = topology.ring(sim.m).to("cuda")
+    ones = torch.ones(sim.m, device="cuda")
+    mixed, mu2, ef2, _ = gossip.mix_flat(ring, st.flat, ones, mode="pallas",
+                                         codec=codec, ef=st.ef, ref=st.ref)
+    lhs, rhs = mixed.sum(0) + ef2.sum(0), (st.flat + st.ef).sum(0)
+    conserve_err = max_abs(lhs, rhs)
+    check(torch.allclose(lhs, rhs, rtol=2e-4, atol=2e-4)
+          and abs(float(mu2.sum()) - sim.m) <= 1e-5 * sim.m,
+          f"codec crossing on the ring: value err {conserve_err}, sum mu "
+          f"{float(mu2.sum())}")
+
+    # the adaptive consensus step and the quantizing codec
+    variants = {}
+    for name, kw in (("gamma_auto", dict(codec="topk", codec_gamma="auto")),
+                     ("qsgd4", dict(codec="qsgd"))):
+        ops.reset_launch_counts()
+        h = run_experiment("dfedpgp", SimConfig(rounds=3, gossip="pallas",
+                                                **kw),
+                           device="cuda", eval_every=1)
+        ok = all(v == v and abs(v) < 1e3 for v in h["loss"] + h["acc"])
+        check(ok, f"codec run {name}: loss {h['loss']}, acc {h['acc']}")
+        variants[name] = {"loss": h["loss"], "acc": h["acc"],
+                          "wire_bytes": h["wire_bytes"],
+                          "launches": ops.launch_counts(),
+                          "round_ms": [t * 1e3 for t in h["round_s"]]}
+
+    # sampled codec rounds: ef and ref go back through gossip_scatter too
+    ssim = SimConfig(rounds=3, codec="topk", gossip="pallas",
+                     participation="uniform", participation_frac=0.25)
+    cfg = cnn.CNNConfig(image_size=ssim.image_size, n_classes=ssim.n_classes)
+    init = cnn.init_params(torch.Generator().manual_seed(6), cfg, (ssim.m,))
+    ops.reset_launch_counts()
+    sh = run_experiment("dfedpgp", ssim, device="cuda", eval_every=1,
+                        return_state=True, init_params=init)
+    scounts = ops.launch_counts()
+    check(scounts["topk_gather"] == ssim.rounds
+          and scounts["gossip_gather"] == ssim.rounds
+          and scounts["gossip_scatter"] == 4 * ssim.rounds,
+          f"sampled codec run launches {scounts} in {ssim.rounds} rounds")
+    sampler = sampling.get_sampler("uniform", ssim.m,
+                                   ssim.participation_frac, ssim.seed)
+    ever = torch.zeros(ssim.m, dtype=torch.bool)
+    for r in range(ssim.rounds):
+        ever[torch.as_tensor(sampler.active_at(r)).long()] = True
+    dormant = (~ever).cuda()
+    check(bool(dormant.any()), "sampled codec run: no dormant client")
+    algo, _ = _paper_algo(ssim, torch, codec=codec, gossip="pallas")
+    st0, _ = algo.init_flat(init, device="cuda")
+    sst = sh["state"]
+    pairs = {"flat": (sst.flat, st0.flat), "mu": (sst.mu, st0.mu),
+             "opt_u": (sst.opt_u.momentum, st0.opt_u.momentum),
+             "ef": (sst.ef, st0.ef), "ref": (sst.ref, st0.ref)}
+    for path, leaf in tree.paths(sst.personal):
+        pairs["personal/" + "/".join(path)] = (leaf, tree.get(st0.personal,
+                                                              path))
+    for name, (a, b) in pairs.items():
+        check(torch.equal(a[dormant], b[dormant]),
+              f"sampled codec run: dormant rows of {name} moved")
+    for name in ("flat", "ef", "ref"):
+        a, b = pairs[name]
+        check(not torch.equal(a[~dormant], b[~dormant]),
+              f"sampled codec run: active rows of {name} did not move")
+
+    ms = [t * 1e3 for t in hist["round_s"]]
+    plain_ms = [t * 1e3 for t in ctx["train_hist"]["round_s"]]
+    emit("compress", m=sim.m, d=d, K=K, ratio=sim.codec_ratio,
+         gossip=sim.gossip, rounds=sim.rounds, launches=counts,
+         loss=hist["loss"], acc=hist["acc"], round_ms=ms,
+         ms_per_round_after_first=statistics.median(ms[1:]),
+         uncompressed_ms_per_round_after_first=statistics.median(
+             plain_ms[1:]),
+         seconds=round(seconds, 3), edges_per_round=edges,
+         wire_bytes=hist["wire_bytes"], wire_bytes_uncompressed=plain_wire,
+         row_bytes={"topk": row_c, "uncompressed": row_u,
+                    "ratio": row_u / row_c},
+         crossing_card_vs_cpu={"max_abs_err": cross, "rtol_atol": {
+             "mixed": 1e-5, "mu": 1e-6, "ef": 1e-6, "ref": 1e-6}},
+         ring_conservation={"max_abs_err": conserve_err, "rtol_atol": 2e-4,
+                            "mu_sum": float(mu2.sum())},
+         variants=variants,
+         sampled={"frac": ssim.participation_frac, "rounds": ssim.rounds,
+                  "launches": scounts, "loss": sh["loss"], "acc": sh["acc"],
+                  "dormant_clients": int(dormant.sum()),
+                  "dormant_rows_frozen": sorted(pairs)})
+    ctx.update(compress_launches=counts, compress_state=st,
+               compress_sampled_launches=scounts)
+
+
 def phase_serve(ctx):
     torch = ctx["torch"]
     from repro_torch import tree
@@ -698,8 +971,9 @@ def phase_serve(ctx):
 
 def phase_timings(ctx):
     torch = ctx["torch"]
-    from repro_torch.core import topology
+    from repro_torch.core import gossip, topology
     from repro_torch.kernels import ops
+    from repro_torch.kernels.topk_gather import default_block_d
     bw, f32 = ctx["peak_bw"], ctx["peak_f32"]
     kernels = []
 
@@ -823,12 +1097,78 @@ def phase_timings(ctx):
         "library_ms": t["library_ms"], "call_ms": t["call_ms"],
         "shape": [m, m, d], "dtype": "float32"})
     pushsum_detail = dict(t, bound_us=pb_ms * 1e3, bound_by=pb_by)
+
+    # topk_gather at the codec path's shape (m=100, k=11 with the self
+    # edge's weight zeroed, K=833 of d=13,328, f32 values, uint16 columns)
+    # and the bench_gossip grid's m=1024, k=16: the output written once,
+    # the payload read once, idx + w; 2*m*k*K operations.  No one PyTorch
+    # call computes this: the library yardstick is two calls, a dense
+    # decode (index_put_ with accumulate into zeros) and torch.sparse.mm
+    # with the wire table in CSR
+    topk_shapes = {}
+    for m, n in ((100, 10), (1024, 15)):
+        d, K = 13328, 833
+        Pw = gossip.wire_only(topology.get_schedule("random", m, n, 0).at(0))
+        idx, w = Pw.idx.cuda(), Pw.w.cuda().contiguous()
+        k = idx.shape[1]
+        _, _, vals, cols = _payload_case(torch, m, k, d, K, 13,
+                                         torch.float32, torch.uint16)
+        rows = torch.arange(m, device="cuda")[:, None].expand(m, K)
+        cl = cols.long()
+        csr = torch.sparse_coo_tensor(
+            torch.stack([torch.arange(m, device="cuda")[:, None].expand(
+                m, k).reshape(-1), idx.long().reshape(-1)]),
+            w.reshape(-1), (m, m)).coalesce().to_sparse_csr()
+
+        def library():
+            dec = torch.zeros((m, d), device="cuda").index_put_(
+                (rows, cl), vals, accumulate=True)
+            return torch.sparse.mm(csr, dec)
+
+        got = ops.topk_gather(idx, w, vals, cols, d, force="cuda")
+        check(torch.allclose(library(), got, rtol=2e-5, atol=2e-5),
+              "index_put_ + sparse.mm yardstick disagrees")
+        t = measure(lambda: ops.topk_gather(idx, w, vals, cols, d,
+                                            force="cuda"),
+                    lambda: ops.topk_gather(idx, w, vals, cols, d,
+                                            force="ref"),
+                    library)
+        nbytes = m * d * 4 + m * K * (4 + 2) + m * k * 8
+        tb_ms, tb_by = bound(nbytes, 2 * m * k * K)
+        # columns per block: each block reads all k*K pairs of its row and
+        # keeps those in its chunk, so fewer chunks read less from L2 but
+        # give fewer blocks
+        sweep = {bd: device_ms(torch, lambda bd=bd: ops.topk_gather(
+            idx, w, vals, cols, d, force="cuda", block_d=bd))
+            for bd in (1024, 2048, 4096, 8192, d)}
+        topk_shapes[f"{m}x{k}"] = dict(t, bound_ms=tb_ms, bound_us=tb_ms * 1e3,
+                                       bound_by=tb_by, bound_bytes=nbytes,
+                                       shape=[m, k, d, K],
+                                       ms_by_block_d=sweep,
+                                       default_block_d=default_block_d(
+                                           m, k, d, "cuda"))
+    main = topk_shapes["100x11"]
+    kernels.append({
+        "name": "topk_gather", "route": "cuda",
+        "source": "src/repro_torch/csrc/topk_gather.cu",
+        "replaces": "src/repro/kernels/topk_gather.py:128",
+        "launches": ctx["compress_launches"]["topk_gather"],
+        "max_abs_err": ctx["topk_err"], "ms": main["ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+        "library": "index_put_(accumulate=True) + torch.sparse.mm: 2 calls",
+        "call_ms": main["call_ms"], "shape": [100, 11, 13328, 833],
+        "dtype": "float32/uint16"})
     emit("timings", card=ctx["smi"], gossip_gather=gossip_detail,
          gossip_scatter_by_shape=per_shape, pushsum_mix=pushsum_detail,
+         topk_gather_by_shape=topk_shapes,
          round_profile=profile_rounds(ctx),
          round_profile_sampled=profile_rounds(ctx, frac=0.25),
+         round_profile_codec=profile_rounds(ctx, rounds=1, codec="topk"),
          head_gather_matmul_by_batch=per_b,
-         note="ms/plain_ms/library_ms: device time per call summed over "
+         note="topk_gather's library_ms is two calls (dense decode by "
+              "index_put_, then torch.sparse.mm); "
+              "ms/plain_ms/library_ms: device time per call summed over "
               "the kernels each puts on the card (torch.profiler, 50 "
               "calls); *call_ms: median of CUDA-event windows of "
               "back-to-back calls, host time included; inputs warm in L2; "
@@ -836,18 +1176,25 @@ def phase_timings(ctx):
     ctx["kernels"] = kernels
 
 
-def profile_rounds(ctx, rounds: int = 3, frac: float = 1.0) -> dict:
+def profile_rounds(ctx, rounds: int = 3, frac: float = 1.0,
+                   codec=None) -> dict:
     """Where a round's time goes: torch.profiler over `rounds` rounds
     continuing from the trained state (after one warm round), with the
     device's busy share and the kernels that take most of it.  frac < 1
     profiles sampled rounds (uniform participation, the host's sampler
-    and induced-subgraph work included) from the sampled phase's state."""
+    and induced-subgraph work included) from the sampled phase's state;
+    a codec profiles codec rounds (gossip="pallas") from the compress
+    phase's state and names the device time of the codec's torch ops
+    (the encode's topk, its gathers and scatters)."""
     torch = ctx["torch"]
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.compress import get_codec
     from repro_torch.core import sampling, topology
     from repro_torch.data import make_dataset
     sim, layout = ctx["sim"], ctx["train_layout"]
-    algo, _ = _paper_algo(sim, torch)
+    extra = {} if codec is None else dict(
+        codec=get_codec(codec, seed=sim.seed), gossip="pallas")
+    algo, _ = _paper_algo(sim, torch, **extra)
     data = make_dataset(sim.seed, sim.m, n_train=sim.n_train,
                         n_test=sim.n_test, device="cuda")
     sched = topology.get_schedule("random", sim.m, sim.n_neighbors, 1)
@@ -867,6 +1214,8 @@ def profile_rounds(ctx, rounds: int = 3, frac: float = 1.0) -> dict:
         return algo.round_fn_sampled(state, P, active, b, layout)[0]
 
     start = ctx["train_state"] if sampler is None else ctx["sampled_state"]
+    if codec is not None:
+        start = ctx["compress_state"]
     state = one_round(start, 0)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -880,7 +1229,18 @@ def profile_rounds(ctx, rounds: int = 3, frac: float = 1.0) -> dict:
     check(bool(events), "torch.profiler saw no device time")
     busy_ms = sum(_dev_us(e) for e in events) / 1e3
     top = sorted(events, key=_dev_us, reverse=True)[:10]
-    return {"rounds": rounds, "frac": frac,
+    codec_ops = {}
+    if codec is not None:
+        for e in prof.key_averages():
+            if e.key in ("aten::topk", "aten::gather", "aten::scatter",
+                         "aten::abs", "aten::_to_copy"):
+                dev_us = getattr(e, "device_time_total",
+                                 getattr(e, "cuda_time_total", 0.0))
+                codec_ops[e.key] = {"device_ms_per_round":
+                                    dev_us / 1e3 / rounds,
+                                    "calls_per_round": e.count / rounds}
+    return {"rounds": rounds, "frac": frac, "codec": codec,
+            "codec_ops": codec_ops,
             "wall_ms_per_round": wall_ms / rounds,
             "device_busy_ms_per_round": busy_ms / rounds,
             "device_busy_share": busy_ms / wall_ms,
@@ -915,9 +1275,9 @@ def main(argv=None) -> int:
 
     ctx = {"torch": torch}
     wanted = set(only) | {"device"}
-    needs = {"serve": {"train"},
+    needs = {"serve": {"train"}, "compress": {"train"},
              "timings": {"kernels", "train", "sampled", "kernel_mix",
-                         "serve"}}
+                         "compress", "serve"}}
     for phase in only:
         missing = needs.get(phase, set()) - wanted
         if missing:
@@ -925,7 +1285,8 @@ def main(argv=None) -> int:
     fns = {"device": phase_device, "build": phase_build,
            "kernels": phase_kernels, "train": phase_train,
            "parity": phase_parity, "sampled": phase_sampled,
-           "kernel_mix": phase_kernel_mix, "serve": phase_serve,
+           "kernel_mix": phase_kernel_mix, "compress": phase_compress,
+           "serve": phase_serve,
            "timings": phase_timings}
     t0 = time.perf_counter()
     for phase in PHASES:

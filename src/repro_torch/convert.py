@@ -37,10 +37,12 @@ def params_from_reference(tree_of_numpy: dict, device="cpu") -> dict:
 
 
 def flat_state_from_reference(*, flat, personal, mu, mom_u, mom_v, round,
+                              ef=None, ref=None,
                               device="cpu") -> FlatDFedPGPState:
     """The reference FlatDFedPGPState's arrays -> the port's state:
     flat (m, d_flat), personal tree, mu (m,), mom_u (m, d_flat) (the
-    opt_u momentum), mom_v tree (the opt_v momentum), round (scalar)."""
+    opt_u momentum), mom_v tree (the opt_v momentum), round (scalar), and
+    the codec memory ef / ref ((m, d_flat) f32, or None)."""
     return FlatDFedPGPState(
         flat=_tensor(flat, device),
         personal=params_from_reference(personal, device),
@@ -48,7 +50,9 @@ def flat_state_from_reference(*, flat, personal, mu, mom_u, mom_v, round,
         opt_u=SGDState(_tensor(mom_u, device)),
         opt_v=SGDState(params_from_reference(mom_v, device)),
         round=torch.tensor(int(np.asarray(round)), dtype=torch.int32,
-                           device=device))
+                           device=device),
+        ef=None if ef is None else _tensor(ef, device),
+        ref=None if ref is None else _tensor(ref, device))
 
 
 def tree_state_from_reference(*, params, mu, mom_u, mom_v, round,

@@ -18,6 +18,9 @@ Three forms of the round, as in the reference:
 - `round_fn` — the tree form on the stacked params tree (`DFedPGPState`),
   one client's `local_update` vmapped over the clients, then
   `gossip.gossip_mix` or a tree `mix_fn` override.
+With a wire `codec` the two resident forms cross through the codec branch
+of `gossip.mix_flat` and carry its error-feedback and reference memory in
+`FlatDFedPGPState.ef` / `.ref`; the tree form raises.
 """
 from __future__ import annotations
 
@@ -27,9 +30,10 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 from torch.func import grad_and_value, vmap
 
-from .. import tree
-from ..device import resolve_device
+from .. import compress, tree
+from ..device import resolve_device, seeded_generator
 from ..kernels import ops
+from ..obs import gauges
 from ..optim import SGD, SGDState
 from . import gossip, local, partition
 
@@ -61,12 +65,17 @@ class FlatDFedPGPState(NamedTuple):
     opt_u: SGDState        # momentum: one (m, d_flat) buffer
     opt_v: SGDState        # momentum: personal-leaf tree
     round: torch.Tensor    # 0-d int32
+    # wire-codec memory: the error-feedback residual and the public
+    # reference copies, (m, d_flat) f32 for lossy codecs, else None
+    ef: Optional[torch.Tensor] = None
+    ref: Optional[torch.Tensor] = None
 
 
 # knobs of the reference DFedPGP that later slices port: field -> ROADMAP
 # queue 1 item that ports it
-_UNPORTED = {"grad_hook": 14, "grad_hook_flat": 14, "codec": 10,
-             "telemetry": 13}
+_UNPORTED = {"grad_hook": 14, "grad_hook_flat": 14, "telemetry": 13}
+# stream of `device.seeded_generator` the codec draws come from
+CODEC_STREAM = 3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,7 +101,14 @@ class DFedPGP:
     # f32 payload on a GPU; "dense" — the (m, m) contraction; "pallas" —
     # the f32-accumulate gather, the kernel on a GPU in every payload dtype
     gossip: str = "sparse"
+    # wire codec of the resident mix (`repro_torch.compress`): lossy codecs
+    # carry error-feedback and reference memory in FlatDFedPGPState.ef /
+    # .ref; the identity codec is the codec-free path bit for bit.
+    # Resident rounds only; mutually exclusive with gossip_dtype
     codec: Optional[Any] = None
+    # consensus step of lossy codecs: the codec mix runs on (1-g) I + g P;
+    # a float in (0, 1], or "auto": g = ||u|| / (||u|| + ||ef||) clipped
+    # to [0.05, 1] each round (`obs.gauges.ef_signal_ratio`)
     codec_gamma: Any = 1.0
     telemetry: bool = False
 
@@ -102,9 +118,6 @@ class DFedPGP:
                 raise NotImplementedError(
                     f"DFedPGP({name}=...) is not ported yet (ROADMAP queue "
                     f"1 item {item})")
-        if self.codec_gamma != 1.0:
-            raise NotImplementedError("codec_gamma belongs to the wire "
-                                      "codecs (ROADMAP queue 1 item 10)")
         if self.gossip not in gossip.MODES:
             raise ValueError(f"gossip mode {self.gossip!r}; known: "
                              f"{gossip.MODES}")
@@ -189,6 +202,10 @@ class DFedPGP:
         'u': leaves (m, K_u, B, ...)}; P: the round's SparseTopology (or a
         dense (m, m) matrix) on the state's device; step_gate_u: optional
         (m, K_u) gates.  -> (new_state, metrics)."""
+        if self.codec is not None:
+            raise ValueError("wire codecs ride the resident flat buffer "
+                             "(round_fn_flat / round_fn_sampled); the "
+                             "tree-form round_fn has no payload boundary")
         dev = state.mu.device
         lr_scale = self._lr_scale(state.round)
         if step_gate_u is None:
@@ -234,6 +251,7 @@ class DFedPGP:
         fcs, layout = gossip.FlatClientState.create(params, self.mask,
                                                     layout)
         _check_uniform_dtype(layout)
+        self._check_codec()
         m = fcs.flat.shape[0]
         return FlatDFedPGPState(
             flat=fcs.flat,
@@ -242,7 +260,67 @@ class DFedPGP:
             opt_u=SGDState(torch.zeros_like(fcs.flat)),
             opt_v=SGDState(tree.tree_map(torch.zeros_like, fcs.personal)),
             round=torch.zeros((), dtype=torch.int32, device=dev),
+            ef=compress.init_ef(self.codec, fcs.flat),
+            ref=compress.init_ref(self.codec, fcs.flat),
         ), layout
+
+    def _check_codec(self) -> None:
+        """The reference's build-time validation of the codec knobs."""
+        if self.codec is not None and self.mix_fn_flat is not None:
+            raise ValueError("codec and mix_fn_flat are mutually "
+                             "exclusive: the codec path owns the wire "
+                             "crossing (gossip.mix_flat) — a mix override "
+                             "would bypass the error-feedback ledger")
+        if isinstance(self.codec_gamma, str):
+            if self.codec_gamma != "auto":
+                raise ValueError(
+                    f"codec_gamma must be a float in (0, 1] or 'auto'; "
+                    f"got {self.codec_gamma!r}")
+            if self.codec is None or self.codec.exact:
+                raise ValueError(
+                    "codec_gamma='auto' anneals the lossy-codec consensus "
+                    "step; the exact/uncompressed mix never blends (drop "
+                    "the knob or use a lossy codec)")
+            if self.gossip_dtype is not None:
+                raise ValueError("codec and gossip_dtype are mutually "
+                                 "exclusive: the codec IS the wire format")
+            return
+        g = float(self.codec_gamma)
+        if self.codec is None or self.codec.exact:
+            if g != 1.0:
+                raise ValueError(
+                    f"codec_gamma={g} only applies to lossy codecs; the "
+                    f"exact/uncompressed mix never blends (drop the knob "
+                    f"or use a lossy codec)")
+            if self.codec is None:
+                return
+        if self.gossip_dtype is not None:
+            raise ValueError("codec and gossip_dtype are mutually "
+                             "exclusive: the codec IS the wire format")
+        if not 0.0 < g <= 1.0:
+            raise ValueError(f"codec_gamma must be in (0, 1], got "
+                             f"{self.codec_gamma}")
+
+    def _gamma_value(self, flat, ef):
+        """The round's consensus step: the static knob as-is, or for "auto"
+        a 0-d f32 tensor, `ef_signal_ratio(flat, ef)` clipped to
+        [0.05, 1] — exactly 1.0 with a zero residual."""
+        if not isinstance(self.codec_gamma, str):
+            return self.codec_gamma
+        return torch.clamp(gauges.ef_signal_ratio(flat, ef), 0.05, 1.0)
+
+    def _codec_mix(self, P, flat, mu, ef, ref, rnd):
+        """The codec crossing of a resident round -> (flat, mu, ef, ref).
+        A randomized codec draws from a generator on the buffer's device
+        seeded by (codec.seed, round), the port's fold_in of the round
+        into the codec's key."""
+        key = None
+        if self.codec.draws:
+            key = seeded_generator(self.codec.seed, CODEC_STREAM, int(rnd),
+                                   flat.device)
+        return gossip.mix_flat(P, flat, mu, mode=self.gossip,
+                               codec=self.codec, ef=ef, ref=ref, key=key,
+                               codec_gamma=self._gamma_value(flat, ef))
 
     def local_update_flat(self, flat, personal, mu, opt_u, opt_v,
                           batches_v, batches_u, lr_scale, step_gate_u,
@@ -314,13 +392,17 @@ class DFedPGP:
                                    state.opt_u, state.opt_v, batches["v"],
                                    batches["u"], lr_scale, step_gate_u,
                                    layout)
+        ef, ref = state.ef, state.ref
         if self.mix_fn_flat is not None:
             flat, mu = self.mix_fn_flat(flat, state.mu, state.round, P)
+        elif self.codec is not None:
+            flat, mu, ef, ref = self._codec_mix(P, flat, state.mu, ef, ref,
+                                                state.round)
         else:
             flat, mu = gossip.mix_flat(P, flat, state.mu, mode=self.gossip,
                                        wire_dtype=self.gossip_dtype)
         new_state = FlatDFedPGPState(flat, personal, mu, opt_u, opt_v,
-                                     state.round + 1)
+                                     state.round + 1, ef, ref)
         metrics = {"loss_v": loss_v.mean(), "loss_u": loss_u.mean(),
                    "mu_min": mu.min(), "mu_max": mu.max()}
         return new_state, metrics
@@ -339,9 +421,10 @@ class DFedPGP:
         sampler's output).  batches and step_gate_u are compact: leaves
         lead with (n_active, K, ...).
 
-        IN PLACE: `state.flat` and `state.opt_u.momentum` are written
-        through `kernels.ops.gossip_scatter` (the CUDA kernel on a GPU) and
-        are the new state's buffers too — the torch form of the
+        IN PLACE: `state.flat`, `state.opt_u.momentum` and, with a lossy
+        codec, `state.ef` and `state.ref` are written through
+        `kernels.ops.gossip_scatter` (the CUDA kernel on a GPU) and are the
+        new state's buffers too — the torch form of the
         reference's aliased, donated buffers.  A caller that needs the old
         state clones it first.  mu, the personal leaves and opt_v are
         small and are copied (`index_copy`).  Dormant rows never move.
@@ -369,9 +452,17 @@ class DFedPGP:
                 take(state.mu), SGDState(take(state.opt_u.momentum)),
                 SGDState(tree.tree_map(take, state.opt_v.momentum)),
                 batches["v"], batches["u"], lr_scale, step_gate_u, layout)
-        flat_a, mu_a = gossip.mix_flat(P_act, flat_a, take(state.mu),
-                                       mode=self.gossip,
-                                       wire_dtype=self.gossip_dtype)
+        if self.codec is not None:
+            # codec memory (None for an exact codec) rides with its rows
+            ef_a, ref_a = (None if t is None else take(t)
+                           for t in (state.ef, state.ref))
+            flat_a, mu_a, ef_a, ref_a = self._codec_mix(
+                P_act, flat_a, take(state.mu), ef_a, ref_a, state.round)
+        else:
+            ef_a = ref_a = None
+            flat_a, mu_a = gossip.mix_flat(P_act, flat_a, take(state.mu),
+                                           mode=self.gossip,
+                                           wire_dtype=self.gossip_dtype)
 
         def put(full, new):
             return torch.index_copy(full, 0, idx, new)
@@ -379,12 +470,16 @@ class DFedPGP:
         flat = ops.gossip_scatter(active, flat_a, state.flat)
         opt_u = SGDState(ops.gossip_scatter(active, opt_u_a.momentum,
                                             state.opt_u.momentum))
+        ef = state.ef if ef_a is None else \
+            ops.gossip_scatter(active, ef_a, state.ef)
+        ref = state.ref if ref_a is None else \
+            ops.gossip_scatter(active, ref_a, state.ref)
         mu = put(state.mu, mu_a)
         personal = tree.tree_map(put, state.personal, personal_a)
         opt_v = SGDState(tree.tree_map(put, state.opt_v.momentum,
                                        opt_v_a.momentum))
         new_state = FlatDFedPGPState(flat, personal, mu, opt_u, opt_v,
-                                     state.round + 1)
+                                     state.round + 1, ef, ref)
         metrics = {"loss_v": loss_v.mean(), "loss_u": loss_u.mean(),
                    "mu_min": mu.min(), "mu_max": mu.max(),
                    "n_active": int(idx.shape[0])}
@@ -406,12 +501,18 @@ class DFedPGP:
         fcs, layout = gossip.FlatClientState.create(state.params, self.mask,
                                                     layout)
         _check_uniform_dtype(layout)
+        self._check_codec()
         mom, _ = gossip.FlatClientState.create(state.opt_u.momentum,
                                                self.mask, layout)
         mom_v = partition.split(state.opt_v.momentum, self.mask)[1]
+        # tree-form states carry no codec memory: a lossy codec starts from
+        # fresh error-feedback and reference buffers
         return FlatDFedPGPState(fcs.flat, fcs.personal, state.mu,
                                 SGDState(mom.flat), SGDState(mom_v),
-                                state.round), layout
+                                state.round,
+                                compress.init_ef(self.codec, fcs.flat),
+                                compress.init_ref(self.codec, fcs.flat)
+                                ), layout
 
     def state_from_flat(self, fstate: FlatDFedPGPState,
                         layout: gossip.FlatLayout) -> DFedPGPState:

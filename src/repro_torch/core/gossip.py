@@ -1,6 +1,6 @@
 """Sparse gossip engine: neighbor-indexed push-pull over a flat buffer.
 
-Port of the uncompressed half of `repro/core/gossip.py`:
+Port of `repro/core/gossip.py`:
 
 1. `mix_rows(idx, w, x)` — out[i] = sum_j w[i,j] * x[idx[i,j]], summed in
    j order with separate multiply and add ops.
@@ -19,6 +19,9 @@ Port of the uncompressed half of `repro/core/gossip.py`:
      "pallas" — the fused gather that accumulates in f32 and rounds once:
                 `kernels.ops.gossip_gather` in every payload dtype.
    mu always mixes through `mix_rows` in f32.
+4. the codec branch of `mix_flat` — compressed directed gossip with error
+   feedback and reference tracking (`repro_torch.compress`); under
+   "pallas" the sparse payloads mix through `kernels.ops.topk_gather`.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from typing import NamedTuple
 import torch
 
 from .. import tree
+from ..compress import feedback
 from ..kernels import ops
 from . import partition
 from .topology import SparseTopology
@@ -201,21 +205,104 @@ def _check_mode(mode: str) -> None:
 
 def mix_flat(P, flat: torch.Tensor, mu: torch.Tensor, *,
              mode: str = "sparse", wire_dtype=None, edge_gate=None,
-             codec=None):
+             codec=None, ef=None, ref=None, key=None, codec_gamma=1.0):
     """One push-pull transmission on the resident buffer: flat' = P flat,
-    mu' = P mu.  A wire_dtype narrows only the payload of the mix (the
-    buffer returns in its resident dtype); mu always mixes in f32."""
+    mu' = P mu -> (flat', mu').  A wire_dtype narrows only the payload of
+    the mix (the buffer returns in its resident dtype); mu always mixes in
+    f32 and is never compressed.
+
+    codec: optional wire codec (`repro_torch.compress`).  The non-self
+    edges then ship compressed deltas against each sender's public
+    reference copy (`compress.publish` with `ef`/`ref` memory), and the
+    self edge keeps the full-fidelity row:
+
+        mixed[i] = P[i,i] * flat[i] + ef[i] + sum_{j != i} P[i,j] * ref'[j]
+
+    and the call returns (mixed, mu', ef', ref').  codec_gamma (a float in
+    (0, 1], or a 0-d tensor: the "auto" anneal) runs the codec mix on
+    (1-g) I + g P.  An `exact` codec runs the plain body on `flat`.  Under
+    mode="pallas" a sparse payload mixes through `kernels.ops.topk_gather`
+    and the old references through `kernels.ops.gossip_gather`: a dense
+    decode never materializes.  key: what a randomized codec draws from
+    (see `compress.codecs`)."""
     _check_mode(mode)
+    tensor_gamma = isinstance(codec_gamma, torch.Tensor)
+    if (codec is None or codec.exact) and \
+            (tensor_gamma or float(codec_gamma) != 1.0):
+        raise ValueError(
+            f"codec_gamma={codec_gamma} only applies to lossy codecs; "
+            f"the exact/uncompressed mix never blends")
     if edge_gate is not None:
         raise NotImplementedError("edge_gate (the async mailbox mix) is "
                                   "ported with the async runtime (ROADMAP "
                                   "queue 1 item 11)")
     if codec is not None:
-        raise NotImplementedError("wire codecs are ported with compression "
-                                  "(ROADMAP queue 1 item 10)")
+        if wire_dtype is not None:
+            raise ValueError("codec defines the wire format; wire_dtype "
+                             "applies to the uncompressed path only")
+        if codec.exact:
+            mixed, mu2 = _transmit(P, flat, mu, mode)
+            return mixed.to(flat.dtype), mu2, ef, ref
+        if tensor_gamma:
+            g = codec_gamma.to(torch.float32)
+        else:
+            g = float(codec_gamma)
+            if not 0.0 < g <= 1.0:
+                raise ValueError(f"codec_gamma must be in (0, 1], got {g}")
+        sw = self_weight_of(P)                                # (m,)
+        sw_g = (1.0 - g) + g * sw
+        payload, ef2, ref2 = feedback.publish(
+            codec, ef, ref, flat, key, wire_frac=1.0 - sw_g)
+        wire = _mix_wire(P, ref, ref2, payload, mode)
+        # the accumulated residual re-enters through the self share (it
+        # never rides the wire), so mixed + ef' = flat + ef under
+        # column-stochastic weights
+        mixed = sw_g[:, None] * flat.to(torch.float32) + ef + g * wire
+        mu2 = (1.0 - g) * mu + g * mix_any(P, mu)
+        return mixed.to(flat.dtype), mu2, ef2, ref2
     x = flat.to(wire_dtype) if wire_dtype is not None else flat
     mixed, mu2 = _transmit(P, x, mu, mode)
     return mixed.to(flat.dtype), mu2
+
+
+def self_weight_of(P) -> torch.Tensor:
+    """(m,) f32 total weight each row places on itself — the share of a mix
+    that never crosses the wire."""
+    if isinstance(P, SparseTopology):
+        rows = torch.arange(P.m, device=P.idx.device)[:, None]
+        return (P.w * (P.idx.long() == rows)).sum(1).to(torch.float32)
+    return torch.diagonal(P).to(torch.float32)
+
+
+def wire_only(P):
+    """P with its self edges zeroed — the edges that carry payloads.  Same
+    representation in, same out."""
+    if isinstance(P, SparseTopology):
+        rows = torch.arange(P.m, device=P.idx.device)[:, None]
+        return SparseTopology(P.idx, torch.where(P.idx.long() == rows, 0.0,
+                                                 P.w))
+    eye = torch.eye(P.shape[0], dtype=P.dtype, device=P.device)
+    return P * (1.0 - eye)
+
+
+def _mix_wire(P, ref_prev, ref_new, payload, mode: str):
+    """sum_{j != i} P[i,j] * ref'[j] in f32 — the tracked half of the codec
+    mix.  Under "pallas" with a sparse payload the sum splits linearly,
+    P_wire @ ref' = P_wire @ ref + P_wire @ decode(p): the old references
+    go through the gossip_gather kernel and the payload through the
+    topk_gather kernel, so a dense decode never materializes."""
+    Pw = wire_only(P)
+    sparse = isinstance(Pw, SparseTopology)
+    if sparse and mode == "pallas" and payload.indices is not None \
+            and not no_sparsity(Pw):
+        d = ref_prev.shape[1]
+        return ops.gossip_gather(Pw.idx, Pw.w, ref_prev) \
+            + ops.topk_gather(Pw.idx, Pw.w, payload.values.float(),
+                              payload.indices, d)
+    if sparse and not no_sparsity(Pw) and mode != "dense":
+        return mix_rows(Pw.idx, Pw.w, ref_new)
+    Pd = Pw.dense() if sparse else Pw
+    return torch.einsum("mn,nd->md", Pd.to(torch.float32), ref_new)
 
 
 def gossip_mix(params: dict, mu: torch.Tensor, P, mask: dict, *,

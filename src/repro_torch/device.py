@@ -17,3 +17,13 @@ def resolve_device(device="cuda") -> torch.device:
         raise ValueError(f"device {str(device)!r}: the port runs on 'cuda' "
                          f"or 'cpu'")
     return dev
+
+
+def seeded_generator(seed: int, stream: int, t: int,
+                     device="cpu") -> torch.Generator:
+    """A generator on `device` that is a pure function of (seed, stream,
+    t): the port's counterpart of folding a round index into a
+    `jax.random` key.  CPU and CUDA generators give different streams
+    from one seed."""
+    s = (int(seed) * 1_000_003 + int(stream) * 7_919 + int(t)) % (2 ** 63)
+    return torch.Generator(device=torch.device(device)).manual_seed(s)

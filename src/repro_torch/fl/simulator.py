@@ -6,11 +6,15 @@ data, m stacked CNN clients and the classifier-personal mask, packs the
 shared part once (`DFedPGP.init_flat`) and runs the rounds: all clients'
 local steps, then the push-pull mix of the buffer through the CUDA
 gossip_gather kernel.  Personalized test accuracy is evaluated on each
-client's own test split.  Two variants of the round:
+client's own test split.  Variants of the round:
 - `participation="uniform"|"trace"` — each round only the sampler's active
   clients act (`DFedPGP.round_fn_sampled` over the induced subgraph; the
   CUDA gossip_scatter kernel writes them back into the resident buffer);
-- `resident=False` — the tree-form round (`DFedPGP.round_fn`).
+- `resident=False` — the tree-form round (`DFedPGP.round_fn`);
+- `codec="identity"|"topk"|"randk"|"qsgd"` — the compressed crossing with
+  error feedback and reference tracking (`repro_torch.compress`); under
+  `gossip="pallas"` sparse payloads mix through the CUDA topk_gather
+  kernel.
 `step_gates` (m, K) gate local steps per client (the sync computation
 heterogeneity of the paper's Table 3, `hetero.profiles.tier_gates`).
 
@@ -29,13 +33,14 @@ import numpy as np
 import torch
 from torch.func import vmap
 
-from .. import tree
-from ..core import dfedpgp, partition, sampling, topology
+from .. import compress, tree
+from ..core import dfedpgp, gossip, partition, sampling, topology
 from ..core.topology import SparseTopology
 from ..data import ClientData, from_arrays, make_dataset, sample_batches
-from ..device import resolve_device
+from ..device import resolve_device, seeded_generator
 from ..hetero import profiles
 from ..models import cnn
+from ..obs import gauges
 from ..optim import SGD
 
 
@@ -85,27 +90,21 @@ class SimConfig:
 
 # SimConfig field -> ROADMAP queue 1 item that ports it
 _UNPORTED = {"sample_ratio": 9, "runtime": 11, "mailbox_depth": 11,
-             "stale_discount": 11, "codec": 10, "codec_ratio": 10,
-             "codec_bits": 10, "codec_gamma": 10, "spec": 13}
+             "stale_discount": 11, "spec": 13}
 
 
 def _check_ported(algo_name: str, sim: SimConfig) -> None:
     if algo_name != "dfedpgp":
         raise NotImplementedError(
             f"algorithm {algo_name!r} is not ported yet: this slice runs "
-            f"'dfedpgp'; the baselines are ROADMAP queue 1 item 9")
+            f"'dfedpgp'; the baselines (and their flat-core codec runs) "
+            f"are ROADMAP queue 1 item 9")
     defaults = {f.name: f.default for f in dataclasses.fields(SimConfig)}
     for name, item in _UNPORTED.items():
         if getattr(sim, name) != defaults[name]:
             raise NotImplementedError(
                 f"SimConfig({name}={getattr(sim, name)!r}) is not ported "
                 f"yet (ROADMAP queue 1 item {item})")
-
-
-def _seeded(seed: int, stream: int, t: int) -> torch.Generator:
-    """A CPU generator that is a pure function of (seed, stream, t)."""
-    s = (int(seed) * 1_000_003 + int(stream) * 7_919 + int(t)) % (2 ** 63)
-    return torch.Generator().manual_seed(s)
 
 
 def evaluate(eval_params: dict, data: ClientData, model_cfg: cnn.CNNConfig):
@@ -152,7 +151,11 @@ def run_experiment(algo_name: str, sim: SimConfig,
                    init_params: Optional[dict] = None,
                    topology_at: Optional[Callable] = None,
                    batches_at: Optional[Callable] = None) -> dict:
-    """Returns the history dict: per-eval `round`, `acc`, `loss`, plus
+    """Returns the history dict: per-eval `round`, `acc`, `loss`, `vtime`
+    (lockstep ticks, (r + 1) * (k_local + k_personal)) and `wire_bytes`
+    (cumulative bytes on the wire: a lossy codec's reference bootstrap, then
+    per round every payload-carrying non-self edge times the payload's
+    bytes, `obs.gauges`; codec=None meters the uncompressed f32 rows), plus
     `final_acc` and per-round wall seconds `round_s` (each round ends in
     a device sync on CUDA).  return_state adds the final state and its
     FlatLayout (`state`, `layout`; the layout is None for resident=False)
@@ -196,8 +199,8 @@ def run_experiment(algo_name: str, sim: SimConfig,
         return cnn.loss_fn(p, batch, model_cfg)
 
     if init_params is None:
-        stacked = cnn.init_params(_seeded(sim.seed, 1, 0), model_cfg,
-                                  (sim.m,))
+        stacked = cnn.init_params(seeded_generator(sim.seed, 1, 0),
+                                  model_cfg, (sim.m,))
     else:
         stacked = tree.tree_map(
             lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32),
@@ -205,9 +208,16 @@ def run_experiment(algo_name: str, sim: SimConfig,
     mask = partition.build_mask(stacked, partition.classifier_personal)
     opt = SGD(lr=sim.lr, momentum=sim.momentum,
               weight_decay=sim.weight_decay)
+    codec = compress.get_codec(sim.codec, ratio=sim.codec_ratio,
+                               bits=sim.codec_bits, seed=sim.seed)
+    if codec is None and sim.codec_gamma != 1.0:
+        raise ValueError(
+            f"codec_gamma={sim.codec_gamma} only applies to lossy "
+            f"codecs; set the codec or drop the knob")
     algo = dfedpgp.DFedPGP(loss_fn=loss_fn, mask=mask, opt_u=opt, opt_v=opt,
                            k_v=sim.k_personal, k_u=sim.k_local,
-                           lr_decay=sim.lr_decay, gossip=sim.gossip)
+                           lr_decay=sim.lr_decay, gossip=sim.gossip,
+                           codec=codec, codec_gamma=sim.codec_gamma)
     schedule = topology.get_schedule(sim.topology, sim.m, sim.n_neighbors,
                                      sim.seed)
     if sim.resident:
@@ -225,14 +235,19 @@ def run_experiment(algo_name: str, sim: SimConfig,
         return {"v": {k: a[:, :kv] for k, a in b.items()},
                 "u": {k: a[:, kv:] for k, a in b.items()}}
 
-    history = {"round": [], "acc": [], "loss": [], "round_s": [],
-               "algo": algo_name, "runtime": "sync", "device": str(dev)}
+    # the wire meter: host arithmetic on the round's CPU tables
+    d_wire = gossip.flat_width(stacked, mask)
+    wire_rb = gauges.payload_row_bytes(codec, d_wire)
+    wire_total = gauges.bootstrap_bytes(codec, sim.m, d_wire)
+    history = {"round": [], "acc": [], "loss": [], "vtime": [],
+               "wire_bytes": [], "round_s": [], "algo": algo_name,
+               "runtime": "sync", "device": str(dev)}
     for r in range(sim.rounds):
         if batches_at is not None:
             batches = _as_batches(batches_at(r), dev)
         else:
-            batches = sample_batches(_seeded(sim.seed, 2, r), data, k_total,
-                                     sim.batch)
+            batches = sample_batches(seeded_generator(sim.seed, 2, r), data,
+                                     k_total, sim.batch)
         P = _as_topology(topology_at(r) if topology_at is not None
                          else schedule.at(r))
         if sampler is not None:
@@ -242,6 +257,8 @@ def run_experiment(algo_name: str, sim: SimConfig,
             idx = act.long()
             batches = {k: a.index_select(0, idx) for k, a in batches.items()}
             g = None if gate_u is None else gate_u.index_select(0, idx)
+        # only active <-> active edges carry bytes
+        wire_total += gauges.edge_count(P) * wire_rb
         P = P.to(dev)
         if sim.gossip == "dense" and sampler is None:
             P = P.dense()
@@ -264,6 +281,8 @@ def run_experiment(algo_name: str, sim: SimConfig,
             acc, _ = evaluate(eval_params(state), data, model_cfg)
             history["round"].append(r + 1)
             history["acc"].append(acc)
+            history["vtime"].append(float((r + 1) * k_total))
+            history["wire_bytes"].append(wire_total)
             history["loss"].append(float(metrics["loss_u"]))
     history["final_acc"] = history["acc"][-1] if history["acc"] \
         else float("nan")

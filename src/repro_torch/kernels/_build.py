@@ -22,7 +22,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 # -Xptxas=-v adds each kernel's register / shared-memory use to the log
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-SOURCES = ("gossip_gather", "gossip_scatter", "head_gather", "pushsum_mix")
+SOURCES = ("gossip_gather", "gossip_scatter", "head_gather", "pushsum_mix",
+           "topk_gather")
 
 _LIBS: dict = {}        # name -> loaded ctypes.CDLL (one load per process)
 

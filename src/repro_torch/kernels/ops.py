@@ -19,12 +19,14 @@ from .gossip_gather import gossip_gather_cuda
 from .gossip_scatter import gossip_scatter_cuda
 from .head_gather import head_gather_matmul_cuda
 from .pushsum_mix import pushsum_mix_cuda
+from .topk_gather import topk_gather_cuda
 
 FORCES = ("auto", "cuda", "ref")
 KERNELS = {"gossip_gather": gossip_gather_cuda,
            "gossip_scatter": gossip_scatter_cuda,
            "head_gather_matmul": head_gather_matmul_cuda,
-           "pushsum_mix": pushsum_mix_cuda}
+           "pushsum_mix": pushsum_mix_cuda,
+           "topk_gather": topk_gather_cuda}
 
 
 def _use_kernel(force: str, t) -> bool:
@@ -67,6 +69,18 @@ def gossip_gather(idx, w, U, force: str = "auto", block_d: int | None = None):
         return gossip_gather_cuda(idx, w, U, block_d=block_d)
     _reject_ref_knobs(block_d=block_d)
     return ref.gossip_gather_ref(idx, w, U)
+
+
+def topk_gather(idx, w, values, cols, d: int, force: str = "auto",
+                block_d: int | None = None):
+    """out[i] = sum_j w[i,j] * decode(payload[idx[i,j]]) for sparse
+    (column, value) payloads — the compressed gossip mix, without a dense
+    decode on the kernel path; f32 accumulate, output in values' dtype.
+    block_d tunes the kernel's columns per block (kernel only)."""
+    if _use_kernel(force, values):
+        return topk_gather_cuda(idx, w, values, cols, d, block_d=block_d)
+    _reject_ref_knobs(block_d=block_d)
+    return ref.topk_gather_ref(idx, w, values, cols, d)
 
 
 def gossip_scatter(rows, X, U, accumulate: bool = False, force: str = "auto",

@@ -33,6 +33,35 @@ def gossip_gather_ref(idx: torch.Tensor, w: torch.Tensor,
     return out.to(U.dtype)
 
 
+def topk_gather_ref(idx: torch.Tensor, w: torch.Tensor,
+                    values: torch.Tensor, cols: torch.Tensor,
+                    d: int) -> torch.Tensor:
+    """out[i, c] = sum_j w[i,j] * sum_p values[idx[i,j], p] *
+    [cols[idx[i,j], p] == c] — the compressed gossip mix of sparse
+    (column, value) payloads; f32 accumulate, output in values' dtype.
+    Decodes densely into f32 (duplicate columns add, columns outside
+    [0, d) are dropped), then runs `gossip_gather_ref`: the neighbor sum in
+    j order with each product rounded, which is the CUDA kernel's
+    arithmetic (csrc/topk_gather.cu) — bit for bit where a payload row's
+    columns are distinct."""
+    return gossip_gather_ref(idx, w, decode_sparse(values, cols, d)
+                             ).to(values.dtype)
+
+
+def decode_sparse(values: torch.Tensor, cols: torch.Tensor,
+                  d: int) -> torch.Tensor:
+    """Dense (m, d) f32 decode of (column, value) rows: duplicate columns
+    add, columns outside [0, d) are dropped (the reference's
+    mode="drop")."""
+    m = values.shape[0]
+    c = cols.long()
+    # dropped entries land in a spare column d, sliced off after
+    c = torch.where((c >= 0) & (c < d), c, d)
+    out = torch.zeros((m, d + 1), dtype=torch.float32, device=values.device)
+    out.scatter_add_(1, c, values.to(torch.float32))
+    return out[:, :d]
+
+
 def gossip_scatter_ref(rows: torch.Tensor, X: torch.Tensor, U: torch.Tensor,
                        accumulate: bool = False) -> torch.Tensor:
     """U[rows] = X — or U[rows] += X summed in f32 when accumulate — written

@@ -32,7 +32,14 @@ line is never printed):
                 rounds (4 gossip_scatter per round, dormant rows frozen);
 9. serve      — mixed-user batches served from the trained state through
                 head_gather_matmul, against force="ref" and serve_naive;
-10. timings   — each kernel at its path's shape: kernel, plain and
+10. lm        — recurrentgemma-9b at full width and depth (38 layers, f32
+                params drawn on the card, bf16 compute): prefill_logits
+                at B 2, S 4096 (12 flash_attention and 26 rglru launches
+                per prefill, finite logits, median ms, each kernel's
+                share of device time), 16 greedy decode steps at B 4, peak
+                memory; then reduced() in f32 on the card against the CPU
+                (prefill, 24 decode steps across the ring wrap, caches);
+11. timings   — each kernel at its path's shape: kernel, plain and
                 library-call ms (CUDA events), the card's bound, launches;
                 profiles of a full, a sampled and a codec round.
 
@@ -50,11 +57,17 @@ import time
 from pathlib import Path
 
 PHASES = ("device", "build", "kernels", "train", "parity", "sampled",
-          "kernel_mix", "compress", "serve", "timings")
+          "kernel_mix", "compress", "serve", "lm", "timings")
 # published peaks (NVIDIA data sheets, dense): bytes/s of device memory and
 # f32 FLOP/s outside the tensor cores
 PEAKS = {"PCIe": (2.0e12, 51e12), "NVL": (3.9e12, 60e12),
          "SXM": (3.35e12, 67e12)}
+# dense bf16 tensor-core FLOP/s of the same parts
+PEAKS_BF16 = {"PCIe": 756e12, "NVL": 835e12, "SXM": 989e12}
+# parameters of recurrentgemma-9b as the reference initializes them
+# (jax.eval_shape of repro.models.hybrid.init_params: w_a and w_i are
+# (W, W) and lm_head is its own leaf)
+LM_PARAMS = 10_444_877_824
 
 
 def emit(phase: str, **fields) -> None:
@@ -114,18 +127,50 @@ def _dev_us(e) -> float:
                    getattr(e, "self_cuda_time_total", 0.0))
 
 
+# Profiler windows that came back without a single device event.  On the
+# H100 a short CUDA-only window now and then loses all of its kernels;
+# a quiet margin at each end of the window keeps them, and a window that
+# is still empty is run again, at most PROFILE_ATTEMPTS times.  The
+# re-run windows are printed with the timings.
+PROFILE_PAD_S = 0.002
+PROFILE_ATTEMPTS = 3
+PROFILER_MISSES = []
+
+
+def profiled(torch, run, cpu: bool = False):
+    """torch.profiler over `run()`, with a quiet margin of PROFILE_PAD_S
+    on each side of it: (profiler, its device events, wall ms of run).
+    An empty window is run again; PROFILE_ATTEMPTS empty ones fail."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    for attempt in range(PROFILE_ATTEMPTS):
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            time.sleep(PROFILE_PAD_S)
+        events = _device_events(prof)
+        if events:
+            return prof, events, wall
+        PROFILER_MISSES.append(getattr(run, "__qualname__", "?"))
+    check(False, f"torch.profiler saw no device time in "
+                 f"{PROFILE_ATTEMPTS} windows")
+
+
 def device_ms(torch, fn, iters: int = 50) -> float:
     """Device time per call: the summed time of every kernel `fn` puts on
     the card (torch.profiler), over `iters` calls, after a warm-up call."""
-    from torch.profiler import ProfilerActivity, profile
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def calls():
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    events = _device_events(prof)
-    check(bool(events), "torch.profiler saw no device time")
+
+    _, events, _ = profiled(torch, calls)
     return sum(_dev_us(e) for e in events) / 1e3 / iters
 
 
@@ -142,13 +187,15 @@ def phase_device(ctx):
     smi = nvidia_smi_line()
     print(smi, flush=True)
     bw_kind, (bw, f32) = peaks_for(name)
-    ctx.update(name=name, smi=smi, peak_bw=bw, peak_f32=f32)
+    ctx.update(name=name, smi=smi, peak_bw=bw, peak_f32=f32,
+               peak_bf16=PEAKS_BF16[bw_kind])
     emit("device", name=name, nvidia_smi=smi, count=torch.cuda.device_count(),
          torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0],
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
-         peaks={"table": bw_kind, "bytes_per_s": bw, "f32_flop_per_s": f32})
+         peaks={"table": bw_kind, "bytes_per_s": bw, "f32_flop_per_s": f32,
+                "bf16_tensor_flop_per_s": PEAKS_BF16[bw_kind]})
 
 
 def phase_build(ctx):
@@ -270,6 +317,8 @@ def phase_kernels(ctx):
     results += _scatter_cases(ctx)
     results += _pushsum_cases(ctx)
     results += _topk_cases(ctx)
+    results += _flash_cases(ctx)
+    results += _rglru_cases(ctx)
     torch.cuda.synchronize()
     emit("kernels", cases=len(results), results=results)
 
@@ -459,6 +508,122 @@ def _topk_cases(ctx):
         torch, 4, 2, 8, 3, 0, f32, u16)), 8, force="cuda")
     check(empty.shape == (0, 8), "topk_gather m=0")
     ctx["topk_worst_err"] = worst
+    return results
+
+
+def _flash_cases(ctx):
+    """flash_attention against flash_attention_ref (full-matrix f32 math,
+    cuBLAS with TF32 off) on the card: the JAX sweep's shapes
+    (tests/test_kernels.py:102-109), MHA, GQA 2:1 and MQA at hd 32, 64,
+    128 and 256, S not a multiple of the tile (1000, 77, 1), window 0, =
+    tile, not a multiple of the tile and >= S, B > 1, other tiles (bq, bk),
+    f32 and bf16, and the hybrid model's prefill shape.  Both sum in f32 in
+    other orders: rtol/atol 2e-5 for f32; a bf16 output rounds once on
+    each side, so one bf16 ulp, rtol/atol 8e-3."""
+    torch = ctx["torch"]
+    from repro_torch.kernels import ops
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(B, S, H, Hkv, hd, win, None, None) for B, S, H, Hkv, hd, win in (
+        (1, 128, 4, 4, 64, 0), (2, 256, 4, 2, 64, 0), (1, 256, 8, 1, 32, 0),
+        (1, 256, 4, 2, 64, 64), (1, 512, 2, 2, 128, 128),
+        (2, 128, 2, 1, 128, 96),
+        (2, 1000, 4, 4, 64, 0), (2, 1000, 4, 2, 128, 64),
+        (2, 1000, 8, 1, 256, 300), (2, 1000, 4, 1, 256, 1000),
+        (1, 1000, 2, 1, 256, 2048), (3, 77, 4, 2, 64, 13),
+        (2, 1, 4, 1, 256, 0), (0, 16, 2, 1, 64, 0))]
+    cases += [(2, 1000, 4, 2, 128, 300, 32, 16), (1, 77, 2, 1, 256, 0, 16, 48),
+              (1, 300, 4, 1, 256, 100, 48, 64), (1, 300, 2, 2, 32, 0, 64, 16)]
+    g = torch.Generator(device="cuda").manual_seed(21)
+    results, worst = [], {}
+
+    def run(B, S, H, Hkv, hd, win, bq, bk, dt):
+        q = torch.randn((B, S, H, hd), generator=g, device="cuda").to(dt)
+        k = torch.randn((B, S, Hkv, hd), generator=g, device="cuda").to(dt)
+        v = torch.randn((B, S, Hkv, hd), generator=g, device="cuda").to(dt)
+        got = ops.flash_attention(q, k, v, window=win, force="cuda", bq=bq,
+                                  bk=bk)
+        want = ops.flash_attention(q, k, v, window=win, force="ref")
+        torch.cuda.synchronize()
+        tol = 2e-5 if dt == f32 else 8e-3
+        err = max_abs(got, want)
+        key = str(dt).split(".")[-1]
+        worst[key] = max(worst.get(key, 0.0), err)
+        check(got.dtype == dt and got.shape == q.shape and torch.allclose(
+            got.float(), want.float(), rtol=tol, atol=tol),
+            f"flash_attention {(B, S, H, Hkv, hd)} window {win} bq {bq} "
+            f"bk {bk} {dt} err {err}")
+        results.append({"kernel": "flash_attention",
+                        "shape": [B, S, H, Hkv, hd], "window": win,
+                        "bq": bq, "bk": bk, "dtype": key, "rtol_atol": tol,
+                        "max_abs_err": err, "ok": True})
+        return err
+
+    for c in cases:
+        for dt in (f32, bf16):
+            run(*c, dt)
+    # the hybrid model's prefill: B 2, S 4096, 16 heads on 1 kv head,
+    # hd 256, window 2048, bf16
+    ctx["flash_err"] = run(2, 4096, 16, 1, 256, 2048, None, None, bf16)
+    ctx["flash_worst_err"] = worst
+    return results
+
+
+def _rglru_cases(ctx):
+    """rglru against rglru_ref on the card, bitwise: both round the
+    product and then the sum of every step.  S and W not multiples of 32
+    or 128, B > 1, a ~ 1 and a == 1, other steps ahead (bs) and chains per
+    block (bw), empty shapes, and the hybrid model's prefill shape
+    (2, 4096, 4096)."""
+    torch = ctx["torch"]
+    from repro_torch.kernels import ops
+    g = torch.Generator(device="cuda").manual_seed(22)
+    cases = [dict(shape=s) for s in ((1, 1, 1), (3, 1000, 300),
+                                      (2, 37, 4097), (1, 4097, 33),
+                                      (0, 5, 7), (2, 0, 7))]
+    cases += [dict(shape=(2, 333, 1000), a="near_one"),
+              dict(shape=(2, 333, 1000), a="one"),
+              dict(shape=(2, 333, 1000), bs=1, bw=32),
+              dict(shape=(2, 333, 1000), bs=32, bw=256),
+              dict(shape=(2, 333, 1000), bs=2, bw=1024),
+              dict(shape=(3, 77, 130), bs=2, bw=96),
+              dict(shape=(2, 4096, 4096), main=True)]
+    results = []
+    for c in cases:
+        shape = c["shape"]
+        a = torch.rand(shape, generator=g, device="cuda")
+        if c.get("a") == "near_one":
+            a = 1.0 - a * 1e-6
+        elif c.get("a") == "one":
+            a = torch.ones(shape, device="cuda")
+        b = torch.randn(shape, generator=g, device="cuda")
+        got = ops.rglru(a, b, force="cuda", bs=c.get("bs"), bw=c.get("bw"))
+        want = ops.rglru(a, b, force="ref")
+        torch.cuda.synchronize()
+        err = max_abs(got, want)
+        check(got.dtype == torch.float32 and got.shape == a.shape
+              and torch.equal(got, want),
+              f"rglru {c} not bitwise: err {err}")
+        if c.get("main"):
+            ctx["rglru_err"] = err
+        results.append({"kernel": "rglru", "shape": list(shape),
+                        "case": {n: v for n, v in c.items() if n != "shape"},
+                        "check": "bitwise == ref", "max_abs_err": err,
+                        "ok": True})
+    # 32 steps ahead take ~156 registers a thread: 1024 threads a block
+    # exceed the register file, and the card refuses the launch, which
+    # the wrapper must raise rather than return an unwritten tensor
+    a = torch.rand((2, 33, 1000), generator=g, device="cuda")
+    try:
+        ops.rglru(a, a, force="cuda", bs=32, bw=1024)
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+    check(refused is not None and "CUDA error" in refused,
+          f"a refused rglru launch returned instead of raising: {refused}")
+    results.append({"kernel": "rglru", "shape": [2, 33, 1000],
+                    "case": {"bs": 32, "bw": 1024},
+                    "check": "refused launch raises", "error": refused,
+                    "ok": True})
     return results
 
 
@@ -969,6 +1134,186 @@ def phase_serve(ctx):
          launches=counts, by_batch=rows)
 
 
+def _lm_profile(torch, fn, calls: int = 1):
+    """`calls` calls of fn under torch.profiler: wall and device ms per
+    call, the device's busy share, the device ms of each of the two LM
+    kernels and their share of the device time, and the ten kernels that
+    take the most."""
+    def run():
+        for _ in range(calls):
+            fn()
+
+    _, events, wall = profiled(torch, run, cpu=True)
+    wall /= calls
+    total = sum(_dev_us(e) for e in events) / 1e3 / calls
+    by = {name: sum(_dev_us(e) for e in events if key in e.key) / 1e3 / calls
+          for name, key in (("flash_attention", "flash_attention_kernel"),
+                            ("rglru", "rglru_kernel"))}
+    top = sorted(events, key=_dev_us, reverse=True)[:10]
+    return {"calls": calls, "wall_ms": wall, "device_ms": total,
+            "device_busy_share": total / wall,
+            "device_events_per_call": sum(e.count for e in events) / calls,
+            "kernel_ms": by,
+            "kernel_share": {n: v / total for n, v in by.items()},
+            "top_device_kernels": [{"name": e.key[:90],
+                                    "ms": _dev_us(e) / 1e3 / calls,
+                                    "calls": e.count / calls}
+                                   for e in top]}
+
+
+def phase_lm(ctx):
+    """The hybrid LM's serve path: recurrentgemma-9b at its published
+    widths and all 38 layers, f32 parameters drawn on the card, bf16
+    compute.  prefill_logits at B 2, S 4096 from lm_synthetic_batch,
+    then greedy decode_step from init_cache for 16 steps at B 4; then
+    reduced() in f32 on the card (kernels) against the CPU (plain)."""
+    torch = ctx["torch"]
+    from repro_torch import configs, models, tree
+    from repro_torch.data import lm_synthetic_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import hybrid
+    cfg = configs.get_config("recurrentgemma-9b")
+    P, tail = hybrid._layout(cfg)
+    n_lru = 2 * P + tail
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = hybrid.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                cfg, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    check(n_params == LM_PARAMS, f"{n_params} parameters, the reference "
+                                 f"initializes {LM_PARAMS}")
+    pb, ps = 2, 4096                 # prefill batch and length
+    batch = lm_synthetic_batch(torch.Generator(device="cuda").manual_seed(1),
+                               cfg.vocab, pb, ps)
+
+    def prefill():
+        return models.prefill_logits(params, batch, cfg)
+
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        logits = prefill()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        check(counts["flash_attention"] == P and counts["rglru"] == n_lru
+              and sum(counts.values()) == P + n_lru,
+              f"one prefill launched {counts}; want {P} flash_attention "
+              f"and {n_lru} rglru")
+        check(logits.shape == (pb, 1, cfg.vocab) and logits.dtype
+              == torch.bfloat16 and bool(torch.isfinite(logits).all()),
+              "prefill logits")
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            prefill()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        share = _lm_profile(torch, prefill)
+        prefill_peak = torch.cuda.max_memory_allocated()
+
+        B, steps = 4, 16
+        tok = lm_synthetic_batch(torch.Generator(device="cuda").manual_seed(2),
+                                 cfg.vocab, B, 1)["tokens"]
+        cache = hybrid.init_cache(cfg, B, cfg.local_window, device="cuda")
+        ops.reset_launch_counts()
+        step_ms, generated = [], []
+        for pos in range(steps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out, cache = hybrid.decode_step(params, cache, tok, pos, cfg)
+            tok = out.argmax(-1)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            check(out.shape == (B, 1, cfg.vocab) and bool(
+                torch.isfinite(out).all()), f"decode step {pos} logits")
+            generated.append(tok[:, 0].tolist())
+        decode_counts = ops.launch_counts()
+        state = {"cache": cache, "tok": tok, "pos": steps}
+
+        def one_step():
+            out, state["cache"] = hybrid.decode_step(
+                params, state["cache"], state["tok"], state["pos"], cfg)
+            state["tok"] = out.argmax(-1)
+            state["pos"] += 1
+
+        decode_profile = _lm_profile(torch, one_step, calls=3)
+    peak = torch.cuda.max_memory_allocated()
+    del params, batch, cache, logits, out, state
+    torch.cuda.empty_cache()
+    ctx["lm_launches"] = counts
+    ctx["lm_prefill_ms"] = statistics.median(ms)
+    emit("lm", arch=cfg.arch_id, layers=cfg.n_layers, periods=P,
+         tail_lru=tail, params=n_params, param_dtype=cfg.param_dtype,
+         compute_dtype=cfg.compute_dtype, init_s=init_s,
+         prefill={"batch": pb, "seq": ps, "launches": counts,
+                  "ms": ms, "ms_median": statistics.median(ms),
+                  "peak_bytes": prefill_peak, **share},
+         decode={"batch": B, "steps": steps, "cache_len": cfg.local_window,
+                 "step_ms": step_ms,
+                 "ms_per_token_median_after_first":
+                     statistics.median(step_ms[1:]),
+                 "launches": decode_counts, "tokens": generated,
+                 "profile": decode_profile},
+         max_memory_allocated=peak,
+         parity=_lm_parity(ctx))
+
+
+def _lm_parity(ctx):
+    """reduced() (5 layers, d 128, window 16) in f32 from one init: the
+    card (flash_attention and rglru kernels, cuBLAS with TF32 off) against
+    the CPU (their plain versions): full logits and prefill logits at B 2,
+    S 64, then 24 teacher-forced decode steps into the 16-slot ring,
+    logits every step and every cache leaf at the end.  Sum orders differ
+    (kernels, cuBLAS, CPU BLAS) through 5 layers: rtol/atol 1e-4."""
+    torch = ctx["torch"]
+    from repro_torch import configs, models, tree
+    from repro_torch.data import lm_synthetic_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import hybrid
+    cfg = configs.get_reduced("recurrentgemma-9b")
+    tol = 1e-4
+    P, tail = hybrid._layout(cfg)
+    cpu = hybrid.init_params(torch.Generator().manual_seed(5), cfg,
+                             device="cpu")
+    gpu = tree.tree_map(lambda t: t.cuda(), cpu)
+    batch = lm_synthetic_batch(torch.Generator().manual_seed(6), cfg.vocab,
+                               2, 64)
+    gbatch = {k: t.cuda() for k, t in batch.items()}
+    errs = {}
+
+    def cmp(name, a, b):
+        err = max_abs(a.cpu(), b)
+        errs[name] = max(errs.get(name, 0.0), err)
+        check(a.dtype == b.dtype and a.shape == b.shape and torch.allclose(
+            a.cpu(), b, rtol=tol, atol=tol), f"lm parity {name}: err {err}")
+
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        full = hybrid.forward_train(gpu, gbatch["tokens"], cfg)
+        counts = ops.launch_counts()
+        check(counts["flash_attention"] == P and counts["rglru"] ==
+              2 * P + tail, f"reduced forward launched {counts}")
+        cmp("logits", full, hybrid.forward_train(cpu, batch["tokens"], cfg))
+        cmp("prefill_logits", models.prefill_logits(gpu, gbatch, cfg),
+            models.prefill_logits(cpu, batch, cfg))
+        cg = hybrid.init_cache(cfg, 2, 64, device="cuda")
+        cc = hybrid.init_cache(cfg, 2, 64, device="cpu")
+        ring = cc["p_k"].shape[2]
+        for pos in range(24):
+            lg, cg = hybrid.decode_step(gpu, cg, gbatch["tokens"][:, pos:pos + 1],
+                                        pos, cfg)
+            lc, cc = hybrid.decode_step(cpu, cc, batch["tokens"][:, pos:pos + 1],
+                                        pos, cfg)
+            cmp("decode_logits", lg, lc)
+        for name in cc:
+            cmp(f"cache/{name}", cg[name], cc[name])
+    return {"config": "reduced", "seq": 64, "window": cfg.local_window,
+            "ring_slots": ring, "decode_steps": 24, "launches": counts,
+            "rtol_atol": tol, "max_abs_err": errs}
+
+
 def phase_timings(ctx):
     torch = ctx["torch"]
     from repro_torch.core import gossip, topology
@@ -1159,7 +1504,100 @@ def phase_timings(ctx):
         "library": "index_put_(accumulate=True) + torch.sparse.mm: 2 calls",
         "call_ms": main["call_ms"], "shape": [100, 11, 13328, 833],
         "dtype": "float32/uint16"})
+    # flash_attention at the hybrid model's prefill shape (B 2, S 4096, H
+    # 16, Hkv 1, hd 256, window 2048, bf16): q, k, v read once and the
+    # output written once; 4 * hd flops per (query, key) pair inside the
+    # band.  The bound takes Q K^T (bf16 inputs: exact products, f32
+    # accumulate) at the bf16 tensor-core peak and P V at the f32 peak (P
+    # is f32 by definition); bound_f32_ms takes both halves in f32.  The
+    # library yardstick is scaled_dot_product_attention with the same
+    # boolean band mask (timed only; the port never calls it)
+    B, S, H, Hkv, hd, win = 2, 4096, 16, 1, 256, 2048
+    g = torch.Generator(device="cuda").manual_seed(31)
+    q = torch.randn((B, S, H, hd), generator=g, device="cuda").bfloat16()
+    k = torch.randn((B, S, Hkv, hd), generator=g, device="cuda").bfloat16()
+    v = torch.randn((B, S, Hkv, hd), generator=g, device="cuda").bfloat16()
+    pos = torch.arange(S, device="cuda")
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - win)
+    pairs = int(band.sum())
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=band, enable_gqa=True).transpose(1, 2)
+
+    got = ops.flash_attention(q, k, v, window=win, force="cuda")
+    check(torch.allclose(sdpa().float(), got.float(), rtol=2e-2, atol=2e-2),
+          "scaled_dot_product_attention yardstick disagrees")
+    fl = {"ms": device_ms(torch, lambda: ops.flash_attention(
+              q, k, v, window=win, force="cuda"), iters=10),
+          "plain_ms": device_ms(torch, lambda: ops.flash_attention(
+              q, k, v, window=win, force="ref"), iters=3),
+          "library_ms": device_ms(torch, sdpa, iters=10),
+          "call_ms": time_ms(torch, lambda: ops.flash_attention(
+              q, k, v, window=win, force="cuda"), iters=5, reps=3)}
+    half = 2 * pairs * B * H * hd
+    fbytes = 2 * (2 * B * S * H * hd + 2 * B * S * Hkv * hd)
+    t_ops = (half / ctx["peak_bf16"] + half / f32) * 1e3
+    fb_ms = max(fbytes / bw * 1e3, t_ops)
+    flash_detail = dict(fl, bound_ms=fb_ms, bound_f32_ms=2 * half / f32 * 1e3,
+                        flops=2 * half, bytes=fbytes, band_pairs=pairs,
+                        shape=[B, S, H, Hkv, hd], window=win,
+                        ms_by_tile={f"{bq}x{bk}": device_ms(
+                            torch, lambda bq=bq, bk=bk: ops.flash_attention(
+                                q, k, v, window=win, force="cuda", bq=bq,
+                                bk=bk), iters=5)
+                            for bq, bk in ((64, 64), (64, 32), (32, 64))})
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:110",
+        "launches": ctx["lm_launches"]["flash_attention"],
+        "max_abs_err": ctx["flash_err"], "ms": fl["ms"],
+        "plain_ms": fl["plain_ms"], "bound_ms": fb_ms,
+        "bound_by": "bytes" if fbytes / bw * 1e3 >= t_ops else "operations",
+        "library_ms": fl["library_ms"],
+        "library": "scaled_dot_product_attention(attn_mask=band, "
+                   "enable_gqa=True)",
+        "call_ms": fl["call_ms"], "shape": [B, S, H, Hkv, hd],
+        "window": win, "dtype": "bfloat16"})
+    del q, k, v, qt, kt, vt, band
+
+    # rglru at the model's shape (2, 4096, 4096) f32: a and b read once,
+    # h written once, 2 flops per element.  No single PyTorch call
+    # computes a linear recurrence: library_ms is null
+    n = 2 * 4096 * 4096
+    a = torch.rand((2, 4096, 4096), generator=g, device="cuda")
+    b = torch.randn((2, 4096, 4096), generator=g, device="cuda")
+    rg = {"ms": device_ms(torch, lambda: ops.rglru(a, b, force="cuda")),
+          "plain_ms": device_ms(torch, lambda: ops.rglru(a, b, force="ref"),
+                                iters=2),
+          "call_ms": time_ms(torch, lambda: ops.rglru(a, b, force="cuda"))}
+    rb_ms, rb_by = bound(3 * n * 4, 2 * n)
+    rglru_detail = dict(rg, bound_ms=rb_ms, bound_by=rb_by,
+                        shape=[2, 4096, 4096],
+                        ms_by_steps_ahead={st: device_ms(
+                            torch, lambda st=st: ops.rglru(
+                                a, b, force="cuda", bs=st), iters=10)
+                            for st in (1, 4, 8, 16, 32)},
+                        ms_by_block={bw_: device_ms(
+                            torch, lambda bw_=bw_: ops.rglru(
+                                a, b, force="cuda", bw=bw_), iters=10)
+                            for bw_ in (32, 64, 256)})
+    kernels.append({
+        "name": "rglru", "route": "cuda",
+        "source": "src/repro_torch/csrc/rglru.cu",
+        "replaces": "src/repro/kernels/rglru.py:55",
+        "launches": ctx["lm_launches"]["rglru"],
+        "max_abs_err": ctx["rglru_err"], "ms": rg["ms"],
+        "plain_ms": rg["plain_ms"], "bound_ms": rb_ms, "bound_by": rb_by,
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes the recurrence",
+        "call_ms": rg["call_ms"], "shape": [2, 4096, 4096],
+        "dtype": "float32"})
+    del a, b
     emit("timings", card=ctx["smi"], gossip_gather=gossip_detail,
+         flash_attention=flash_detail, rglru=rglru_detail,
          gossip_scatter_by_shape=per_shape, pushsum_mix=pushsum_detail,
          topk_gather_by_shape=topk_shapes,
          round_profile=profile_rounds(ctx),
@@ -1172,7 +1610,9 @@ def phase_timings(ctx):
               "the kernels each puts on the card (torch.profiler, 50 "
               "calls); *call_ms: median of CUDA-event windows of "
               "back-to-back calls, host time included; inputs warm in L2; "
-              "bound_ms from the published peaks of the named card")
+              "bound_ms from the published peaks of the named card",
+         profiler={"pad_s": PROFILE_PAD_S, "attempts": PROFILE_ATTEMPTS,
+                   "empty_windows": list(PROFILER_MISSES)})
     ctx["kernels"] = kernels
 
 
@@ -1187,7 +1627,6 @@ def profile_rounds(ctx, rounds: int = 3, frac: float = 1.0,
     phase's state and names the device time of the codec's torch ops
     (the encode's topk, its gathers and scatters)."""
     torch = ctx["torch"]
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.compress import get_codec
     from repro_torch.core import sampling, topology
     from repro_torch.data import make_dataset
@@ -1217,16 +1656,13 @@ def profile_rounds(ctx, rounds: int = 3, frac: float = 1.0,
     if codec is not None:
         start = ctx["compress_state"]
     state = one_round(start, 0)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def run():
+        s = state
         for r in range(1, rounds + 1):
-            state = one_round(state, r)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = _device_events(prof)
-    check(bool(events), "torch.profiler saw no device time")
+            s = one_round(s, r)
+
+    prof, events, wall_ms = profiled(torch, run, cpu=True)
     busy_ms = sum(_dev_us(e) for e in events) / 1e3
     top = sorted(events, key=_dev_us, reverse=True)[:10]
     codec_ops = {}
@@ -1277,7 +1713,7 @@ def main(argv=None) -> int:
     wanted = set(only) | {"device"}
     needs = {"serve": {"train"}, "compress": {"train"},
              "timings": {"kernels", "train", "sampled", "kernel_mix",
-                         "compress", "serve"}}
+                         "compress", "serve", "lm"}}
     for phase in only:
         missing = needs.get(phase, set()) - wanted
         if missing:
@@ -1286,7 +1722,7 @@ def main(argv=None) -> int:
            "kernels": phase_kernels, "train": phase_train,
            "parity": phase_parity, "sampled": phase_sampled,
            "kernel_mix": phase_kernel_mix, "compress": phase_compress,
-           "serve": phase_serve,
+           "serve": phase_serve, "lm": phase_lm,
            "timings": phase_timings}
     t0 = time.perf_counter()
     for phase in PHASES:

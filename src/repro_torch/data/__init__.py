@@ -1,3 +1,5 @@
-from .synthetic import ClientData, from_arrays, make_dataset, sample_batches
+from .synthetic import (ClientData, from_arrays, lm_synthetic_batch,
+                        make_dataset, sample_batches)
 
-__all__ = ["ClientData", "from_arrays", "make_dataset", "sample_batches"]
+__all__ = ["ClientData", "from_arrays", "lm_synthetic_batch", "make_dataset",
+           "sample_batches"]

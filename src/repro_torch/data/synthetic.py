@@ -1,4 +1,5 @@
-"""Synthetic image-classification data + the paper's non-IID partitioners.
+"""Synthetic image-classification data + the paper's non-IID partitioners,
+and synthetic LM token batches.
 
 Port of `repro/data/synthetic.py`: each class has a smooth random template
 image; samples are template + noise, times a random brightness.  Labels
@@ -116,3 +117,24 @@ def sample_batches(generator: torch.Generator, data: ClientData,
     idx = idx.to(data.y.device)
     rows = torch.arange(m, device=data.y.device)[:, None, None]
     return {"x": data.x[rows, idx], "y": data.y[rows, idx]}
+
+
+def lm_synthetic_batch(generator: torch.Generator, vocab: int,
+                       global_batch: int, seq: int) -> dict:
+    """Synthetic LM batch with the reference's Markov rule: a random t0,
+    then token_{s} = (token_{s-1} * 31 + u_s) % vocab with u_s uniform in
+    [0, 17); t0 itself is not part of the sequence.  labels are tokens
+    shifted left by one, wrapping.  Drawn in bulk on the generator's
+    device; int64 (B, seq) leaves there.  The draws cannot replay
+    `jax.random`."""
+    dev = generator.device
+    carry = torch.randint(0, vocab, (global_batch,), generator=generator,
+                          device=dev)
+    noise = torch.randint(0, 17, (seq, global_batch), generator=generator,
+                          device=dev)
+    tokens = torch.empty((global_batch, seq), dtype=torch.int64, device=dev)
+    for s in range(seq):
+        carry = torch.remainder(carry * 31 + noise[s], vocab)
+        tokens[:, s] = carry
+    labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    return {"tokens": tokens, "labels": labels}

@@ -11,21 +11,31 @@ falls back.
 
 Loud-knob rule: every knob that only tunes a kernel (block sizes) raises
 when the call dispatches to the plain version instead of being ignored.
+
+`flash_attention` and `rglru` are forward-only kernels (the TPU kernels
+have no backward either): their kernel path raises when an input
+requires grad under autograd instead of detaching it.
 """
 from __future__ import annotations
 
+import torch
+
 from . import ref
+from .flash_attention import flash_attention_cuda
 from .gossip_gather import gossip_gather_cuda
 from .gossip_scatter import gossip_scatter_cuda
 from .head_gather import head_gather_matmul_cuda
 from .pushsum_mix import pushsum_mix_cuda
+from .rglru import rglru_cuda
 from .topk_gather import topk_gather_cuda
 
 FORCES = ("auto", "cuda", "ref")
-KERNELS = {"gossip_gather": gossip_gather_cuda,
+KERNELS = {"flash_attention": flash_attention_cuda,
+           "gossip_gather": gossip_gather_cuda,
            "gossip_scatter": gossip_scatter_cuda,
            "head_gather_matmul": head_gather_matmul_cuda,
            "pushsum_mix": pushsum_mix_cuda,
+           "rglru": rglru_cuda,
            "topk_gather": topk_gather_cuda}
 
 
@@ -51,6 +61,40 @@ def _reject_ref_knobs(**knobs):
             f"{', '.join(stray)} tune(s) the CUDA kernel; this call "
             f"dispatched to the plain torch version (pass CUDA tensors with "
             f"force='auto' or 'cuda' to run the kernel)")
+
+
+def _reject_grad(name: str, *ts) -> None:
+    """Raise if autograd would track a forward-only kernel's inputs."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward; an input requires "
+            f"grad (run under torch.no_grad() or detach the inputs)")
+
+
+def flash_attention(q, k, v, *, window: int = 0, scale=None,
+                    force: str = "auto", bq: int | None = None,
+                    bk: int | None = None):
+    """Causal (optionally sliding-window) GQA attention, f32 online
+    softmax, output in q's dtype: q (B, S, H, hd), k and v (B, S, Hkv,
+    hd).  bq / bk tune the kernel's query / key tile (kernel only)."""
+    if _use_kernel(force, q):
+        _reject_grad("flash_attention", q, k, v)
+        return flash_attention_cuda(q, k, v, window=window, scale=scale,
+                                    bq=bq, bk=bk)
+    _reject_ref_knobs(bq=bq, bk=bk)
+    return ref.flash_attention_ref(q, k, v, window=window, scale=scale)
+
+
+def rglru(a, b, force: str = "auto", bs: int | None = None,
+          bw: int | None = None):
+    """Linear recurrence h_t = a_t h_{t-1} + b_t (h_{-1} = 0) over
+    (B, S, W), f32 out.  bs / bw tune the kernel's time steps loaded ahead
+    and chains per block (kernel only)."""
+    if _use_kernel(force, a):
+        _reject_grad("rglru", a, b)
+        return rglru_cuda(a, b, bs=bs, bw=bw)
+    _reject_ref_knobs(bs=bs, bw=bw)
+    return ref.rglru_ref(a, b)
 
 
 def pushsum_mix(P, U, force: str = "auto"):

@@ -7,6 +7,8 @@ kernel against them on the card.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -83,3 +85,45 @@ def head_gather_matmul_ref(uid: torch.Tensor, H: torch.Tensor,
     Wg = W[u].to(torch.float32)                              # (B, d, n)
     bg = b[u].to(torch.float32)                              # (B, n)
     return torch.einsum("bd,bdn->bn", H.to(torch.float32), Wg) + bg
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, window: int = 0, scale=None) -> torch.Tensor:
+    """Causal (optionally sliding-window: kpos > qpos - window) GQA
+    attention, full-matrix math in f32: q (B, S, H, hd), k and v
+    (B, S, Hkv, hd) in any float dtype, query head h reads kv head
+    h // (H / Hkv); masked logits -1e30; output in q's dtype.  A CUDA
+    caller wants torch.backends.cuda.matmul.allow_tf32 False."""
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    g = H // Hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    qf = q.to(torch.float32).reshape(B, S, Hkv, g, hd)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qf,
+                          k.to(torch.float32)) * scale
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(S, device=q.device)[None, :]
+    mask = kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    scores = torch.where(mask, scores, torch.full((), -1e30,
+                                                  device=q.device))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.to(torch.float32))
+    return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def rglru_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Gated linear recurrence h_t = a_t * h_{t-1} + b_t with h_{-1} = 0
+    over (B, S, W), sequential in t; f32 out.  Each step rounds the product
+    and then the sum, which is the arithmetic of the CUDA kernel
+    (csrc/rglru.cu): the two agree bit for bit on the card."""
+    af = a.to(torch.float32)
+    bf = b.to(torch.float32)
+    B, S, W = af.shape
+    out = torch.empty_like(af)
+    h = torch.zeros((B, W), dtype=torch.float32, device=af.device)
+    for t in range(S):
+        h = af[:, t] * h + bf[:, t]
+        out[:, t] = h
+    return out

@@ -1,20 +1,218 @@
-"""The building blocks of `repro/models/layers.py` that the CNN uses."""
+"""Shared building blocks of `repro/models/layers.py`: the CNN's helpers
+and what the hybrid (Griffin / RecurrentGemma) family uses.
+
+Parameters are plain nested dicts of tensors, weights (in, out) as the
+reference keeps them.  Every block casts its weights to the activation's
+dtype before use, as the reference does, so f32 parameters run a bf16
+compute dtype.
+"""
 from __future__ import annotations
 
 import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
+
+from ..kernels import ops
+from .config import ModelConfig
 
 
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
 def dense_init(generator: torch.Generator, shape, dtype=torch.float32,
                scale: Optional[float] = None, device="cpu") -> torch.Tensor:
     """LeCun-normal style init on the penultimate dim (leading batch dims
-    of `shape` beyond the weight's own two are allowed)."""
+    of `shape` beyond the weight's own two are allowed).  Drawn on the
+    generator's device, then moved to `device`."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     s = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    x = torch.randn(tuple(shape), generator=generator) * s
+    x = torch.randn(tuple(shape), generator=generator,
+                    device=generator.device).mul_(s)
     return x.to(dtype=dtype, device=device)
+
+
+def embed_init(generator: torch.Generator, shape, dtype=torch.float32,
+               device="cpu") -> torch.Tensor:
+    x = torch.randn(tuple(shape), generator=generator,
+                    device=generator.device).mul_(0.02)
+    return x.to(dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.to(torch.float32)
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * weight).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# RoPE (split-half, angles in f32)
+# ---------------------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: (..., S) int."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                  # (hd/2,)
+    ang = positions[..., None].to(torch.float32) * freqs      # (..., S, hd/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+def init_attention(generator: torch.Generator, cfg: ModelConfig, lead=(),
+                   device="cpu") -> dict:
+    """Attention weights; `lead` stacks them over leading (layer) dims."""
+    D = cfg.d_model
+    hd = cfg.hd
+    lead = tuple(lead)
+
+    def w(shape):
+        return dense_init(generator, lead + shape, cfg.pdtype, device=device)
+
+    p = {"wq": w((D, cfg.n_heads * hd)), "wk": w((D, cfg.n_kv_heads * hd)),
+         "wv": w((D, cfg.n_kv_heads * hd)), "wo": w((cfg.n_heads * hd, D))}
+    if cfg.qkv_bias:
+        for name, n in (("bq", cfg.n_heads), ("bk", cfg.n_kv_heads),
+                        ("bv", cfg.n_kv_heads)):
+            p[name] = torch.zeros(lead + (n * hd,), dtype=cfg.pdtype,
+                                  device=device)
+    return p
+
+
+def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    B, S, _ = x.shape
+    hd = cfg.hd
+    q = x @ p["wq"].to(x.dtype)
+    k = x @ p["wk"].to(x.dtype)
+    v = x @ p["wv"].to(x.dtype)
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    return (q.reshape(B, S, cfg.n_heads, hd),
+            k.reshape(B, S, cfg.n_kv_heads, hd),
+            v.reshape(B, S, cfg.n_kv_heads, hd))
+
+
+def gqa_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               mask: torch.Tensor, scale: Optional[float] = None):
+    """Grouped-query attention without materialising repeated KV.  Scores
+    in the compute dtype, softmax in f32, probabilities cast back before
+    P V (the reference's rounding points).  q: (B, Sq, H, hd), k/v:
+    (B, Sk, Hkv, hd), mask broadcastable to (B, Hkv, g, Sq, Sk)."""
+    B, Sq, H, hd = q.shape
+    Hkv = k.shape[2]
+    g = H // Hkv
+    qf = q.reshape(B, Sq, Hkv, g, hd)
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qf, k) * scale
+    scores = torch.where(mask, scores.to(torch.float32),
+                         torch.full((), -1e30, device=q.device))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+    return out.reshape(B, Sq, H, v.shape[-1])
+
+
+def causal_mask(sq: int, sk: int, window: int = 0, offset: int = 0,
+                device=None) -> torch.Tensor:
+    """(sq, sk) boolean mask; offset = absolute position of query 0 minus
+    key 0."""
+    qpos = torch.arange(sq, device=device)[:, None] + offset
+    kpos = torch.arange(sk, device=device)[None, :]
+    m = kpos <= qpos
+    if window:
+        m &= kpos > qpos - window
+    return m
+
+
+def attend_auto(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                window: int = 0, scale: Optional[float] = None):
+    """Causal (sliding-window) attention through `ops.flash_attention` at
+    every length: the CUDA kernel on the card, its plain version on the
+    CPU.  Both of the reference's branches (`gqa_attend` under a mask,
+    `block_attention`) compute this function; the kernel keeps scores,
+    softmax and P V in f32 where `gqa_attend` rounds scores and
+    probabilities to the compute dtype."""
+    return ops.flash_attention(q, k, v, window=window, scale=scale)
+
+
+def attention_train(p: dict, x: torch.Tensor, positions: torch.Tensor,
+                    cfg: ModelConfig, window: int = 0,
+                    theta: Optional[float] = None) -> torch.Tensor:
+    q, k, v = _qkv(p, x, cfg)
+    th = theta if theta is not None else cfg.rope_theta
+    if th > 0:
+        q = apply_rope(q, positions, th)
+        k = apply_rope(k, positions, th)
+    out = attend_auto(q, k, v, window=window)
+    return out.reshape(*x.shape[:2], -1) @ p["wo"].to(x.dtype)
+
+
+def attention_decode(p: dict, x: torch.Tensor, pos: int,
+                     cache_k: torch.Tensor, cache_v: torch.Tensor,
+                     cfg: ModelConfig, window: int = 0,
+                     theta: Optional[float] = None):
+    """One-token decode.  x: (B, 1, D); pos: int; a ring buffer if window.
+    cache_k/v: (B, C, Hkv, hd).  Returns (y, new cache_k, new cache_v);
+    the caches passed in are not modified."""
+    pos = int(pos)
+    q, k, v = _qkv(p, x, cfg)
+    th = theta if theta is not None else cfg.rope_theta
+    posv = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
+                      device=x.device)
+    if th > 0:
+        q = apply_rope(q, posv, th)
+        k = apply_rope(k, posv, th)
+    C = cache_k.shape[1]
+    slot = pos % C if window else min(pos, C - 1)
+    cache_k = cache_k.clone()
+    cache_v = cache_v.clone()
+    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+    # key absolute positions for masking
+    idx = torch.arange(C, device=x.device)
+    if window:
+        n_wraps = pos // C
+        kpos = torch.where(idx <= pos % C, idx + n_wraps * C,
+                           idx + (n_wraps - 1) * C)
+        valid = (kpos >= 0) & (kpos <= pos) & (kpos > pos - window)
+    else:
+        valid = idx <= min(pos, C - 1)
+    out = gqa_attend(q, cache_k.to(q.dtype), cache_v.to(q.dtype),
+                     valid[None, :])
+    y = out.reshape(x.shape[0], 1, -1) @ p["wo"].to(x.dtype)
+    return y, cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# MLPs and the loss
+# ---------------------------------------------------------------------------
+def init_swiglu(generator: torch.Generator, d: int, f: int,
+                dtype=torch.float32, lead=(), device="cpu") -> dict:
+    lead = tuple(lead)
+    return {"wg": dense_init(generator, lead + (d, f), dtype, device=device),
+            "wu": dense_init(generator, lead + (d, f), dtype, device=device),
+            "wd": dense_init(generator, lead + (f, d), dtype, device=device)}
+
+
+def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
+    h = F.silu(x @ p["wg"].to(x.dtype)) * (x @ p["wu"].to(x.dtype))
+    return h @ p["wd"].to(x.dtype)
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,

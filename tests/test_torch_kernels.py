@@ -145,12 +145,12 @@ def test_ops_dispatch_rules_on_cpu():
     with pytest.raises(ValueError, match="CUDA tensors"):
         gossip_scatter_cuda(rows, U[:2], U)
     # every kernel ops dispatches to is built from its own source
-    assert set(ops.KERNELS) == {"gossip_gather", "gossip_scatter",
-                                "head_gather_matmul", "pushsum_mix",
-                                "topk_gather"}
-    assert set(_build.SOURCES) == {"gossip_gather", "gossip_scatter",
-                                   "head_gather", "pushsum_mix",
-                                   "topk_gather"}
+    assert set(ops.KERNELS) == {"flash_attention", "gossip_gather",
+                                "gossip_scatter", "head_gather_matmul",
+                                "pushsum_mix", "rglru", "topk_gather"}
+    assert set(_build.SOURCES) == {"flash_attention", "gossip_gather",
+                                   "gossip_scatter", "head_gather",
+                                   "pushsum_mix", "rglru", "topk_gather"}
 
 
 @pytest.mark.parametrize("op,knob", [("gossip_gather", "block_d"),

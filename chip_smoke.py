@@ -10,7 +10,9 @@ line is never printed):
 1. device     — the card's name and power limit; both TF32 flags set False
                 (parity against f32 needs full-precision convs and matmuls);
 2. build      — the CUDA kernels built from src/repro_torch/csrc/ (one
-                nvcc per source, all started together);
+                nvcc per source, all started together), with the bf16
+                flash kernel's registers and spills (ptxas) and its
+                HGMMA and TMA instructions (cuobjdump);
 3. kernels    — each kernel against its plain torch version on the card,
                 at the main paths' shapes and awkward ones;
 4. train      — run_experiment("dfedpgp", SimConfig(rounds=5)) at the paper
@@ -50,6 +52,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -208,8 +211,64 @@ def phase_build(ctx):
     ptxas = {n: [ln.strip() for ln in info["log"].splitlines()
                  if "registers" in ln or "spill" in ln]
              for n, info in built.items()}
+    wgmma = {}
+    if "flash_attention" in built:
+        log = built["flash_attention"]["log"]
+        wgmma = {"ptxas": {f: lines for f, lines in _ptxas_by_entry(
+                     log).items() if "flash_attention_wgmma_kernel" in f},
+                 "warnings": [ln.strip() for ln in log.splitlines()
+                              if "warning" in ln.lower()],
+                 "sass": _sass_counts(_build.artifact("flash_attention"))}
+        check(len(wgmma["ptxas"]) == 4, "ptxas built no flash_attention_"
+                                        "wgmma_kernel for the 4 head dims")
+        sass = wgmma["sass"]
+        check(sass is None or (len(sass) == 4 and all(
+            c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in sass.values())),
+              f"the bf16 flash kernels issue no HGMMA or TMA load: {sass}")
     emit("build", seconds=round(seconds, 3), built=sorted(built),
-         nvcc=_build.nvcc_path(), flags=list(_build.NVCC_FLAGS), ptxas=ptxas)
+         nvcc=_build.nvcc_path(), flags=list(_build.NVCC_FLAGS), ptxas=ptxas,
+         flash_wgmma=wgmma)
+
+
+def _kernel_name(mangled: str) -> str:
+    """_ZN...flash_attention_wgmma_kernelILi256EE... -> the kernel's name
+    and head dim, flash_attention_wgmma_kernel<256>."""
+    return re.sub(r".*\d([A-Za-z_]\w*?_kernel)I\w*?Li(\d+)E.*", r"\1<\2>",
+                  mangled)
+
+
+def _ptxas_by_entry(log: str) -> dict:
+    """{entry function: its register / spill lines} from nvcc -Xptxas=-v."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            cur = _kernel_name(ln.split("'")[1])
+            out[cur] = []
+        elif cur is not None and ("registers" in ln or "spill" in ln):
+            out[cur].append(ln.strip())
+    return out
+
+
+def _sass_counts(lib, words=("HGMMA", "UTMALDG", "UTMASTG")):
+    """Per bf16 flash kernel in the built library, how many SASS lines
+    hold each word (cuobjdump beside nvcc); None without cuobjdump."""
+    from repro_torch.kernels import _build
+    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, cur = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            name = _kernel_name(ln.split("Function :")[1].strip())
+            cur = name if "flash_attention_wgmma_kernel" in name else None
+            if cur:
+                counts[cur] = dict.fromkeys(words, 0)
+        elif cur:
+            for w in words:
+                counts[cur][w] += w in ln
+    return counts
 
 
 def _gather_case(torch, m, k, d, seed, dtype, repeat=True):
@@ -320,7 +379,19 @@ def phase_kernels(ctx):
     results += _flash_cases(ctx)
     results += _rglru_cases(ctx)
     torch.cuda.synchronize()
-    emit("kernels", cases=len(results), results=results)
+    tol = 8e-3
+    emit("kernels", cases=len(results),
+         # share_of_tol: the worst element's |got - want| over allclose's
+         # bound tol + tol |want|
+         flash_model_shape={
+             "shape": [2, 4096, 16, 1, 256], "window": 2048,
+             "dtype": "bfloat16", "rtol_atol": tol,
+             "max_abs_err": ctx["flash_err"][0],
+             "share_of_tol": ctx["flash_err"][1],
+             "q_x8_max_abs_err": ctx["flash_q_x8_err"][0],
+             "q_x8_share_of_tol": ctx["flash_q_x8_err"][1],
+             "worst_by_dtype": ctx["flash_worst_err"]},
+         results=results)
 
 
 def _scatter_cases(ctx):
@@ -517,11 +588,15 @@ def _flash_cases(ctx):
     (tests/test_kernels.py:102-109), MHA, GQA 2:1 and MQA at hd 32, 64,
     128 and 256, S not a multiple of the tile (1000, 77, 1), window 0, =
     tile, not a multiple of the tile and >= S, B > 1, other tiles (bq, bk),
-    f32 and bf16, and the hybrid model's prefill shape.  Both sum in f32 in
-    other orders: rtol/atol 2e-5 for f32; a bf16 output rounds once on
-    each side, so one bf16 ulp, rtol/atol 8e-3."""
+    f32 and bf16, and the hybrid model's prefill shape, plain and with q
+    scaled x8 (a concentrated softmax).  Both sum in f32 in other orders:
+    rtol/atol 2e-5 for f32; a bf16 output rounds once on each side, so one
+    bf16 ulp, rtol/atol 8e-3.  The bf16 kernel has one tile (TC_TILES):
+    the explicit-tile cases run it at that tile, and one case checks that
+    another tile raises."""
     torch = ctx["torch"]
     from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import TC_TILES
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [(B, S, H, Hkv, hd, win, None, None) for B, S, H, Hkv, hd, win in (
         (1, 128, 4, 4, 64, 0), (2, 256, 4, 2, 64, 0), (1, 256, 8, 1, 32, 0),
@@ -536,8 +611,9 @@ def _flash_cases(ctx):
     g = torch.Generator(device="cuda").manual_seed(21)
     results, worst = [], {}
 
-    def run(B, S, H, Hkv, hd, win, bq, bk, dt):
-        q = torch.randn((B, S, H, hd), generator=g, device="cuda").to(dt)
+    def run(B, S, H, Hkv, hd, win, bq, bk, dt, q_scale=1.0):
+        q = (torch.randn((B, S, H, hd), generator=g, device="cuda")
+             * q_scale).to(dt)
         k = torch.randn((B, S, Hkv, hd), generator=g, device="cuda").to(dt)
         v = torch.randn((B, S, Hkv, hd), generator=g, device="cuda").to(dt)
         got = ops.flash_attention(q, k, v, window=win, force="cuda", bq=bq,
@@ -546,6 +622,10 @@ def _flash_cases(ctx):
         torch.cuda.synchronize()
         tol = 2e-5 if dt == f32 else 8e-3
         err = max_abs(got, want)
+        # the share of allclose's bound |got - want| <= tol + tol |want|
+        # that the worst element uses
+        share = float(((got.float() - want.float()).abs() / (
+            tol + tol * want.float().abs())).max()) if got.numel() else 0.0
         key = str(dt).split(".")[-1]
         worst[key] = max(worst.get(key, 0.0), err)
         check(got.dtype == dt and got.shape == q.shape and torch.allclose(
@@ -554,16 +634,34 @@ def _flash_cases(ctx):
             f"bk {bk} {dt} err {err}")
         results.append({"kernel": "flash_attention",
                         "shape": [B, S, H, Hkv, hd], "window": win,
-                        "bq": bq, "bk": bk, "dtype": key, "rtol_atol": tol,
-                        "max_abs_err": err, "ok": True})
-        return err
+                        "bq": bq, "bk": bk, "dtype": key, "q_scale": q_scale,
+                        "rtol_atol": tol, "max_abs_err": err,
+                        "share_of_tol": share, "ok": True})
+        return err, share
 
     for c in cases:
-        for dt in (f32, bf16):
-            run(*c, dt)
+        run(*c, f32)
+        # the bf16 kernel runs at its own tile where the case names another
+        tile = c[6:] if tuple(c[6:]) in TC_TILES else (None, None)
+        run(*c[:6], *tile, bf16)
+    q = torch.zeros((1, 64, 2, 64), device="cuda", dtype=bf16)
+    kv = torch.zeros((1, 64, 1, 64), device="cuda", dtype=bf16)
+    try:
+        ops.flash_attention(q, kv, kv, force="cuda", bq=32, bk=16)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "the bf16 flash_attention took a tile it is not built "
+                   "for (bq 32, bk 16)")
+    results.append({"kernel": "flash_attention", "dtype": "bfloat16",
+                    "bq": 32, "bk": 16, "refused": True, "ok": True})
     # the hybrid model's prefill: B 2, S 4096, 16 heads on 1 kv head,
-    # hd 256, window 2048, bf16
+    # hd 256, window 2048, bf16; then q x8, which concentrates each row's
+    # softmax on a few keys (the P_hi + P_lo split is what keeps it within
+    # the tolerance)
     ctx["flash_err"] = run(2, 4096, 16, 1, 256, 2048, None, None, bf16)
+    ctx["flash_q_x8_err"] = run(2, 4096, 16, 1, 256, 2048, None, None, bf16,
+                                q_scale=8.0)
     ctx["flash_worst_err"] = worst
     return results
 
@@ -1134,6 +1232,14 @@ def phase_serve(ctx):
          launches=counts, by_batch=rows)
 
 
+# the device symbols of each LM kernel: the f32 SIMT flash kernel and the
+# bf16 wgmma one (the model's prefill runs the latter)
+LM_KERNEL_SYMBOLS = {
+    "flash_attention": ("flash_attention_kernel",
+                        "flash_attention_wgmma_kernel"),
+    "rglru": ("rglru_kernel",)}
+
+
 def _lm_profile(torch, fn, calls: int = 1):
     """`calls` calls of fn under torch.profiler: wall and device ms per
     call, the device's busy share, the device ms of each of the two LM
@@ -1146,14 +1252,16 @@ def _lm_profile(torch, fn, calls: int = 1):
     _, events, wall = profiled(torch, run, cpu=True)
     wall /= calls
     total = sum(_dev_us(e) for e in events) / 1e3 / calls
-    by = {name: sum(_dev_us(e) for e in events if key in e.key) / 1e3 / calls
-          for name, key in (("flash_attention", "flash_attention_kernel"),
-                            ("rglru", "rglru_kernel"))}
+    by, names = {}, {}
+    for name, keys in LM_KERNEL_SYMBOLS.items():
+        hit = [e for e in events if any(key in e.key for key in keys)]
+        by[name] = sum(_dev_us(e) for e in hit) / 1e3 / calls
+        names[name] = sorted({e.key[:120] for e in hit})
     top = sorted(events, key=_dev_us, reverse=True)[:10]
     return {"calls": calls, "wall_ms": wall, "device_ms": total,
             "device_busy_share": total / wall,
             "device_events_per_call": sum(e.count for e in events) / calls,
-            "kernel_ms": by,
+            "kernel_ms": by, "kernel_names": names,
             "kernel_share": {n: v / total for n, v in by.items()},
             "top_device_kernels": [{"name": e.key[:90],
                                     "ms": _dev_us(e) / 1e3 / calls,
@@ -1211,6 +1319,11 @@ def phase_lm(ctx):
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t) * 1e3)
         share = _lm_profile(torch, prefill)
+        check(share["kernel_ms"]["flash_attention"] > 0 and any(
+            "flash_attention_wgmma_kernel" in n
+            for n in share["kernel_names"]["flash_attention"]),
+            f"the prefill profile names no bf16 flash kernel: "
+            f"{share['kernel_names']}")
         prefill_peak = torch.cuda.max_memory_allocated()
 
         B, steps = 4, 16
@@ -1506,12 +1619,17 @@ def phase_timings(ctx):
         "dtype": "float32/uint16"})
     # flash_attention at the hybrid model's prefill shape (B 2, S 4096, H
     # 16, Hkv 1, hd 256, window 2048, bf16): q, k, v read once and the
-    # output written once; 4 * hd flops per (query, key) pair inside the
-    # band.  The bound takes Q K^T (bf16 inputs: exact products, f32
-    # accumulate) at the bf16 tensor-core peak and P V at the f32 peak (P
-    # is f32 by definition); bound_f32_ms takes both halves in f32.  The
-    # library yardstick is scaled_dot_product_attention with the same
-    # boolean band mask (timed only; the port never calls it)
+    # output written once (142.6 MB); 4 * hd flops per (query, key) pair
+    # inside the band (206.2 GFLOP).  The bound takes both products at the
+    # bf16 tensor-core peak (bf16 inputs: exact products, f32 accumulate);
+    # bound_mixed_ms is the earlier bound with P V at the f32 peak (P is
+    # f32 by definition), bound_f32_ms both in f32.  The kernel runs P V
+    # twice (P_hi + P_lo): tc_flops_split is 1.5x the band's flops,
+    # tc_flops_tiles what its tiles issue, masked keys and idle rows
+    # included.  The library yardstick is scaled_dot_product_attention
+    # with the same boolean band mask (timed only; the port never calls it)
+    from repro_torch.kernels.flash_attention import (TC_TILES, tc_tile_flops,
+                                                     tc_visits)
     B, S, H, Hkv, hd, win = 2, 4096, 16, 1, 256, 2048
     g = torch.Generator(device="cuda").manual_seed(31)
     q = torch.randn((B, S, H, hd), generator=g, device="cuda").bfloat16()
@@ -1538,22 +1656,30 @@ def phase_timings(ctx):
               q, k, v, window=win, force="cuda"), iters=5, reps=3)}
     half = 2 * pairs * B * H * hd
     fbytes = 2 * (2 * B * S * H * hd + 2 * B * S * Hkv * hd)
-    t_ops = (half / ctx["peak_bf16"] + half / f32) * 1e3
+    t_ops = 2 * half / ctx["peak_bf16"] * 1e3
     fb_ms = max(fbytes / bw * 1e3, t_ops)
-    flash_detail = dict(fl, bound_ms=fb_ms, bound_f32_ms=2 * half / f32 * 1e3,
-                        flops=2 * half, bytes=fbytes, band_pairs=pairs,
-                        shape=[B, S, H, Hkv, hd], window=win,
-                        ms_by_tile={f"{bq}x{bk}": device_ms(
-                            torch, lambda bq=bq, bk=bk: ops.flash_attention(
-                                q, k, v, window=win, force="cuda", bq=bq,
-                                bk=bk), iters=5)
-                            for bq, bk in ((64, 64), (64, 32), (32, 64))})
+    tiles_flops = tc_tile_flops(B, S, H, Hkv, hd, win)
+    visits = tc_visits(B, S, H, Hkv, win)
+    flash_detail = dict(
+        fl, bound_ms=fb_ms,
+        bound_mixed_ms=(half / ctx["peak_bf16"] + half / f32) * 1e3,
+        bound_f32_ms=2 * half / f32 * 1e3, flops=2 * half,
+        tc_flops_split=3 * half, tc_flops_tiles=tiles_flops,
+        tc_flop_per_s_tiles=tiles_flops / (fl["ms"] * 1e-3),
+        kv_tile_visits=visits,
+        kv_tile_bytes=visits * 2 * TC_TILES[0][1] * hd * 2,
+        bytes=fbytes, band_pairs=pairs, shape=[B, S, H, Hkv, hd],
+        window=win,
+        ms_by_tile={f"{bq}x{bk}": device_ms(
+            torch, lambda bq=bq, bk=bk: ops.flash_attention(
+                q, k, v, window=win, force="cuda", bq=bq, bk=bk), iters=10)
+            for bq, bk in TC_TILES})
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:110",
         "launches": ctx["lm_launches"]["flash_attention"],
-        "max_abs_err": ctx["flash_err"], "ms": fl["ms"],
+        "max_abs_err": ctx["flash_err"][0], "ms": fl["ms"],
         "plain_ms": fl["plain_ms"], "bound_ms": fb_ms,
         "bound_by": "bytes" if fbytes / bw * 1e3 >= t_ops else "operations",
         "library_ms": fl["library_ms"],

@@ -10,6 +10,7 @@ compiled when a module is imported: `load` runs inside the first launch.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -89,6 +90,19 @@ def load(name: str) -> ctypes.CDLL:
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """The SM count of a CUDA device (read once per device)."""
+    import torch
+    index = torch.device(device).index
+    return _sm_count(torch.cuda.current_device() if index is None else index)
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -5,23 +5,107 @@
 Replaces the Pallas TPU kernel `repro/kernels/gossip_gather.py`
 (`gossip_gather_pallas`).  Memory-bound on an H100: at the main path's
 (m=100, k=11, d=13,328) f32 shape the unique bytes are U read once plus the
-output written once (10.7 MB); the 58.6 MB the gather touches is mostly
-served from L2, which holds all of U (5.3 MB).  One block per (row, d-chunk)
-stages its own neighbor ids and weights, threads stride coalesced over the
-chunk, and every thread sums the neighbors in j order in f32 with rounded
-multiply then add — so for f32 U the kernel equals `core.gossip.mix_rows`
-bit for bit.  The plain version is `kernels.ref.gossip_gather_ref`.
+output written once (10.7 MB).  Every thread sums the neighbors in j order
+in f32 with rounded multiply then add — so for f32 U the kernel equals
+`core.gossip.mix_rows` bit for bit.  The plain version is
+`kernels.ref.gossip_gather_ref`.
+
+Two routes, chosen by shape alone in `plan` (never on a failure):
+  - "panel": one block per column panel of `block_d` columns stages the
+    panel for all m rows in shared memory and computes every output row
+    of it there, so U is read once.  Taken whenever a panel of 16 columns
+    of all m rows fits in a block's shared memory (m <= 3,632 in f32,
+    7,264 in bf16).  block_d: a multiple of 16 bytes of U's dtype (4 f32
+    or 8 bf16 columns) whose panel fits; the default spreads the panels
+    evenly over the SMs.
+  - "row": one block per (output row, chunk of `block_d` columns) gathers
+    its k neighbor rows from L2 (the first port's kernel).  block_d: a
+    multiple of 128 in [128, 4096]; default 1024.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from . import _build
 
-DEFAULT_BLOCK_D = 1024          # columns per block (256 threads x 4)
-MAX_K = 6144                    # idx + w staging must fit 48 KB of smem
+MAX_SMEM = 232448               # bytes of shared memory a block may use
+PANEL_MIN_COLS = 16             # the panel route needs m x 16 columns
+TN = 4                          # panel route: columns per thread
+PANEL_THREADS = 1024            # panel route: most threads per block
+BLOCK_COST_COLS = 8             # a panel block's fixed cost, in columns
+ROW_BLOCK_D = 1024              # row route default (256 threads x 4)
+MAX_K = 6144                    # row route: idx + w row in 48 KB of smem
+
+
+class Plan(NamedTuple):
+    route: str           # "panel" or "row"
+    block_d: int         # columns per block
+    blocks: int
+    threads: int
+    table: bool          # panel: neighbor table staged in shared memory
+    smem: int            # bytes of dynamic shared memory
+    blocks_per_sm: int   # ceil(blocks / sms)
+    balance: float       # panel: the mean SM's columns over the busiest's
+
+
+def _panel_bytes(m: int, bn: int, elem_bytes: int) -> int:
+    return -(-m * bn * elem_bytes // 16) * 16
+
+
+@functools.lru_cache(maxsize=256)   # once per shape: calls are hot
+def plan(m: int, k: int, d: int, elem_bytes: int, sms: int,
+         block_d: int | None = None) -> Plan:
+    """Route and tiling for idx (m, k), U (m, d) with U's element size
+    `elem_bytes` on a card of `sms` SMs.  Raises ValueError, naming the
+    valid values, for a block_d its route cannot take."""
+    if m < 1 or d < 1 or sms < 1 or k < 0:
+        raise ValueError(f"plan needs m, d, sms >= 1, k >= 0; got {m}, "
+                         f"{d}, {sms}, {k}")
+    if m * PANEL_MIN_COLS * elem_bytes > MAX_SMEM:      # the row route
+        bd = ROW_BLOCK_D if block_d is None else int(block_d)
+        if bd % 128 or not 128 <= bd <= 4096:
+            raise ValueError(f"block_d={bd} on the row route (m={m}): a "
+                             f"multiple of 128 in [128, 4096] (4 columns "
+                             f"per thread)")
+        if k > MAX_K:
+            raise ValueError(f"k={k} > {MAX_K}: the row route stages a "
+                             f"neighbor table row in 48 KB of shared memory")
+        chunks = -(-d // bd)
+        if chunks > 65535:
+            raise ValueError(f"d={d} needs more than 65535 d-chunks of "
+                             f"block_d={bd}")
+        blocks = m * chunks
+        return Plan("row", bd, blocks, bd // 4, False, 8 * k,
+                    -(-blocks // sms), 1.0)
+    align = 16 // elem_bytes
+    max_bd = MAX_SMEM // (m * elem_bytes) // align * align
+    if block_d is None:
+        best = None
+        for bn in range(align, min(max_bd, -(-d // align) * align) + 1,
+                        align):
+            cost = -(-(-(-d // bn)) // sms) * (bn + BLOCK_COST_COLS)
+            if best is None or cost <= best[0]:
+                best = (cost, bn)
+        bn = best[1]
+    else:
+        bn = int(block_d)
+        if bn % align or not align <= bn <= max_bd:
+            raise ValueError(f"block_d={bn} on the panel route (m={m}, "
+                             f"{elem_bytes}-byte U): a multiple of {align} "
+                             f"in [{align}, {max_bd}], so that m x block_d "
+                             f"fits {MAX_SMEM} B of shared memory")
+    threads = min(PANEL_THREADS, -(-(bn // TN * m) // 32) * 32)
+    panel = _panel_bytes(m, bn, elem_bytes)
+    table = panel + 8 * m * k <= MAX_SMEM
+    blocks = -(-d // bn)
+    per_sm = -(-blocks // sms)
+    return Plan("panel", bn, blocks, threads, table,
+                panel + (8 * m * k if table else 0), per_sm,
+                d / (sms * per_sm * bn))
 
 
 def _lib() -> ctypes.CDLL:
@@ -32,12 +116,16 @@ def _lib() -> ctypes.CDLL:
                 ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                 ctypes.c_void_p]
             fn.restype = ctypes.c_int
-        lib.gossip_gather_cols_per_thread.restype = ctypes.c_int
+        for fn in (lib.gossip_gather_panel_f32, lib.gossip_gather_panel_bf16):
+            fn.argtypes = [ctypes.c_void_p] * 4 + [
+                ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         lib._repro_typed = True
     return lib
 
 
-def _check_inputs(idx, w, U, block_d):
+def _check_inputs(idx, w, U):
     if not (idx.is_cuda and w.is_cuda and U.is_cuda):
         raise ValueError("gossip_gather_cuda needs CUDA tensors "
                          f"(idx {idx.device}, w {w.device}, U {U.device})")
@@ -56,15 +144,6 @@ def _check_inputs(idx, w, U, block_d):
     if not (idx.is_contiguous() and w.is_contiguous()
             and U.is_contiguous()):
         raise ValueError("gossip_gather_cuda needs contiguous idx, w and U")
-    if idx.shape[1] > MAX_K:
-        raise ValueError(f"k={idx.shape[1]} > {MAX_K}: the neighbor table "
-                         f"row is staged in 48 KB of shared memory")
-    if block_d % 128 or not 128 <= block_d <= 4096:
-        raise ValueError(f"block_d={block_d}: a multiple of 128 in "
-                         f"[128, 4096] (4 columns per thread)")
-    if -(-U.shape[1] // block_d) > 65535:
-        raise ValueError(f"d={U.shape[1]} needs more than 65535 d-chunks "
-                         f"of block_d={block_d}")
 
 
 def gossip_gather_cuda(idx: torch.Tensor, w: torch.Tensor, U: torch.Tensor,
@@ -72,23 +151,30 @@ def gossip_gather_cuda(idx: torch.Tensor, w: torch.Tensor, U: torch.Tensor,
     """Launch the kernel on the current stream.  idx (m, k) int32 neighbor
     ids in [0, m), w (m, k) f32 weights, U (m, d) f32 or bf16 — all CUDA
     and contiguous.  Returns a new (m, d) tensor in U's dtype.  m = 0 or
-    d = 0 returns without a launch."""
-    block_d = DEFAULT_BLOCK_D if block_d is None else int(block_d)
-    _check_inputs(idx, w, U, block_d)
+    d = 0 returns without a launch.  block_d: columns per block on the
+    route `plan` takes (see the module docstring for the valid values)."""
+    _check_inputs(idx, w, U)
     m, k = idx.shape
     d = U.shape[1]
     out = torch.empty_like(U)
     if m == 0 or d == 0:
         return out
+    sms = _build.sm_count(U.device)
+    p = plan(m, k, d, U.element_size(), sms, block_d)
     lib = _lib()
-    fn = lib.gossip_gather_f32 if U.dtype == torch.float32 \
-        else lib.gossip_gather_bf16
-    threads = block_d // lib.gossip_gather_cols_per_thread()
+    f32 = U.dtype == torch.float32
     with torch.cuda.device(U.device):
         stream = torch.cuda.current_stream(U.device).cuda_stream
-        rc = fn(idx.data_ptr(), w.data_ptr(), U.data_ptr(), out.data_ptr(),
-                m, k, d, threads, stream)
-    _build.check(lib, rc, "gossip_gather launch")
+        args = (idx.data_ptr(), w.data_ptr(), U.data_ptr(), out.data_ptr(),
+                m, k, d)
+        if p.route == "panel":
+            fn = lib.gossip_gather_panel_f32 if f32 \
+                else lib.gossip_gather_panel_bf16
+            rc = fn(*args, p.block_d, p.threads, int(p.table), stream)
+        else:
+            fn = lib.gossip_gather_f32 if f32 else lib.gossip_gather_bf16
+            rc = fn(*args, p.threads, stream)
+    _build.check(lib, rc, f"gossip_gather launch ({p.route} route)")
     gossip_gather_cuda.launches += 1
     return out
 

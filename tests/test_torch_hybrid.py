@@ -523,3 +523,64 @@ def test_reduced_model_matches_reference(reduced_init, cdtype):
             assert tc[name].dtype == (torch.float32 if name.endswith("_h")
                                       else cfg_t.cdtype), name
             _check(tc[name], jc[name], tol, f"{name} pos {pos}")
+
+
+def _attend_rounded_as_reference(q, k, v, *, window=0, scale=None):
+    """A test-only twin of the port's `attend_auto` that rounds scores and
+    probabilities to the compute dtype, as the reference's `gqa_attend`
+    does (the port's own `gqa_attend`, under the causal band mask)."""
+    mask = TL.causal_mask(q.shape[1], k.shape[1], window, device=q.device)
+    return TL.gqa_attend(q, k, v, mask, scale)
+
+
+def _bf16_errors(tp, jp, tt, tbatch, jtokens, jbatch, cfg_t, cfg_j):
+    """(max |diff|, relative L2) of the forward and the prefill logits."""
+    out = {}
+    fwd = jax.jit(jhybrid.forward_train, static_argnums=(2,))
+    for name, got, want in (
+            ("logits", thybrid.forward_train(tp, tt, cfg_t),
+             fwd(jp, jtokens, cfg_j)),
+            ("prefill", models.prefill_logits(tp, tbatch, cfg_t),
+             jprefill_logits(jp, jbatch, cfg_j))):
+        g, w = _t2np(got), _np(want)
+        out[name] = (float(np.abs(g - w).max()),
+                     float(np.linalg.norm(g - w) / np.linalg.norm(w)))
+    return out
+
+
+def test_reduced_bf16_gap_is_not_the_attention_rounding(reduced_init,
+                                                        monkeypatch):
+    # How the bf16 gap to the reference splits.  The port's attention keeps
+    # scores and probabilities in f32; the reference's gqa_attend rounds
+    # them to bf16.  Swapping in a twin that rounds as the reference does
+    # leaves the gap where it was (jax 0.9.0, torch 2.13 on the CPU, the
+    # inputs of test_reduced_model_matches_reference):
+    #   port attention: logits max 0.125, rel L2 2.64%; prefill 0.125, 3.15%
+    #   rounded twin:   logits max 0.125, rel L2 2.65%; prefill 0.125, 3.03%
+    # (decode already goes through gqa_attend on both sides.)  So the gap
+    # is XLA's fused f32 elementwise chains (gelu, sigmoid + bias, norms),
+    # which torch rounds to bf16 op by op, not the attention.  The bf16
+    # bound of TOL is not tightened to these numbers: what XLA fuses
+    # changes with the jax version (CI pins 0.4.37, measured here on
+    # 0.9.0), and the bound has to hold on both.
+    jp, tp = reduced_init
+    cfg_t = configs.get_reduced(ARCH).replace(compute_dtype="bfloat16")
+    cfg_j = jget_reduced(ARCH).replace(compute_dtype="bfloat16")
+    rng = np.random.default_rng(6)
+    tokens = rng.integers(0, cfg_t.vocab, size=(2, 40)).astype(np.int32)
+    labels = np.roll(tokens, -1, axis=1)
+    tt = torch.as_tensor(tokens).long()
+    tbatch = {"tokens": tt, "labels": torch.as_tensor(labels).long()}
+    jbatch = {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)}
+    args = (tp, jp, tt, tbatch, jbatch["tokens"], jbatch, cfg_t, cfg_j)
+    port = _bf16_errors(*args)
+    monkeypatch.setattr(TL, "attend_auto", _attend_rounded_as_reference)
+    twin = _bf16_errors(*args)
+    bf = TOL["bfloat16"]
+    for name in ("logits", "prefill"):
+        for err, rel in (port[name], twin[name]):
+            assert err <= bf["atol"] and rel <= bf["rel_l2"], (name, err, rel)
+        # the twin runs other arithmetic (its outputs differ) but closes
+        # less than a fifth of the relative gap
+        assert twin[name] != port[name]
+        assert twin[name][1] >= 0.8 * port[name][1], (name, port, twin)

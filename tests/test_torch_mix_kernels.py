@@ -1,0 +1,240 @@
+"""The redesigned mix kernels' planning and arithmetic on the CPU.
+
+`pushsum_mix` (csrc/pushsum_mix.cu) and `gossip_gather`
+(csrc/gossip_gather.cu) run only on a GPU.  What surrounds them is pure
+Python and is held here: the planning functions that pick their tiles,
+grids and routes (`kernels.pushsum_mix.plan`, `kernels.gossip_gather.plan`),
+and plain-torch emulations of each kernel's arithmetic order, tile by tile
+as the plan lays it out, on seeded numpy inputs against the JAX reference's
+Pallas kernels in interpret mode.  `chip_smoke.py` holds the kernels
+themselves against their plain versions on the card."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.gossip_gather import gossip_gather_pallas
+from repro.kernels.pushsum_mix import pushsum_mix_pallas
+from repro_torch.core import gossip as tgossip
+from repro_torch.kernels import gossip_gather as gg
+from repro_torch.kernels import pushsum_mix as pm
+
+torch.set_num_threads(2)
+SMS = 132                        # an H100 SXM
+SMEM = 232448                    # the opt-in shared memory of a block
+
+
+# ---------------------------------------------------------------------------
+# pushsum_mix: the plan
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("m,d", [(100, 13328), (1024, 13328)])
+def test_pushsum_plan_fills_the_sms_evenly_at_the_main_shapes(m, d):
+    p = pm.plan(m, d, 4, SMS)
+    blocks = p.panels * p.row_tiles
+    # the busiest SM runs ceil(blocks / SMS) blocks; the mean SM has at
+    # least 95% of its columns
+    assert p.tiles_per_sm == -(-blocks // SMS)
+    assert p.balance >= 0.95
+    assert blocks > (p.tiles_per_sm - 1) * SMS
+    assert p.smem <= SMEM and p.threads <= 512 and p.threads % 32 == 0
+    if m == 100:
+        # all rows in one tile, padded only to the 8-row thread tile: each
+        # U panel is read once; 129 blocks of 104 columns on 132 SMs
+        assert (p.tile_m, p.row_tiles, p.bn, p.panels) == (104, 1, 104, 129)
+    else:
+        assert (p.tile_m, p.row_tiles, p.bn) == (128, 8, 64)
+
+
+@pytest.mark.parametrize("m", [1, 7, 8, 100, 128, 129, 257, 1024])
+@pytest.mark.parametrize("d", [1, 511, 513, 13328])
+@pytest.mark.parametrize("elem_bytes", [4, 2])
+def test_pushsum_plan_invariants(m, d, elem_bytes):
+    p = pm.plan(m, d, elem_bytes, SMS)
+    assert p.tile_m % pm.TM == 0 and p.tile_m <= pm.MAX_TILE_M
+    # the row tiles cover m, padding each only up to the thread tile
+    assert p.tile_m * p.row_tiles >= m
+    assert p.tile_m * p.row_tiles - m < pm.TM * p.row_tiles
+    assert p.row_tiles == -(-m // pm.MAX_TILE_M)
+    assert p.bn % 8 == 0 and 8 <= p.bn <= (
+        pm.MAX_BN if p.row_tiles == 1 else pm.MAX_BN_MULTI)
+    assert p.panels == -(-d // p.bn) and p.bn < d + 8
+    assert p.threads == -(-(p.tile_m // pm.TM * p.bn // pm.TN) // 32) * 32
+    assert p.smem == pm.STAGES * pm.BK * (p.tile_m * 4
+                                           + p.bn * elem_bytes) <= SMEM
+
+
+def test_pushsum_plan_refuses_empty_shapes():
+    for args in ((0, 5, 4, SMS), (5, 0, 4, SMS), (5, 5, 4, 0)):
+        with pytest.raises(ValueError):
+            pm.plan(*args)
+
+
+# ---------------------------------------------------------------------------
+# pushsum_mix: the kernel's arithmetic
+# ---------------------------------------------------------------------------
+def _fma_f32(a, b, c):
+    """fmaf in float32: the f32 product is exact in f64, then one rounding
+    of a*b + c to f32 (a double rounding only on a tie at f64's 53 bits)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def emulate_pushsum_mix(P, U, plan):
+    """The CUDA kernel's order: per (row tile, panel) block, zero-padded to
+    the tile, the m-long contraction in chunks of BK, one fmaf per k in
+    k order; the output in U's dtype."""
+    m, d = U.shape
+    rows, cols = plan.tile_m * plan.row_tiles, plan.bn * plan.panels
+    kp = -(-m // pm.BK) * pm.BK
+    Pp = torch.zeros((rows, kp))
+    Pp[:m, :m] = P
+    Up = torch.zeros((kp, cols))
+    Up[:m, :d] = U.float()
+    out = torch.empty((rows, cols))
+    for r0 in range(0, rows, plan.tile_m):
+        for c0 in range(0, cols, plan.bn):
+            acc = torch.zeros((plan.tile_m, plan.bn))
+            for k0 in range(0, kp, pm.BK):
+                for k in range(k0, k0 + pm.BK):
+                    acc = _fma_f32(Pp[r0:r0 + plan.tile_m, k, None],
+                                   Up[k, None, c0:c0 + plan.bn], acc)
+            out[r0:r0 + plan.tile_m, c0:c0 + plan.bn] = acc
+    return out[:m, :d].to(U.dtype)
+
+
+@pytest.mark.parametrize("m,d", [(100, 300), (13, 513), (257, 40)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pushsum_emulation_matches_reference_kernel(m, d, dtype):
+    # the kernel sums m products in k order with FMAs, the interpreted
+    # Pallas kernel in XLA's dot order: f32 rtol/atol 1e-5; a bf16 output
+    # rounds once on each side after an f32 sum that may differ in the
+    # last ulp: one bf16 ulp, rtol/atol 8e-3
+    rng = np.random.default_rng(m + d)
+    P = rng.random((m, m)).astype(np.float32)
+    P /= P.sum(1, keepdims=True)
+    U = rng.standard_normal((m, d)).astype(np.float32)
+    tdt, jdt = {"float32": (torch.float32, jnp.float32),
+                "bfloat16": (torch.bfloat16, jnp.bfloat16)}[dtype]
+    Ut = torch.as_tensor(U).to(tdt)
+    got = emulate_pushsum_mix(torch.as_tensor(P), Ut,
+                              pm.plan(m, d, Ut.element_size(), SMS))
+    want = pushsum_mix_pallas(jnp.asarray(P), jnp.asarray(U).astype(jdt),
+                              interpret=True)
+    tol = 1e-5 if dtype == "float32" else 8e-3
+    assert got.dtype == tdt
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# gossip_gather: the plan and its routes
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("m,k,d", [(100, 11, 13328), (1024, 16, 13328)])
+@pytest.mark.parametrize("elem_bytes", [4, 2])
+def test_gather_plan_takes_the_panel_route_evenly_at_the_main_shapes(
+        m, k, d, elem_bytes):
+    p = gg.plan(m, k, d, elem_bytes, SMS)
+    assert p.route == "panel"
+    assert p.blocks == -(-d // p.block_d)
+    assert p.blocks_per_sm == -(-p.blocks // SMS)
+    assert p.blocks > (p.blocks_per_sm - 1) * SMS and p.balance >= 0.95
+    assert p.smem <= SMEM and p.threads <= 1024 and p.threads % 32 == 0
+    assert p.block_d * m * elem_bytes <= SMEM
+    if (m, elem_bytes) == (100, 4):
+        # 129 panels of 104 columns, the neighbor table staged beside the
+        # panel, 26 column groups x 39 row slots of threads
+        assert (p.block_d, p.blocks, p.table, p.threads) == (104, 129, True,
+                                                            1024)
+        assert p.smem == 100 * 104 * 4 + 100 * 11 * 8
+
+
+@pytest.mark.parametrize("elem_bytes,m_max", [(4, 3632), (2, 7264)])
+def test_gather_plan_takes_the_row_route_above_the_smem_limit(elem_bytes,
+                                                             m_max):
+    # a panel of 16 columns of all m rows must fit the opt-in limit
+    assert m_max * gg.PANEL_MIN_COLS * elem_bytes <= SMEM
+    assert (m_max + 1) * gg.PANEL_MIN_COLS * elem_bytes > SMEM
+    assert gg.plan(m_max, 3, 4096, elem_bytes, SMS).route == "panel"
+    p = gg.plan(m_max + 1, 3, 4096, elem_bytes, SMS)
+    assert p.route == "row" and p.block_d == gg.ROW_BLOCK_D
+    assert p.blocks == (m_max + 1) * 4 and p.threads == 256
+
+
+@pytest.mark.parametrize("m,elem_bytes,block_d", [
+    (100, 4, 6), (100, 4, 0), (100, 4, -4), (100, 4, 584), (100, 2, 12),
+    (100, 2, 1168), (4096, 4, 100), (4096, 4, 64), (4096, 4, 4224),
+    (8192, 2, 8)])
+def test_gather_plan_refuses_invalid_block_d(m, elem_bytes, block_d):
+    with pytest.raises(ValueError, match=f"block_d={block_d}"):
+        gg.plan(m, 3, 13328, elem_bytes, SMS, block_d)
+
+
+@pytest.mark.parametrize("m,elem_bytes,block_d", [
+    (100, 4, 4), (100, 4, 580), (100, 2, 8), (100, 2, 1160),
+    (4096, 4, 128), (4096, 4, 4096)])
+def test_gather_plan_takes_valid_block_d(m, elem_bytes, block_d):
+    p = gg.plan(m, 3, 13328, elem_bytes, SMS, block_d)
+    assert p.block_d == block_d and p.smem <= SMEM
+
+
+def test_gather_plan_leaves_the_table_out_when_it_would_not_fit():
+    p = gg.plan(1024, 16, 13328, 4, SMS)
+    assert not p.table and p.smem == 1024 * p.block_d * 4
+
+
+# ---------------------------------------------------------------------------
+# gossip_gather: the panel route's arithmetic
+# ---------------------------------------------------------------------------
+def emulate_gather_panels(idx, w, U, plan):
+    """The panel kernel's order: panel by panel, every output row of the
+    panel from the staged panel, the neighbors in j order with a rounded
+    f32 product and a rounded f32 add; the output in U's dtype."""
+    m, k = idx.shape
+    d = U.shape[1]
+    out = torch.empty((m, d), dtype=U.dtype)
+    nb = idx.long()
+    wf = w.float()
+    for c0 in range(0, d, plan.block_d):
+        panel = U[:, c0:c0 + plan.block_d].float()
+        acc = torch.zeros((m, panel.shape[1]))
+        for j in range(k):
+            term = wf[:, j, None] * panel[nb[:, j]]
+            acc = term if j == 0 else acc + term
+        out[:, c0:c0 + panel.shape[1]] = acc.to(U.dtype)
+    return out
+
+
+@pytest.mark.parametrize("m,k,d,sms", [(24, 5, 200, 4), (13, 3, 513, SMS),
+                                       (100, 11, 416, 2)])
+def test_gather_panel_emulation_is_bitwise_mix_rows_and_matches_reference(
+        m, k, d, sms):
+    rng = np.random.default_rng(m * k + d)
+    idx = rng.integers(0, m, size=(m, k)).astype(np.int32)
+    idx[:, 1] = idx[:, 0]                  # repeated neighbor ids
+    w = rng.random((m, k)).astype(np.float32)
+    w /= w.sum(1, keepdims=True)
+    U = rng.standard_normal((m, d)).astype(np.float32)
+    ti, tw, tU = map(torch.as_tensor, (idx, w, U))
+    plan = gg.plan(m, k, d, 4, sms)
+    assert plan.route == "panel" and plan.blocks >= 2
+    got = emulate_gather_panels(ti, tw, tU, plan)
+    assert torch.equal(got, tgossip.mix_rows(ti, tw, tU))
+    want = gossip_gather_pallas(jnp.asarray(idx), jnp.asarray(w),
+                                jnp.asarray(U), interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_gather_panel_emulation_bf16_rounds_once():
+    # bf16 U: the f32 sum in j order rounded once to bf16, as the plain
+    # version: equal bit for bit to its f32 result cast to bf16
+    rng = np.random.default_rng(3)
+    m, k, d = 24, 4, 72
+    idx = torch.as_tensor(rng.integers(0, m, size=(m, k)).astype(np.int32))
+    w = torch.as_tensor(rng.random((m, k)).astype(np.float32))
+    U = torch.as_tensor(rng.standard_normal((m, d)).astype(
+        np.float32)).bfloat16()
+    plan = gg.plan(m, k, d, 2, 3)
+    got = emulate_gather_panels(idx, w, U, plan)
+    want = tgossip.mix_rows(idx, w, U.float()).bfloat16()
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)

@@ -44,8 +44,10 @@ line is never printed):
                 steps across the ring wrap, caches);
 11. timings   — each kernel at its path's shape: kernel, plain and
                 library-call ms (CUDA events), the card's bound, launches;
-                gossip_gather and pushsum_mix also at m = 1024 and with a
-                cold L2, with their route, plan and share of the bound;
+                gossip_gather, pushsum_mix and topk_gather also at m = 1024;
+                these three and head_gather_matmul also with a cold L2,
+                with their route, plan and share of the bound; the launch
+                floor (a one-element kernel) beside the head's bound;
                 profiles of a full, a sampled and a codec round.
 
 The last line is {"ok": true, "device": {...}}.  The script imports
@@ -443,38 +445,7 @@ def phase_kernels(ctx):
                             "max_abs_err": err, "ok": True})
     results += _gather_edge_cases(ctx)
 
-    # -- head_gather_matmul: f32 accumulate in t order with FMAs vs the
-    # plain einsum (cuBLAS f32, TF32 off): rtol/atol 1e-5
-    def head_case(B, d, n, m, seed, hdt=f32, wdt=f32):
-        gh = torch.Generator(device="cuda").manual_seed(seed)
-        uid = torch.randint(0, m, (B,), generator=gh, device="cuda",
-                            dtype=torch.int32)
-        if B > 1:
-            uid[-1] = uid[0]
-        H = torch.randn((B, d), generator=gh, device="cuda").to(hdt)
-        W = torch.randn((m, d, n), generator=gh, device="cuda").to(wdt)
-        b = torch.randn((m, n), generator=gh, device="cuda").to(wdt)
-        return uid, H, W, b
-
-    hcases = [(B, 64, 10, 100, f32, f32) for B in (1, 64, 1024)]
-    hcases += [(17, 64, 1, 100, f32, f32), (17, 64, 130, 100, f32, f32),
-               (9, 1, 10, 7, f32, f32), (9, 65, 10, 7, f32, f32),
-               (33, 64, 10, 100, bf16, f32), (33, 65, 130, 7, bf16, f32),
-               (33, 64, 10, 100, bf16, bf16)]
-    for i, (B, d, n, m, hdt, wdt) in enumerate(hcases):
-        args = head_case(B, d, n, m, 200 + i, hdt, wdt)
-        got = ops.head_gather_matmul(*args, force="cuda")
-        want = ops.head_gather_matmul(*args, force="ref")
-        err = max_abs(got, want)
-        ok = got.dtype == f32 and torch.allclose(got, want, rtol=1e-5,
-                                                 atol=1e-5)
-        check(ok, f"head_gather_matmul {(B, d, n, m)} {hdt}/{wdt} err {err}")
-        if (B, d, n) == (1024, 64, 10):
-            ctx["head_err"] = err
-        results.append({"kernel": "head_gather_matmul",
-                        "shape": [B, d, n, m],
-                        "dtype": f"{hdt}/{wdt}".replace("torch.", ""),
-                        "max_abs_err": err, "ok": True})
+    results += _head_cases(ctx)
     results += _scatter_cases(ctx)
     results += _pushsum_cases(ctx)
     results += _topk_cases(ctx)
@@ -494,6 +465,111 @@ def phase_kernels(ctx):
              "q_x8_share_of_tol": ctx["flash_q_x8_err"][1],
              "worst_by_dtype": ctx["flash_worst_err"]},
          results=results)
+
+
+def _head_cases(ctx):
+    """head_gather_matmul against the plain einsum (cuBLAS f32, TF32 off)
+    on the card, rtol/atol 1e-5 (the kernel's f32 FMA chains and group
+    sums add in another order): the serve shapes (m 100, d 64, n 10; B 1
+    and 64 on the tiled route, 1024 on the warp route), all four dtype
+    pairs, warp-route slabs that start off a 16-byte boundary (d * n odd,
+    n not a multiple of 4), n at the warp route's edges (1, 32) and past
+    it (33, 130), d 12,288 and block_n on the tiled route, an out-of-range
+    user id (a NaN row) on both routes, and knobs the plan refuses
+    (ValueError)."""
+    torch = ctx["torch"]
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.head_gather import plan as head_plan
+    f32, bf16 = torch.float32, torch.bfloat16
+    sms = _build.sm_count("cuda")
+
+    def head_case(B, d, n, m, seed, hdt=f32, wdt=f32):
+        gh = torch.Generator(device="cuda").manual_seed(seed)
+        uid = torch.randint(0, m, (B,), generator=gh, device="cuda",
+                            dtype=torch.int32)
+        if B > 1:
+            uid[-1] = uid[0]
+        # features of standard deviation 1/sqrt(d) past d 1024, so that
+        # logits stay O(1) as at the serve shape: with unit features a sum
+        # of 12,288 products reaches +-300 and f32 rounding in any order
+        # (the oracle's cuBLAS order too) errs by ~1e-4 near zero
+        scale = d ** -0.5 if d > 1024 else 1.0
+        H = (torch.randn((B, d), generator=gh, device="cuda") * scale).to(
+            hdt)
+        W = torch.randn((m, d, n), generator=gh, device="cuda").to(wdt)
+        b = torch.randn((m, n), generator=gh, device="cuda").to(wdt)
+        return uid, H, W, b
+
+    pairs = [(f32, f32), (bf16, f32), (f32, bf16), (bf16, bf16)]
+    hcases = [(B, 64, 10, 100, f32, f32, None) for B in (1, 64, 1024)]
+    hcases += [(1024, 64, 10, 100, hdt, wdt, None) for hdt, wdt in pairs[1:]]
+    hcases += [(17, 64, 1, 100, f32, f32, None),
+               (17, 64, 130, 100, f32, f32, None),
+               (9, 1, 10, 7, f32, f32, None), (9, 65, 10, 7, f32, f32, None),
+               (33, 64, 10, 100, bf16, f32, None),
+               (33, 65, 130, 7, bf16, f32, None),
+               (33, 64, 10, 100, bf16, bf16, None),
+               (40, 65, 7, 9, f32, f32, None), (40, 33, 33, 9, bf16, f32, None),
+               # the warp route (more than 2 requests per SM): slabs off a
+               # 16-byte boundary, n at its edges
+               (300, 65, 7, 9, f32, f32, None),
+               (300, 65, 7, 9, bf16, bf16, None),
+               (300, 63, 7, 9, f32, bf16, None),
+               (300, 65, 10, 7, bf16, f32, None),
+               (300, 33, 32, 9, f32, f32, None),
+               (300, 64, 1, 100, f32, f32, None),
+               (300, 1, 10, 7, f32, f32, None),
+               (5, 12288, 10, 3, f32, f32, None),
+               (5, 12288, 10, 3, bf16, bf16, None),
+               (1024, 64, 10, 100, f32, f32, 3),
+               (1024, 64, 10, 100, f32, f32, 256),
+               (17, 64, 130, 100, f32, bf16, 32)]
+    results = []
+    for i, (B, d, n, m, hdt, wdt, bn) in enumerate(hcases):
+        args = head_case(B, d, n, m, 200 + i, hdt, wdt)
+        got = ops.head_gather_matmul(*args, force="cuda", block_n=bn)
+        want = ops.head_gather_matmul(*args, force="ref")
+        err = max_abs(got, want)
+        ok = got.dtype == f32 and torch.allclose(got, want, rtol=1e-5,
+                                                 atol=1e-5)
+        pl = head_plan(B, d, n, args[2].element_size(), sms, bn)
+        key = f"{hdt}/{wdt}".replace("torch.", "")
+        check(ok, f"head_gather_matmul {(B, d, n, m)} {key} block_n {bn} "
+                  f"{pl.route} err {err}")
+        if (B, d, n, hdt, wdt, bn) == (1024, 64, 10, f32, f32, None):
+            ctx["head_err"] = err
+        results.append({"kernel": "head_gather_matmul",
+                        "shape": [B, d, n, m], "dtype": key,
+                        "route": pl.route, "warps": pl.warps,
+                        "block_n": pl.block_n, "max_abs_err": err,
+                        "ok": True})
+    # an out-of-range user id: that row NaN, the others as the oracle
+    for B, bn in ((300, None), (64, None), (300, 16)):
+        uid, H, W, b = head_case(B, 64, 10, 100, 250)
+        bad = uid.clone()
+        bad[5] = 100
+        got = ops.head_gather_matmul(bad, H, W, b, force="cuda", block_n=bn)
+        want = ops.head_gather_matmul(uid, H, W, b, force="ref")
+        keep = torch.arange(B, device="cuda") != 5
+        check(bool(torch.isnan(got[5]).all()) and torch.allclose(
+            got[keep], want[keep], rtol=1e-5, atol=1e-5),
+            f"head_gather_matmul out-of-range uid, block_n {bn}")
+        results.append({"kernel": "head_gather_matmul",
+                        "check": "uid = m gives a NaN row", "route":
+                        head_plan(B, 64, 10, 4, sms, bn).route, "ok": True})
+    # knobs and shapes the plan refuses
+    for B, d, n, bn in ((64, 64, 10, 0), (64, 64, 10, 257),
+                        (4, 12289, 10, None), (4, 12289, 10, 16)):
+        args = head_case(B, d, n, 3, 260)
+        try:
+            ops.head_gather_matmul(*args, force="cuda", block_n=bn)
+            refused = False
+        except ValueError:
+            refused = True
+        check(refused, f"head_gather_matmul took d={d} block_n={bn}")
+        results.append({"kernel": "head_gather_matmul", "check":
+                        f"d={d} block_n={bn} refused", "ok": True})
+    return results
 
 
 def _scatter_cases(ctx):
@@ -624,6 +700,14 @@ def _topk_cases(ctx):
     repeated neighbor ids, f32 and bf16 values, uint16 and int32 columns
     (d > 65535 takes int32), out-of-range columns, duplicate columns, and
     block_d of 128 and of a whole row (dynamic shared memory above 48 KB).
+    The routes of `plan`: staged with every payload row in flight (odd K,
+    so most rows start off a 16-byte boundary), staged through a ring (m
+    50, k 40: 34 of 40 rows, in 2 chunks), staged in chunks (d 70,001),
+    chunked beyond one wave (m 1024, k 16; block_d 128) and where a
+    payload row does not fit (K 40,000); duplicate columns on the staged
+    route (deferred past the claims); an
+    out-of-range neighbor id (a NaN row) on both routes, an empty payload
+    (K 0), and block_d values no route takes (ValueError).
     Both sum each column's neighbors in j order with rounded products and
     round once: bitwise where a row's columns are distinct; duplicates add
     in the atomics' order, rtol/atol 2e-5 (f32) and 8e-3 (bf16).  Also the
@@ -631,7 +715,8 @@ def _topk_cases(ctx):
     host/device copy."""
     torch = ctx["torch"]
     from repro_torch.core import gossip, topology
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.topk_gather import plan as topk_plan
     f32, bf16, u16, i32 = (torch.float32, torch.bfloat16, torch.uint16,
                            torch.int32)
     ids = torch.arange(65536, device="cuda")
@@ -650,8 +735,15 @@ def _topk_cases(ctx):
               dict(m=9, k=3, d=260, K=20, dup=True),
               dict(m=100, k=11, d=13328, K=833, table=True),
               dict(m=37, k=5, d=13328, K=833, block_d=128),
-              dict(m=37, k=5, d=13328, K=833, block_d=13328)]
+              dict(m=37, k=5, d=13328, K=833, block_d=13328),
+              dict(m=1024, k=16, d=13328, K=833),
+              dict(m=50, k=40, d=13328, K=831),
+              dict(m=6, k=3, d=65535, K=40000),
+              dict(m=9, k=3, d=260, K=20, bad_id=True),
+              dict(m=6, k=3, d=65535, K=40000, bad_id=True),
+              dict(m=5, k=2, d=64, K=0)]
     worst = {}
+    sms = _build.sm_count("cuda")
     for i, c in enumerate(cases):
         m, k, d, K = c["m"], c["k"], c["d"], c["K"]
         cdts = (i32,) if d > 65535 else (u16, i32)
@@ -662,10 +754,29 @@ def _topk_cases(ctx):
                     dup=c.get("dup", False), oob=c.get("oob", False))
                 if c.get("table"):
                     idx, w = Pw.idx, Pw.w.contiguous()
-                got = ops.topk_gather(idx, w, vals, cols, d, force="cuda",
-                                      block_d=c.get("block_d"))
-                want = ops.topk_gather(idx, w, vals, cols, d, force="ref")
-                torch.cuda.synchronize()
+                pl = topk_plan(m, k, K, d, vals.element_size(),
+                               cols.element_size(), sms, c.get("block_d"))
+                if c.get("bad_id"):
+                    # neighbor id m in row 2: that row NaN, the others as
+                    # the plain version with the id replaced
+                    bad = idx.clone()
+                    bad[2, 0] = m
+                    got = ops.topk_gather(bad, w, vals, cols, d,
+                                          force="cuda")
+                    torch.cuda.synchronize()
+                    nan_row = bool(torch.isnan(got[2].float()).all())
+                    got[2] = 0
+                    want = ops.topk_gather(idx, w, vals, cols, d,
+                                           force="ref")
+                    want[2] = 0
+                    check(nan_row, f"topk_gather {c} bad id: no NaN row")
+                else:
+                    got = ops.topk_gather(idx, w, vals, cols, d,
+                                          force="cuda",
+                                          block_d=c.get("block_d"))
+                    torch.cuda.synchronize()
+                    want = ops.topk_gather(idx, w, vals, cols, d,
+                                           force="ref")
                 err = max_abs(got, want)
                 bitwise = torch.equal(got, want)
                 tol = 2e-5 if vdt == f32 else 8e-3
@@ -687,11 +798,25 @@ def _topk_cases(ctx):
                                 "dtype": key, "case": {
                                     n: v for n, v in c.items()
                                     if n not in ("m", "k", "d", "K")},
+                                "route": pl.route, "block_d": pl.block_d,
+                                "stages": pl.stages,
                                 "check": check_name, "bitwise": bitwise,
                                 "max_abs_err": err, "ok": True})
     empty = ops.topk_gather(*(t[:0] for t in _payload_case(
         torch, 4, 2, 8, 3, 0, f32, u16)), 8, force="cuda")
     check(empty.shape == (0, 8), "topk_gather m=0")
+    # block_d values no route takes: none, an accumulator larger than
+    # shared memory, more than 65535 chunks
+    for bd, d in ((0, 13328), (60000, 70001), (1, 70001)):
+        args = _payload_case(torch, 8, 5, d, 833, 9, f32, i32)
+        try:
+            ops.topk_gather(*args, d, force="cuda", block_d=bd)
+            refused = False
+        except ValueError:
+            refused = True
+        check(refused, f"topk_gather took block_d={bd} at d={d}")
+        results.append({"kernel": "topk_gather", "check":
+                        f"block_d={bd} at d={d} refused", "ok": True})
     ctx["topk_worst_err"] = worst
     return results
 
@@ -1580,8 +1705,9 @@ def phase_timings(ctx):
     from repro_torch.core import gossip, topology
     from repro_torch.kernels import ops
     from repro_torch.kernels import _build
+    from repro_torch.kernels.head_gather import plan as head_plan
     from repro_torch.kernels.pushsum_mix import plan as pushsum_plan
-    from repro_torch.kernels.topk_gather import default_block_d
+    from repro_torch.kernels.topk_gather import plan as topk_plan
     bw, f32 = ctx["peak_bw"], ctx["peak_f32"]
     kernels = []
 
@@ -1647,35 +1773,63 @@ def phase_timings(ctx):
         "bound_share": main["bound_share"],
         "shape": [100, 11, 13328], "dtype": "float32"})
 
-    # head_gather_matmul at the serve path's shapes (m=100, d=64, n=10)
+    # head_gather_matmul at the serve path's shapes (m=100, d=64, n=10):
+    # H read once, each distinct user's slab and bias read once, uid read
+    # and the output written once; 2*B*d*n + B*n operations.  The library
+    # yardstick is torch.baddbmm over the gathered slabs; cold_ms as for
+    # gossip_gather.  launch_floor_ms: the device time of a one-element
+    # elementwise kernel, the least any launch takes; tiled_ms: the tiled
+    # route at block_n = n (the plan's own route at B 1 and 64, against
+    # the warp route at B 1024)
     per_b = {}
     m, d, n = 100, 64, 10
     W = torch.randn((m, d, n), device="cuda")
     bias = torch.randn((m, n), device="cuda")
+    one = torch.zeros(1, device="cuda")
+    floor_ms = device_ms(torch, lambda: one.add_(1.0))
     for B in (1, 64, 1024):
         uid = torch.randint(0, m, (B,), device="cuda", dtype=torch.int32)
         H = torch.randn((B, d), device="cuda")
         ul = uid.long()
-        t = measure(
-            lambda: ops.head_gather_matmul(uid, H, W, bias, force="cuda"),
-            lambda: ops.head_gather_matmul(uid, H, W, bias, force="ref"),
-            lambda: torch.baddbmm(bias[ul].unsqueeze(1), H.unsqueeze(1),
-                                  W[ul]))
+
+        def head():
+            return ops.head_gather_matmul(uid, H, W, bias, force="cuda")
+
+        def head_lib():
+            return torch.baddbmm(bias[ul].unsqueeze(1), H.unsqueeze(1),
+                                 W[ul])
+
+        check(torch.allclose(head_lib().squeeze(1), head(), rtol=1e-5,
+                             atol=1e-5), "baddbmm yardstick disagrees")
+        t = measure(head,
+                    lambda: ops.head_gather_matmul(uid, H, W, bias,
+                                                   force="ref"),
+                    head_lib)
         users = int(torch.unique(uid).numel())
         nbytes = B * d * 4 + users * (d * n + n) * 4 + B * 4 + B * n * 4
         hb_ms, hb_by = bound(nbytes, 2 * B * d * n + B * n)
-        per_b[B] = dict(t, bound_ms=hb_ms, bound_us=hb_ms * 1e3,
-                        bound_by=hb_by, distinct_users=users)
+        pl = head_plan(B, d, n, 4, _build.sm_count("cuda"))
+        tiled_ms = device_ms(torch, lambda: ops.head_gather_matmul(
+            uid, H, W, bias, force="cuda", block_n=n))
+        per_b[B] = dict(t, **_cold_and_share(torch, t, hb_ms, head,
+                                             head_lib),
+                        bound_ms=hb_ms, bound_us=hb_ms * 1e3,
+                        bound_by=hb_by, launch_floor_ms=floor_ms,
+                        distinct_users=users, plan=pl._asdict(),
+                        tiled_ms=tiled_ms)
     big = per_b[1024]
     kernels.append({
         "name": "head_gather_matmul", "route": "cuda",
+        "kernel_route": big["plan"]["route"],
         "source": "src/repro_torch/csrc/head_gather.cu",
         "replaces": "src/repro/kernels/head_gather.py:126",
         "launches": ctx["serve_launches"]["head_gather_matmul"],
         "max_abs_err": ctx["head_err"], "ms": big["ms"],
         "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
         "bound_by": big["bound_by"], "library_ms": big["library_ms"],
-        "call_ms": big["call_ms"], "shape": [1024, 64, 10, 100],
+        "call_ms": big["call_ms"], "cold_ms": big["cold_ms"],
+        "bound_share": big["bound_share"],
+        "launch_floor_ms": floor_ms, "shape": [1024, 64, 10, 100],
         "dtype": "float32"})
     # gossip_scatter at the sampled path's shape (m=100, n=25 of frac
     # 0.25, f32) and at bench scale (m=4096, n=1024): X read once and n
@@ -1769,11 +1923,12 @@ def phase_timings(ctx):
                 (rows, cl), vals, accumulate=True)
             return torch.sparse.mm(csr, dec)
 
-        got = ops.topk_gather(idx, w, vals, cols, d, force="cuda")
-        check(torch.allclose(library(), got, rtol=2e-5, atol=2e-5),
+        def topk():
+            return ops.topk_gather(idx, w, vals, cols, d, force="cuda")
+
+        check(torch.allclose(library(), topk(), rtol=2e-5, atol=2e-5),
               "index_put_ + sparse.mm yardstick disagrees")
-        t = measure(lambda: ops.topk_gather(idx, w, vals, cols, d,
-                                            force="cuda"),
+        t = measure(topk,
                     lambda: ops.topk_gather(idx, w, vals, cols, d,
                                             force="ref"),
                     library)
@@ -1781,16 +1936,18 @@ def phase_timings(ctx):
         tb_ms, tb_by = bound(nbytes, 2 * m * k * K)
         # columns per block: each block reads all k*K pairs of its row and
         # keeps those in its chunk, so fewer chunks read less from L2 but
-        # give fewer blocks
-        sweep = {bd: device_ms(torch, lambda bd=bd: ops.topk_gather(
-            idx, w, vals, cols, d, force="cuda", block_d=bd))
+        # give more blocks; each block_d on the route the plan takes for it
+        sms = _build.sm_count("cuda")
+        sweep = {bd: {"ms": device_ms(torch, lambda bd=bd: ops.topk_gather(
+            idx, w, vals, cols, d, force="cuda", block_d=bd)),
+            "route": topk_plan(m, k, K, d, 4, 2, sms, bd).route}
             for bd in (1024, 2048, 4096, 8192, d)}
-        topk_shapes[f"{m}x{k}"] = dict(t, bound_ms=tb_ms, bound_us=tb_ms * 1e3,
-                                       bound_by=tb_by, bound_bytes=nbytes,
-                                       shape=[m, k, d, K],
-                                       ms_by_block_d=sweep,
-                                       default_block_d=default_block_d(
-                                           m, k, d, "cuda"))
+        pl = topk_plan(m, k, K, d, 4, 2, sms)
+        topk_shapes[f"{m}x{k}"] = dict(
+            t, **_cold_and_share(torch, t, tb_ms, topk, library),
+            bound_ms=tb_ms, bound_us=tb_ms * 1e3, bound_by=tb_by,
+            bound_bytes=nbytes, shape=[m, k, d, K], ms_by_block_d=sweep,
+            plan=pl._asdict())
     main = topk_shapes["100x11"]
     kernels.append({
         "name": "topk_gather", "route": "cuda",
@@ -1801,7 +1958,9 @@ def phase_timings(ctx):
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
         "library": "index_put_(accumulate=True) + torch.sparse.mm: 2 calls",
-        "call_ms": main["call_ms"], "shape": [100, 11, 13328, 833],
+        "kernel_route": main["plan"]["route"],
+        "call_ms": main["call_ms"], "cold_ms": main["cold_ms"],
+        "bound_share": main["bound_share"], "shape": [100, 11, 13328, 833],
         "dtype": "float32/uint16"})
     # flash_attention at the hybrid model's prefill shape (B 2, S 4096, H
     # 16, Hkv 1, hd 256, window 2048, bf16): q, k, v read once and the

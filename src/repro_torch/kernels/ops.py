@@ -142,8 +142,8 @@ def gossip_scatter(rows, X, U, accumulate: bool = False, force: str = "auto",
 def head_gather_matmul(uid, H, W, b, force: str = "auto",
                        block_n: int | None = None):
     """out[r] = H[r] @ W[uid[r]] + b[uid[r]] — the fused per-user head of
-    the serve path; always f32.  block_n tunes the kernel's class tile
-    (kernel only)."""
+    the serve path; always f32.  block_n sets the kernel's class tile and
+    takes its tiled route (kernel only)."""
     if _use_kernel(force, H):
         return head_gather_matmul_cuda(uid, H, W, b, block_n=block_n)
     _reject_ref_knobs(block_n=block_n)

@@ -8,7 +8,9 @@ Phases, one JSON line each (any failed check exits nonzero and the final
 line is never printed):
 
 1. device     — the card's name and power limit; both TF32 flags set False
-                (parity against f32 needs full-precision convs and matmuls);
+                (parity against f32 needs full-precision convs and matmuls)
+                and the CPU references pinned to one thread (their float
+                order must not depend on the host's core count);
 2. build      — the CUDA kernels built from src/repro_torch/csrc/ (one
                 nvcc per source, all started together), with the bf16
                 flash kernel's registers and spills (ptxas) and its
@@ -20,7 +22,8 @@ line is never printed):
 5. parity     — 2 rounds on CUDA and on the CPU from one init, tables and
                 batches: the kernel on the main path against the plain path;
 6. sampled    — run_experiment with participation="uniform", frac 0.25:
-                gossip_scatter twice and gossip_gather once per round,
+                one gossip_scatter (the write-back of flat and momentum
+                in one launch) and one gossip_gather per round,
                 dormant clients frozen bit for bit, sum(mu) = m; one
                 sample-all round against round_fn_flat;
 7. kernel_mix — 3 rounds of DFedPGP(mix_fn_flat=make_kernel_mix_flat()):
@@ -31,7 +34,8 @@ line is never printed):
                 wire_bytes meter (and the uncompressed one of `train`), a
                 crossing on the card against the CPU, value conservation
                 on a ring, gamma "auto" and qsgd rounds, sampled codec
-                rounds (4 gossip_scatter per round, dormant rows frozen);
+                rounds (one gossip_scatter per round writes flat,
+                momentum, ef and ref back; dormant rows frozen);
 9. serve      — mixed-user batches served from the trained state through
                 head_gather_matmul, against force="ref" and serve_naive;
 10. lm        — recurrentgemma-9b at full width and depth (38 layers, f32
@@ -44,10 +48,13 @@ line is never printed):
                 steps across the ring wrap, caches);
 11. timings   — each kernel at its path's shape: kernel, plain and
                 library-call ms (CUDA events), the card's bound, launches;
-                gossip_gather, pushsum_mix and topk_gather also at m = 1024;
-                these three and head_gather_matmul also with a cold L2,
-                with their route, plan and share of the bound; the launch
-                floor (a one-element kernel) beside the head's bound;
+                gossip_gather, pushsum_mix and topk_gather also at m = 1024,
+                gossip_scatter at m = 4096; every kernel also with a cold
+                L2, the first five with their route, plan and share of the
+                bound; the sampled round's write-back (2 and 4 buffers in
+                one gossip_scatter launch) against index_copy_ per buffer;
+                the launch floor (a one-element kernel) beside the head's
+                and the scatter's bounds;
                 profiles of a full, a sampled and a codec round.
 
 The last line is {"ok": true, "device": {...}}.  The script imports
@@ -225,6 +232,13 @@ def phase_device(ctx):
     torch = ctx["torch"]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the CPU splits its convolution and reduction sums by thread count, so
+    # the CPU side of a parity check changes with the host's cores: at
+    # some counts a near-tie in the parity run's 2 rounds flips, and opt_u
+    # then lies far outside the check's tolerance of the card's (1.8e-3
+    # in one run).  One thread gives every host the same reference.
+    host_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
     print(smi, flush=True)
@@ -236,6 +250,7 @@ def phase_device(ctx):
          python=sys.version.split()[0],
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+         cpu_threads=torch.get_num_threads(), host_threads=host_threads,
          peaks={"table": bw_kind, "bytes_per_s": bw, "f32_flop_per_s": f32,
                 "bf16_tensor_flop_per_s": PEAKS_BF16[bw_kind]})
 
@@ -573,49 +588,115 @@ def _head_cases(ctx):
 
 
 def _scatter_cases(ctx):
-    """gossip_scatter against its plain version on the card: f32 and bf16
-    U, f32 X into a bf16 U, set and accumulate, unsorted rows, n in {0, 1,
-    25, m}, d in {1, 5, 513, 13,328} (13,328 takes the vector path, the
-    others and a 4-byte-offset X the scalar one).  Set is an exact copy and
-    accumulate one f32 add then one rounding on both sides: bitwise.  The
-    kernel writes into U's storage: data_ptr unchanged, dormant rows
-    untouched."""
+    """gossip_scatter and gossip_scatter_many against their plain versions
+    on the card.  The grid: f32 and bf16 U, f32 X into a bf16 U, set and
+    accumulate, unsorted rows, n in {0, 1, 25, m}, d in {1, 5, 513,
+    13,328} (13,328 takes the vector route, the others and a
+    4-byte-offset X the scalar one).  Then each tiling of the plan at full
+    width: 8 slots a thread at n 1024, 1 to 8 slots at d 13,328 (block_d),
+    and the write-back of 2, 3 and 4 pairs in one launch (f32 as the
+    sampled round, bf16, mixed, one misaligned X, the most slots, n 1024).
+    Set is an exact copy and accumulate one f32 add then one rounding on
+    both sides: bitwise.  The kernel writes into each U's storage:
+    data_ptr unchanged, dormant rows untouched."""
     torch = ctx["torch"]
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import gossip_scatter as gs
     f32, bf16 = torch.float32, torch.bfloat16
-    m, results, worst = 100, [], 0.0
+    results, worst = [], 0.0
     g = torch.Generator(device="cuda").manual_seed(7)
-    cases = [(n, d, xt, ut, acc) for n in (0, 1, 25, m)
-             for d in (1, 5, 513, 13328)
-             for xt, ut in ((f32, f32), (bf16, bf16), (f32, bf16))
-             for acc in (False, True)]
-    for i, (n, d, xt, ut, acc) in enumerate(cases):
+    sms = _build.sm_count("cuda")
+
+    def case(m, n, d, xt, ut, acc, pairs=1, block_d=None, offset=()):
+        nonlocal worst
         rows = torch.randperm(m, generator=g, device="cuda")[:n].to(
             torch.int32)
-        X = torch.randn((n, d), generator=g, device="cuda").to(xt)
-        if i % 7 == 3 and n:
-            # a 4-byte offset: the kernel must fall back to scalar access
-            X = torch.empty(n * d + 1, device="cuda", dtype=xt)[1:].view(
-                n, d).copy_(X)
-        U0 = torch.randn((m, d), generator=g, device="cuda").to(ut)
-        U, want = U0.clone(), U0.clone()
-        ptr = U.data_ptr()
-        got = ops.gossip_scatter(rows, X, U, accumulate=acc, force="cuda")
-        ops.gossip_scatter(rows, X, want, accumulate=acc, force="ref")
+        Xs = []
+        for q in range(pairs):
+            X = torch.randn((n, d), generator=g, device="cuda").to(xt)
+            if q in offset and n:
+                # a 4-byte offset: the kernel must take the scalar route
+                X = torch.empty(n * d + 1, device="cuda", dtype=xt)[1:].view(
+                    n, d).copy_(X)
+            Xs.append(X)
+        U0 = [torch.randn((m, d), generator=g, device="cuda").to(ut)
+              for _ in range(pairs)]
+        Us, want = [U.clone() for U in U0], [U.clone() for U in U0]
+        ptrs = [U.data_ptr() for U in Us]
+        if pairs == 1:
+            got = [ops.gossip_scatter(rows, Xs[0], Us[0], accumulate=acc,
+                                      force="cuda", block_d=block_d)]
+            ops.gossip_scatter(rows, Xs[0], want[0], accumulate=acc,
+                               force="ref")
+        else:
+            got = ops.gossip_scatter_many(rows, Xs, Us, accumulate=acc,
+                                          force="cuda", block_d=block_d)
+            ops.gossip_scatter_many(rows, Xs, want, accumulate=acc,
+                                    force="ref")
         torch.cuda.synchronize()
         dormant = torch.ones(m, dtype=torch.bool, device="cuda")
         dormant[rows.long()] = False
-        err = max_abs(got, want)
+        err = max(max_abs(a, b) for a, b in zip(got, want))
         worst = max(worst, err)
-        check(got is U and U.data_ptr() == ptr and got.dtype == ut,
-              f"gossip_scatter {(n, d)} did not write in place")
-        check(torch.equal(got, want) and torch.equal(got[dormant],
-                                                     U0[dormant]),
-              f"gossip_scatter {(n, d)} X {xt} U {ut} acc={acc} err {err}")
-        results.append({"kernel": "gossip_scatter", "shape": [m, n, d],
+        what = f"gossip_scatter {(m, n, d)} x{pairs} X {xt} U {ut} " \
+               f"acc={acc} block_d={block_d}"
+        check(all(a is b for a, b in zip(got, Us))
+              and [U.data_ptr() for U in Us] == ptrs
+              and all(U.dtype == ut for U in Us),
+              f"{what} did not write in place")
+        check(all(torch.equal(a, b) and torch.equal(a[dormant], u[dormant])
+                  for a, b, u in zip(got, want, U0)), f"{what} err {err}")
+        p = gs.plan(n, d, sms, pairs, block_d,
+                    aligned=not (offset and n)) if n and d else None
+        results.append({"kernel": "gossip_scatter" if pairs == 1
+                        else "gossip_scatter_many", "shape": [m, n, d],
+                        "pairs": pairs,
                         "dtype": f"{xt}->{ut}".replace("torch.", ""),
-                        "accumulate": acc, "check": "bitwise == ref",
-                        "max_abs_err": err, "ok": True})
+                        "accumulate": acc, "block_d": block_d,
+                        "plan": p and p._asdict(),
+                        "check": "bitwise == ref", "max_abs_err": err,
+                        "ok": True})
+        return p
+
+    m = 100
+    for i, (n, d, xt, ut, acc) in enumerate(
+            (n, d, xt, ut, acc) for n in (0, 1, 25, m)
+            for d in (1, 5, 513, 13328)
+            for xt, ut in ((f32, f32), (bf16, bf16), (f32, bf16))
+            for acc in (False, True)):
+        case(m, n, d, xt, ut, acc, offset=(0,) if i % 7 == 3 else ())
+    # n 1024: more blocks than the card holds at once, 8 slots a thread
+    for xt, ut, acc in ((f32, f32, False), (f32, f32, True),
+                        (bf16, bf16, False), (f32, bf16, True)):
+        p = case(1200, 1024, 13328, xt, ut, acc)
+        check(p.vecs == gs.max_vecs(1) and p.blocks > sms * gs.RESIDENT_BLOCKS,
+              f"n 1024 plan {p}")
+    # 1 to 8 slots per thread at full width, and the scalar route there
+    for block_d in (128, 512, 1152, 2048, 4096, 8192):
+        p = case(m, 25, 13328, f32, f32, False, block_d=block_d)
+        check(p.vecs * p.threads * 4 == block_d, f"block_d {block_d}: {p}")
+    case(m, 25, 13328, bf16, bf16, True, block_d=8192)
+    case(m, 25, 13328, f32, f32, True, offset=(0,))
+    # the write-back in one launch: 2 pairs (the sampled round), 4 (with
+    # a codec), dtypes as the single pair, one misaligned X
+    for pairs in (2, 3, 4):
+        for xt, ut, acc in ((f32, f32, False), (f32, f32, True),
+                            (bf16, bf16, False), (f32, bf16, True)):
+            case(m, 25, 13328, xt, ut, acc, pairs=pairs)
+        case(m, 25, 513, f32, f32, False, pairs=pairs)
+        case(m, 25, 13328, f32, f32, True, pairs=pairs, offset=(1,))
+        case(m, 25, 13328, f32, f32, False, pairs=pairs,
+             block_d=4 * gs.THREADS * gs.max_vecs(pairs))
+        case(1200, 1024, 13328, f32, f32, False, pairs=pairs)
+    rows = torch.arange(3, dtype=torch.int32, device="cuda")
+    try:
+        ops.gossip_scatter_many(
+            rows, [torch.zeros((3, 8), device="cuda")] * 2,
+            [torch.zeros((4, 8), device="cuda"),
+             torch.zeros((4, 8), device="cuda", dtype=bf16)], force="cuda")
+        check(False, "gossip_scatter_many took U of two dtypes")
+    except TypeError:
+        pass
     ctx["scatter_err"] = worst
     return results
 
@@ -1101,7 +1182,7 @@ def phase_sampled(ctx):
                           return_state=True, init_params=init)
     seconds = time.perf_counter() - t0
     counts = ops.launch_counts()
-    check(counts["gossip_scatter"] == 2 * sim.rounds
+    check(counts["gossip_scatter"] == sim.rounds
           and counts["gossip_gather"] == sim.rounds
           and counts["pushsum_mix"] == 0,
           f"sampled run launches {counts} in {sim.rounds} rounds")
@@ -1246,8 +1327,8 @@ def phase_compress(ctx):
     exact wire meter; one crossing on the card against the CPU; value
     conservation on a column-stochastic table; 3 rounds each of
     codec_gamma="auto" and codec="qsgd"; 3 sampled codec rounds (frac 0.25:
-    4 gossip_scatter per round, dormant rows of flat, opt_u, ef and ref
-    frozen bit for bit)."""
+    one gossip_scatter launch per round writes back flat, opt_u, ef and
+    ref, whose dormant rows stay frozen bit for bit)."""
     torch = ctx["torch"]
     from repro_torch import tree
     from repro_torch.compress import get_codec
@@ -1339,7 +1420,8 @@ def phase_compress(ctx):
                           "launches": ops.launch_counts(),
                           "round_ms": [t * 1e3 for t in h["round_s"]]}
 
-    # sampled codec rounds: ef and ref go back through gossip_scatter too
+    # sampled codec rounds: ef and ref go back with flat and opt_u in the
+    # round's one gossip_scatter launch
     ssim = SimConfig(rounds=3, codec="topk", gossip="pallas",
                      participation="uniform", participation_frac=0.25)
     cfg = cnn.CNNConfig(image_size=ssim.image_size, n_classes=ssim.n_classes)
@@ -1350,7 +1432,7 @@ def phase_compress(ctx):
     scounts = ops.launch_counts()
     check(scounts["topk_gather"] == ssim.rounds
           and scounts["gossip_gather"] == ssim.rounds
-          and scounts["gossip_scatter"] == 4 * ssim.rounds,
+          and scounts["gossip_scatter"] == ssim.rounds,
           f"sampled codec run launches {scounts} in {ssim.rounds} rounds")
     sampler = sampling.get_sampler("uniform", ssim.m,
                                    ssim.participation_frac, ssim.seed)
@@ -1833,33 +1915,81 @@ def phase_timings(ctx):
         "dtype": "float32"})
     # gossip_scatter at the sampled path's shape (m=100, n=25 of frac
     # 0.25, f32) and at bench scale (m=4096, n=1024): X read once and n
-    # rows written (plus the row ids); no operations
+    # rows written (plus the row ids); no operations.  The library
+    # yardstick is index_copy_; cold_ms as for gossip_gather.  The
+    # sampled round's write-back at m 100 (flat and momentum: 2 pairs in
+    # one launch; 4 with a codec) against one index_copy_ per buffer
+    from repro_torch.kernels.gossip_scatter import plan as scatter_plan
     per_shape = {}
     g = torch.Generator(device="cuda").manual_seed(12)
+    d = 13328
     for m, n in ((100, 25), (4096, 1024)):
-        d = 13328
         U = torch.randn((m, d), generator=g, device="cuda")
         X = torch.randn((n, d), generator=g, device="cuda")
         rows = torch.randperm(m, generator=g, device="cuda")[:n].sort()[
             0].to(torch.int32)
         rl = rows.long()
-        t = measure(lambda: ops.gossip_scatter(rows, X, U, force="cuda"),
+
+        def scatter():
+            return ops.gossip_scatter(rows, X, U, force="cuda")
+
+        def scatter_lib():
+            return U.index_copy_(0, rl, X)
+
+        t = measure(scatter,
                     lambda: ops.gossip_scatter(rows, X, U, force="ref"),
-                    lambda: U.index_copy_(0, rl, X))
+                    scatter_lib)
         sb_ms, sb_by = bound(2 * n * d * 4 + n * 4, 0)
-        per_shape[f"{m}x{n}"] = dict(t, bound_ms=sb_ms, bound_us=sb_ms * 1e3,
-                                     bound_by=sb_by, shape=[m, n, d])
-    main = per_shape["100x25"]
+        per_shape[f"{m}x{n}"] = dict(
+            t, **_cold_and_share(torch, t, sb_ms, scatter, scatter_lib),
+            bound_ms=sb_ms, bound_us=sb_ms * 1e3, bound_by=sb_by,
+            shape=[m, n, d], plan=scatter_plan(
+                n, d, _build.sm_count("cuda"))._asdict())
+    writeback = {}
+    for pairs in (2, 4):
+        Xs = [torch.randn((25, d), generator=g, device="cuda")
+              for _ in range(pairs)]
+        Us = [torch.randn((100, d), generator=g, device="cuda")
+              for _ in range(pairs)]
+        rows = torch.randperm(100, generator=g, device="cuda")[:25].sort()[
+            0].to(torch.int32)
+        rl = rows.long()
+
+        def many(Xs=Xs, Us=Us, rows=rows):
+            return ops.gossip_scatter_many(rows, Xs, Us, force="cuda")
+
+        def copies(Xs=Xs, Us=Us, rl=rl):
+            for X, U in zip(Xs, Us):
+                U.index_copy_(0, rl, X)
+
+        t = measure(many, lambda Xs=Xs, Us=Us, rows=rows:
+                    ops.gossip_scatter_many(rows, Xs, Us, force="ref"),
+                    copies)
+        wb_ms, wb_by = bound(pairs * (2 * 25 * d * 4) + 25 * 4, 0)
+        writeback[pairs] = dict(
+            t, **_cold_and_share(torch, t, wb_ms, many, copies),
+            bound_ms=wb_ms, bound_by=wb_by, pairs=pairs,
+            plan=scatter_plan(25, d, _build.sm_count("cuda"),
+                              pairs)._asdict())
+    per_shape["writeback_m100"] = writeback
+    main, wb = per_shape["100x25"], writeback[2]
     kernels.append({
         "name": "gossip_scatter", "route": "cuda",
+        "kernel_route": main["plan"]["route"],
         "source": "src/repro_torch/csrc/gossip_scatter.cu",
         "replaces": "src/repro/kernels/gossip_scatter.py:149",
         "launches": ctx["sampled_launches"]["gossip_scatter"],
         "max_abs_err": ctx["scatter_err"], "ms": main["ms"],
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
-        "call_ms": main["call_ms"], "shape": [100, 25, 13328],
-        "dtype": "float32"})
+        "library": "index_copy_",
+        "call_ms": main["call_ms"], "cold_ms": main["cold_ms"],
+        "bound_share": main["bound_share"], "launch_floor_ms": floor_ms,
+        "writeback_ms": wb["ms"], "writeback_call_ms": wb["call_ms"],
+        "writeback_bound_ms": wb["bound_ms"],
+        "writeback_library_ms": wb["library_ms"],
+        "writeback_library": "index_copy_ per buffer (2 calls)",
+        "shape": [100, 25, 13328], "dtype": "float32"})
 
     # pushsum_mix at the kernel-mix path's shape (m=100, d=13,328, f32)
     # and at m = 1024: P and U read once, the output written once;
@@ -1998,7 +2128,9 @@ def phase_timings(ctx):
               q, k, v, window=win, force="ref"), iters=3),
           "library_ms": device_ms(torch, sdpa, iters=10),
           "call_ms": time_ms(torch, lambda: ops.flash_attention(
-              q, k, v, window=win, force="cuda"), iters=5, reps=3)}
+              q, k, v, window=win, force="cuda"), iters=5, reps=3),
+          "cold_ms": cold_ms(torch, lambda: ops.flash_attention(
+              q, k, v, window=win, force="cuda"), iters=10)}
     half = 2 * pairs * B * H * hd
     fbytes = 2 * (2 * B * S * H * hd + 2 * B * S * Hkv * hd)
     t_ops = 2 * half / ctx["peak_bf16"] * 1e3
@@ -2030,7 +2162,8 @@ def phase_timings(ctx):
         "library_ms": fl["library_ms"],
         "library": "scaled_dot_product_attention(attn_mask=band, "
                    "enable_gqa=True)",
-        "call_ms": fl["call_ms"], "shape": [B, S, H, Hkv, hd],
+        "call_ms": fl["call_ms"], "cold_ms": fl["cold_ms"],
+        "shape": [B, S, H, Hkv, hd],
         "window": win, "dtype": "bfloat16"})
     del q, k, v, qt, kt, vt, band
 
@@ -2043,7 +2176,8 @@ def phase_timings(ctx):
     rg = {"ms": device_ms(torch, lambda: ops.rglru(a, b, force="cuda")),
           "plain_ms": device_ms(torch, lambda: ops.rglru(a, b, force="ref"),
                                 iters=2),
-          "call_ms": time_ms(torch, lambda: ops.rglru(a, b, force="cuda"))}
+          "call_ms": time_ms(torch, lambda: ops.rglru(a, b, force="cuda")),
+          "cold_ms": cold_ms(torch, lambda: ops.rglru(a, b, force="cuda"))}
     rb_ms, rb_by = bound(3 * n * 4, 2 * n)
     rglru_detail = dict(rg, bound_ms=rb_ms, bound_by=rb_by,
                         shape=[2, 4096, 4096],
@@ -2064,7 +2198,8 @@ def phase_timings(ctx):
         "plain_ms": rg["plain_ms"], "bound_ms": rb_ms, "bound_by": rb_by,
         "library_ms": None,
         "library": "none: no single PyTorch call computes the recurrence",
-        "call_ms": rg["call_ms"], "shape": [2, 4096, 4096],
+        "call_ms": rg["call_ms"], "cold_ms": rg["cold_ms"],
+        "shape": [2, 4096, 4096],
         "dtype": "float32"})
     del a, b
     emit("timings", card=ctx["smi"], gossip_gather_by_shape=gather_shapes,

@@ -422,9 +422,10 @@ class DFedPGP:
         lead with (n_active, K, ...).
 
         IN PLACE: `state.flat`, `state.opt_u.momentum` and, with a lossy
-        codec, `state.ef` and `state.ref` are written through
-        `kernels.ops.gossip_scatter` (the CUDA kernel on a GPU) and are the
-        new state's buffers too — the torch form of the
+        codec, `state.ef` and `state.ref` are written through one
+        `kernels.ops.gossip_scatter_many` call (one launch of the CUDA
+        kernel on a GPU where they share a dtype) and are the new state's
+        buffers too — the torch form of the
         reference's aliased, donated buffers.  A caller that needs the old
         state clones it first.  mu, the personal leaves and opt_v are
         small and are copied (`index_copy`).  Dormant rows never move.
@@ -467,13 +468,18 @@ class DFedPGP:
         def put(full, new):
             return torch.index_copy(full, 0, idx, new)
 
-        flat = ops.gossip_scatter(active, flat_a, state.flat)
-        opt_u = SGDState(ops.gossip_scatter(active, opt_u_a.momentum,
-                                            state.opt_u.momentum))
-        ef = state.ef if ef_a is None else \
-            ops.gossip_scatter(active, ef_a, state.ef)
-        ref = state.ref if ref_a is None else \
-            ops.gossip_scatter(active, ref_a, state.ref)
+        # the big buffers go back in one launch per (X, U) dtype pair: one
+        # launch when they share a dtype (flat, momentum, ef and ref in f32)
+        back = [(flat_a, state.flat), (opt_u_a.momentum,
+                                       state.opt_u.momentum)]
+        back += [(x, u) for x, u in ((ef_a, state.ef), (ref_a, state.ref))
+                 if x is not None]
+        groups: dict = {}
+        for x, u in back:
+            groups.setdefault((x.dtype, u.dtype), []).append((x, u))
+        for pairs in groups.values():
+            ops.gossip_scatter_many(active, *zip(*pairs))
+        flat, opt_u, ef, ref = state.flat, state.opt_u, state.ef, state.ref
         mu = put(state.mu, mu_a)
         personal = tree.tree_map(put, state.personal, personal_a)
         opt_v = SGDState(tree.tree_map(put, state.opt_v.momentum,

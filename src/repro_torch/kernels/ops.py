@@ -23,7 +23,8 @@ import torch
 from . import ref
 from .flash_attention import flash_attention_cuda
 from .gossip_gather import gossip_gather_cuda
-from .gossip_scatter import gossip_scatter_cuda
+from .gossip_scatter import (check_pairs, gossip_scatter_cuda,
+                             gossip_scatter_many_cuda)
 from .head_gather import head_gather_matmul_cuda
 from .pushsum_mix import pushsum_mix_cuda
 from .rglru import rglru_cuda
@@ -137,6 +138,23 @@ def gossip_scatter(rows, X, U, accumulate: bool = False, force: str = "auto",
         return gossip_scatter_cuda(rows, X, U, accumulate, block_d=block_d)
     _reject_ref_knobs(block_d=block_d)
     return ref.gossip_scatter_ref(rows, X, U, accumulate)
+
+
+def gossip_scatter_many(rows, Xs, Us, accumulate: bool = False,
+                        force: str = "auto", block_d: int | None = None):
+    """`gossip_scatter` for up to 4 pairs (X, U) that share one row table:
+    every U written in place, in ONE kernel launch on the kernel path.
+    The Xs must share one dtype, the Us one dtype, and every pair one
+    shape, X (n, d) with n = len(rows) and U (m, d); anything else raises
+    on both paths.  Returns the Us.  block_d tunes the kernel's columns
+    per block (kernel only)."""
+    Xs, Us = tuple(Xs), tuple(Us)
+    if Us and _use_kernel(force, Us[0]):
+        return gossip_scatter_many_cuda(rows, Xs, Us, accumulate,
+                                        block_d=block_d)
+    check_pairs(rows, Xs, Us)
+    _reject_ref_knobs(block_d=block_d)
+    return ref.gossip_scatter_many_ref(rows, Xs, Us, accumulate)
 
 
 def head_gather_matmul(uid, H, W, b, force: str = "auto",

@@ -77,6 +77,14 @@ def gossip_scatter_ref(rows: torch.Tensor, X: torch.Tensor, U: torch.Tensor,
     return U.index_copy_(0, r, Xc)
 
 
+def gossip_scatter_many_ref(rows: torch.Tensor, Xs, Us,
+                            accumulate: bool = False) -> tuple:
+    """`gossip_scatter_ref` for each pair (X, U) in turn, every U written
+    in place; returns the Us."""
+    return tuple(gossip_scatter_ref(rows, X, U, accumulate)
+                 for X, U in zip(Xs, Us))
+
+
 def head_gather_matmul_ref(uid: torch.Tensor, H: torch.Tensor,
                            W: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """out[r] = H[r] @ W[uid[r]] + b[uid[r]] — the personalized-head serve

@@ -17,8 +17,8 @@ from typing import NamedTuple
 import torch
 
 from .. import tree
-from ..core import partition
-from ..core.dfedpgp import FlatDFedPGPState
+from ..core import gossip, partition
+from ..core.dfedpgp import DFedPGPState, FlatDFedPGPState
 
 CONSENSUS_MODES = ("mass", "mean")
 
@@ -65,19 +65,29 @@ def _consensus_row(flat: torch.Tensor, mu: torch.Tensor, consensus):
                      f"or an int client index (anchor)")
 
 
-def from_train_state(state, *, layout=None,
+def from_train_state(state, *, mask=None, layout=None,
                      consensus="mass") -> ServingState:
-    """Trained FlatDFedPGPState (with the run's `layout`) -> ServingState.
-    The tree-form DFedPGPState is ported with the tree round (ROADMAP
-    queue 1 item 8)."""
-    if not isinstance(state, FlatDFedPGPState):
-        raise NotImplementedError(
-            f"from_train_state takes the resident FlatDFedPGPState; "
-            f"{type(state).__name__} is not ported yet (ROADMAP queue 1 "
-            f"item 8)")
-    if layout is None:
-        raise ValueError("FlatDFedPGPState needs the run's FlatLayout (the "
-                         "buffer's static wire layout)")
-    trunk = layout.unravel_row(_consensus_row(state.flat, state.mu,
-                                              consensus))
-    return ServingState(trunk=trunk, personal=state.personal)
+    """Trained state -> ServingState.
+
+    state: a FlatDFedPGPState (pass the run's `layout`) or a DFedPGPState
+    (pass the partition `mask`; the layout is built from the params).  The
+    tree form is packed through the SAME flatten_shared wire layout the
+    resident path lives on, so both forms produce identical bits.
+    """
+    if isinstance(state, FlatDFedPGPState):
+        if layout is None:
+            raise ValueError("FlatDFedPGPState needs the run's FlatLayout "
+                             "(the buffer's static wire layout)")
+        flat, mu, personal = state.flat, state.mu, state.personal
+    elif isinstance(state, DFedPGPState):
+        if mask is None:
+            raise ValueError("tree-form DFedPGPState needs the partition "
+                             "mask (shared/personal split)")
+        fcs, layout = gossip.FlatClientState.create(state.params, mask,
+                                                    layout)
+        flat, mu, personal = fcs.flat, state.mu, fcs.personal
+    else:
+        raise TypeError(f"expected FlatDFedPGPState or DFedPGPState, got "
+                        f"{type(state).__name__}")
+    trunk = layout.unravel_row(_consensus_row(flat, mu, consensus))
+    return ServingState(trunk=trunk, personal=personal)

@@ -602,6 +602,108 @@ def test_sampled_codec_round_matches_full_and_freezes_dormant(draws):
                        keep.opt_u.momentum[dormant])
 
 
+def test_sampled_codec_round_writes_back_in_one_call_like_reference(
+        draws, monkeypatch):
+    # one full codec round, then one sampled codec round (half the clients)
+    # in both engines: the port writes flat, opt_u, ef and ref back through
+    # ONE gossip_scatter_many call of 4 pairs (one kernel launch on a GPU),
+    # the reference through 4 interpreted Pallas scatters.  Tolerance of
+    # the codec-free rounds (rtol 1e-4, atol 2e-5) on every buffer
+    codec_kw = dict(codec="topk", codec_ratio=1 / 16, gossip="pallas")
+    sim = jsim.SimConfig(**SIM_KW, **codec_kw)
+    mask = jpartition.build_mask(jcnn.init_params(jax.random.PRNGKey(0),
+                                                  CFG_J),
+                                 jpartition.classifier_personal)
+    jalgo = jsim.build_algorithm(
+        "dfedpgp", lambda p, b: jcnn.loss_fn(p, b, CFG_J), mask, sim)
+    js, jlayout = jalgo.init_flat(draws["stacked"])
+    active = np.array([1, 2, 5, 6], np.int32)
+    jb = [_split(jax.tree.map(jnp.asarray, b), sim.k_personal)
+          for b in draws["batches"][:2]]
+    jP = [jtopology.SparseTopology(jnp.asarray(i), jnp.asarray(w))
+          for i, w in draws["tables"][:2]]
+    js, _ = jalgo.round_fn_flat(js, jP[0], jb[0], jlayout)
+    js, _ = jax.jit(lambda s, P, a, b: jalgo.round_fn_sampled(
+        s, P, a, b, jlayout))(
+        js, jtopology.induced_subgraph(jP[1], jnp.asarray(active), "row"),
+        jnp.asarray(active), jax.tree.map(lambda a: a[active], jb[1]))
+
+    algo = _port_algo(codec=tcompress.make_codec("topk", ratio=1 / 16),
+                      gossip="pallas")
+    state, layout = _port_rounds(algo, draws, rounds=1)
+    idx, w = draws["tables"][1]
+    P = SparseTopology(torch.from_numpy(np.array(idx)),
+                       torch.from_numpy(np.array(w)))
+    b = _split({k: torch.from_numpy(np.array(a[active]))
+                for k, a in draws["batches"][1].items()}, algo.k_v)
+    calls = []
+
+    def counted(rows, Xs, Us, *args, **kw):
+        calls.append(len(Xs))
+        return scatter_many(rows, Xs, Us, *args, **kw)
+
+    scatter_many = ops.gossip_scatter_many
+    monkeypatch.setattr(ops, "gossip_scatter_many", counted)
+    monkeypatch.setattr(ops, "gossip_scatter", None)    # not on this path
+    ta = torch.from_numpy(active)
+    ts, _ = algo.round_fn_sampled(
+        state, ttopology.induced_subgraph(P, ta), ta, b, layout)
+    assert calls == [4]
+    assert int(ts.round) == int(js.round) == 2
+    for name in ("flat", "mu", "ef", "ref"):
+        np.testing.assert_allclose(
+            getattr(ts, name).numpy(), np.asarray(getattr(js, name)),
+            rtol=1e-4, atol=2e-5, err_msg=name)
+    np.testing.assert_allclose(ts.opt_u.momentum.numpy(),
+                               np.asarray(js.opt_u.momentum), rtol=1e-4,
+                               atol=2e-5)
+
+
+def test_sampled_codec_round_groups_the_write_back_by_dtype(draws,
+                                                            monkeypatch):
+    # bf16 params with a lossy codec: flat and momentum are bf16, ef and
+    # ref f32, so the write-back is one gossip_scatter_many call per dtype
+    # pair (one launch each on a GPU); dormant rows of all four stay put
+    algo = _port_algo(codec=tcompress.make_codec("topk", ratio=1 / 16),
+                      gossip="pallas")
+    stacked = tree.tree_map(lambda a: a.to(torch.bfloat16),
+                            convert.params_from_reference(jax.tree.map(
+                                np.asarray, draws["stacked"])))
+    state, layout = algo.init_flat(stacked, device="cpu")
+    keep = _clone(state)
+    active = torch.tensor([1, 2, 5, 6], dtype=torch.int32)
+    idx, w = draws["tables"][0]
+    P = SparseTopology(torch.from_numpy(np.array(idx)),
+                       torch.from_numpy(np.array(w)))
+    def bf16(a):
+        t = torch.from_numpy(np.array(a))[active.long()]
+        return t.to(torch.bfloat16) if t.is_floating_point() else t
+
+    b = _split({k: bf16(a) for k, a in draws["batches"][0].items()},
+               algo.k_v)
+    calls = []
+
+    def counted(rows, Xs, Us, *args, **kw):
+        calls.append([(X.dtype, U.dtype) for X, U in zip(Xs, Us)])
+        return scatter_many(rows, Xs, Us, *args, **kw)
+
+    scatter_many = ops.gossip_scatter_many
+    monkeypatch.setattr(ops, "gossip_scatter_many", counted)
+    new, _ = algo.round_fn_sampled(
+        state, ttopology.induced_subgraph(P, active), active, b, layout)
+    bf, f32 = torch.bfloat16, torch.float32
+    assert calls == [[(bf, bf), (bf, bf)], [(f32, f32), (f32, f32)]]
+    dormant = torch.ones(M, dtype=torch.bool)
+    dormant[active.long()] = False
+    for name in ("flat", "ef", "ref"):
+        assert torch.equal(getattr(new, name)[dormant],
+                           getattr(keep, name)[dormant]), name
+        assert not torch.equal(getattr(new, name)[~dormant],
+                               getattr(keep, name)[~dormant]), name
+    assert torch.equal(new.opt_u.momentum[dormant],
+                       keep.opt_u.momentum[dormant])
+
+
 def test_codec_knobs_raise_the_reference_errors():
     tc = tcompress.make_codec("topk")
     mask = tpartition.build_mask(tcnn.init_params(torch.Generator(), CFG_T),

@@ -91,6 +91,63 @@ def test_from_train_state_matches_reference(states, consensus):
                                 consensus="median")
 
 
+def _tree_states(states):
+    """The fixture's resident state in tree form, in both engines: the
+    stacked params unraveled through each engine's own layout."""
+    from repro.core import dfedpgp as jdfedpgp
+    from repro.core import gossip as jgossip
+    from repro_torch.core import dfedpgp as tdfedpgp
+    from repro_torch.core import gossip as tgossip
+    js, ts = states["jstate"], states["tstate"]
+    jparams = jgossip.FlatClientState(js.flat, js.personal).to_tree(
+        states["jlayout"])
+    tparams = tgossip.FlatClientState(ts.flat, ts.personal).to_tree(
+        states["tlayout"])
+    jtree = jdfedpgp.DFedPGPState(jparams, js.mu, js.opt_u, js.opt_v,
+                                  js.round)
+    ttree = tdfedpgp.DFedPGPState(tparams, ts.mu, ts.opt_u, ts.opt_v,
+                                  ts.round)
+    jmask = jpartition.build_mask(jcnn.init_params(jax.random.PRNGKey(0),
+                                                   CFG_J),
+                                  jpartition.classifier_personal)
+    return jtree, ttree, jmask
+
+
+@pytest.mark.parametrize("consensus", [2, "mass", "mean"])
+def test_from_train_state_tree_form_matches_flat_and_reference(states,
+                                                               consensus):
+    # the tree form packs through the same wire layout as the resident
+    # buffer: bitwise the flat form's ServingState; against the reference's
+    # tree form the flat form's tolerance (exact anchor, rtol 1e-6 sums)
+    jtree, ttree, jmask = _tree_states(states)
+    flat = tserve.from_train_state(states["tstate"], layout=states["tlayout"],
+                                   consensus=consensus)
+    got = tserve.from_train_state(ttree, mask=_mask_t(), consensus=consensus)
+    for (path, a), (_, b) in zip(tree.paths(got.trunk),
+                                 tree.paths(flat.trunk)):
+        assert torch.equal(a, b), "/".join(path)
+    for (path, a), (_, b) in zip(tree.paths(got.personal),
+                                 tree.paths(flat.personal)):
+        assert torch.equal(a, b), "/".join(path)
+    want = jserve.from_train_state(jtree, mask=jmask, consensus=consensus)
+    tol = 0.0 if isinstance(consensus, int) else 1e-6
+    _assert_tree(got.trunk, _np(want.trunk), rtol=tol, atol=tol)
+    _assert_tree(got.personal, _np(want.personal), rtol=0, atol=0)
+    assert got.n_users() == M
+
+
+def test_from_train_state_refuses_what_the_reference_refuses(states):
+    _, ttree, _ = _tree_states(states)
+    with pytest.raises(ValueError, match="mask"):
+        tserve.from_train_state(ttree)
+    with pytest.raises(ValueError, match="FlatLayout"):
+        tserve.from_train_state(states["tstate"])
+    with pytest.raises(TypeError, match="DFedPGPState"):
+        tserve.from_train_state(ttree.params, mask=_mask_t())
+    with pytest.raises(TypeError, match="DFedPGPState"):
+        jserve.from_train_state(ttree.params, mask=_mask_t())
+
+
 def test_serve_logits_matches_reference(states):
     # trunk convs and GroupNorm summed in another order (XLA:CPU vs oneDNN)
     # before the f32 head: rtol/atol 2e-5

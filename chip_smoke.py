@@ -36,9 +36,21 @@ line is never printed):
                 on a ring, gamma "auto" and qsgd rounds, sampled codec
                 rounds (one gossip_scatter per round writes flat,
                 momentum, ef and ref back; dormant rows frozen);
-9. serve      — mixed-user batches served from the trained state through
+9. baselines  — the paper's 10 comparison rows at its defaults, 3 rounds
+                each through run_experiment: finite loss, accuracy in
+                [0, 1], one gossip_gather launch per DFL round (mix_tree's
+                one buffer) and none for the CFL rows and local; the
+                osgp / dfedavgm flat-core codec runs (topk, "pallas"): one
+                topk_gather and one gossip_gather per round, plus one
+                gossip_scatter per sampled round, dormant rows frozen;
+                every algorithm 2 rounds from one set of draws: the card
+                against the CPU in f64 and the f32 kernel path against the
+                plain path on the card (rtol 1e-4, atol 5e-5, every state
+                leaf); the f32 card-vs-CPU gap reported (max-pool
+                near-ties part f32 trajectories);
+10. serve     — mixed-user batches served from the trained state through
                 head_gather_matmul, against force="ref" and serve_naive;
-10. lm        — recurrentgemma-9b at full width and depth (38 layers, f32
+11. lm        — recurrentgemma-9b at full width and depth (38 layers, f32
                 params drawn on the card, bf16 compute): prefill_logits
                 at B 2, S 4096 (12 flash_attention and 26 rglru launches
                 per prefill, finite logits, median ms, each kernel's
@@ -46,9 +58,10 @@ line is never printed):
                 memory; then reduced() in f32 and in bf16 (the wgmma flash
                 route) on the card against the CPU (prefill, 24 decode
                 steps across the ring wrap, caches);
-11. timings   — each kernel at its path's shape: kernel, plain and
+12. timings   — each kernel at its path's shape: kernel, plain and
                 library-call ms (CUDA events), the card's bound, launches;
                 gossip_gather, pushsum_mix and topk_gather also at m = 1024,
+                gossip_gather also at the baselines' full-model widths,
                 gossip_scatter at m = 4096; every kernel also with a cold
                 L2, the first five with their route, plan and share of the
                 bound; the sampled round's write-back (2 and 4 buffers in
@@ -72,7 +85,10 @@ import time
 from pathlib import Path
 
 PHASES = ("device", "build", "kernels", "train", "parity", "sampled",
-          "kernel_mix", "compress", "serve", "lm", "timings")
+          "kernel_mix", "compress", "baselines", "serve", "lm", "timings")
+# the paper's comparison rows (the port's simulator.ALGOS but dfedpgp)
+BASELINES = ("local", "fedavg", "fedper", "fedrep", "fedbabu", "ditto",
+             "dfedavgm", "dfedavgm-p", "osgp", "dispfl")
 # published peaks (NVIDIA data sheets, dense): bytes/s of device memory and
 # f32 FLOP/s outside the tensor cores
 PEAKS = {"PCIe": (2.0e12, 51e12), "NVL": (3.9e12, 60e12),
@@ -337,6 +353,16 @@ def _gather_case(torch, m, k, d, seed, dtype, repeat=True):
     return idx, w, U
 
 
+def _induced_table(torch, P, n_active=50, seed=5):
+    """P induced on `n_active` of its clients drawn from a CPU generator
+    (the sampled flat-core round's table, compact ids, width kept)."""
+    from repro_torch.core import topology
+    m = P.idx.shape[0]
+    active = torch.randperm(m, generator=torch.Generator().manual_seed(
+        seed))[:n_active].sort().values
+    return topology.induced_subgraph(P, active.to(P.idx.device), "row")
+
+
 def _gather_plan(m, k, d, U, block_d=None):
     """The route and tiling gossip_gather_cuda takes for these inputs."""
     from repro_torch.kernels import _build, gossip_gather
@@ -425,6 +451,31 @@ def phase_kernels(ctx):
     results.append({"kernel": "gossip_gather", "shape": [100, 11, 13328],
                     "dtype": "bfloat16", "check": "allclose(8e-3) vs ref",
                     "max_abs_err": err, "ok": True})
+    # the baselines' full-model widths (mix_tree's one buffer) on their
+    # tables: d 13,978 (the whole CNN) on OSGP's random table (k 11) and
+    # the undirected one (k 31); d_flat 13,328 at k 31 (DFedAvgM-P); d
+    # 27,956 (Dis-PFL's num + den) at k 31; and the sampled flat-core
+    # round's table, the undirected one induced on 50 active clients.
+    # f32 bitwise mix_rows
+    und = topology.get_schedule("undirected", 100, 10, 0).at(0).to("cuda")
+    ind = _induced_table(torch, und)
+    for Pt, d in ((P, 13978), (und, 13978), (und, 13328), (und, 27956),
+                  (ind, 13978)):
+        n, k = Pt.idx.shape
+        Ud = torch.randn((n, d), generator=g, device="cuda")
+        got = ops.gossip_gather(Pt.idx, Pt.w, Ud, force="cuda")
+        torch.cuda.synchronize()
+        want = gossip.mix_rows(Pt.idx, Pt.w, Ud)
+        route = _gather_plan(n, k, d, Ud)
+        check(torch.equal(got, want) and torch.equal(
+            got, ops.gossip_gather(Pt.idx, Pt.w, Ud, force="ref")),
+              f"gossip_gather f32 != mix_rows bit for bit at ({n}, {k}, "
+              f"{d}), {route}")
+        results.append({"kernel": "gossip_gather", "shape": [n, k, d],
+                        "dtype": "float32", "check": "bitwise == mix_rows",
+                        "route": route.route, "block_d": route.block_d,
+                        "table_in_smem": route.table,
+                        "max_abs_err": max_abs(got, want), "ok": True})
 
     # -- the bench_gossip grid, the timed m = 1024 shape, awkward shapes
     # (repeated ids; d = 513 and 5 take the unaligned staging), the row
@@ -595,7 +646,8 @@ def _scatter_cases(ctx):
     4-byte-offset X the scalar one).  Then each tiling of the plan at full
     width: 8 slots a thread at n 1024, 1 to 8 slots at d 13,328 (block_d),
     and the write-back of 2, 3 and 4 pairs in one launch (f32 as the
-    sampled round, bf16, mixed, one misaligned X, the most slots, n 1024).
+    sampled round, bf16, mixed, one misaligned X, the most slots, n 1024;
+    4 pairs of 50 rows at d 13,978, the sampled flat-core codec round).
     Set is an exact copy and accumulate one f32 add then one rounding on
     both sides: bitwise.  The kernel writes into each U's storage:
     data_ptr unchanged, dormant rows untouched."""
@@ -688,6 +740,10 @@ def _scatter_cases(ctx):
         case(m, 25, 13328, f32, f32, False, pairs=pairs,
              block_d=4 * gs.THREADS * gs.max_vecs(pairs))
         case(1200, 1024, 13328, f32, f32, False, pairs=pairs)
+    # the sampled flat-core codec round's write-back: 4 pairs, 50 of 100
+    # rows, d 13,978 (not a multiple of 4)
+    for acc in (False, True):
+        case(m, 50, 13978, f32, f32, acc, pairs=4)
     rows = torch.arange(3, dtype=torch.int32, device="cuda")
     try:
         ops.gossip_scatter_many(
@@ -778,6 +834,8 @@ def _topk_cases(ctx):
     """topk_gather against topk_gather_ref on the card: the JAX sweep
     shapes (tests/test_compress.py:165-167), the codec path's shape
     (m 100, k 11, K 833, d 13,328) with its real table and with k = 1,
+    the flat-core codec runs' shapes (d 13,978, K 873: m 100 on the
+    random table, and m 50 on the undirected table induced on 50 clients),
     repeated neighbor ids, f32 and bf16 values, uint16 and int32 columns
     (d > 65535 takes int32), out-of-range columns, duplicate columns, and
     block_d of 128 and of a whole row (dynamic shared memory above 48 KB).
@@ -808,6 +866,8 @@ def _topk_cases(ctx):
                 "and host/device copy on the card", "ok": True}]
     Pw = gossip.wire_only(topology.get_schedule("random", 100, 10, 0).at(
         0).to("cuda"))
+    Pind = gossip.wire_only(_induced_table(torch, topology.get_schedule(
+        "undirected", 100, 10, 0).at(0).to("cuda")))
     cases = [dict(m=m, k=k, d=d, K=K) for m, k, d, K in (
         (5, 2, 64, 3), (33, 4, 1100, 17), (8, 1, 512, 1), (17, 3, 129, 129),
         (16, 4, 700, 44), (100, 11, 13328, 833), (100, 1, 13328, 833),
@@ -815,6 +875,8 @@ def _topk_cases(ctx):
     cases += [dict(m=9, k=3, d=260, K=20, oob=True),
               dict(m=9, k=3, d=260, K=20, dup=True),
               dict(m=100, k=11, d=13328, K=833, table=True),
+              dict(m=100, k=11, d=13978, K=873, table=True),
+              dict(m=50, k=31, d=13978, K=873, table="induced"),
               dict(m=37, k=5, d=13328, K=833, block_d=128),
               dict(m=37, k=5, d=13328, K=833, block_d=13328),
               dict(m=1024, k=16, d=13328, K=833),
@@ -833,7 +895,9 @@ def _topk_cases(ctx):
                 idx, w, vals, cols = _payload_case(
                     torch, m, k, d, K, 300 + i, vdt, cdt,
                     dup=c.get("dup", False), oob=c.get("oob", False))
-                if c.get("table"):
+                if c.get("table") == "induced":
+                    idx, w = Pind.idx, Pind.w.contiguous()
+                elif c.get("table"):
                     idx, w = Pw.idx, Pw.w.contiguous()
                 pl = topk_plan(m, k, K, d, vals.element_size(),
                                cols.element_size(), sms, c.get("block_d"))
@@ -1483,6 +1547,395 @@ def phase_compress(ctx):
                compress_sampled_launches=scounts)
 
 
+def _state_leaves(state, prefix=""):
+    """(name, tensor) for every tensor of a round state: NamedTuples, dicts
+    and tensors, None skipped."""
+    if state is None:
+        return
+    if hasattr(state, "_fields"):
+        for name, val in zip(state._fields, state):
+            yield from _state_leaves(val, f"{prefix}{name}/")
+    elif isinstance(state, dict):
+        for key in sorted(state):
+            yield from _state_leaves(state[key], f"{prefix}{key}/")
+    else:
+        yield prefix.rstrip("/"), state
+
+
+def _parity_draws(torch, sim, cfg, seed: int = 11) -> dict:
+    """One set of CPU draws for the baselines' card-vs-CPU rounds: data,
+    init and tables from `seed`, round r's batches from 10 seed + r and
+    its CFL sample from 10 seed + 10 + r."""
+    from repro_torch.core import topology
+    from repro_torch.core.baselines import sample
+    from repro_torch.data import make_dataset, sample_batches
+    from repro_torch.models import cnn
+    k_total = sim.k_local + sim.k_personal
+    data = make_dataset(seed, sim.m, n_train=sim.n_train, n_test=sim.n_test)
+    return {
+        "sim": sim, "cfg": cfg, "seed": seed,
+        "init": cnn.init_params(torch.Generator().manual_seed(seed), cfg,
+                                (sim.m,)),
+        "batches": [sample_batches(torch.Generator().manual_seed(
+            10 * seed + r), data, k_total, sim.batch)
+            for r in range(sim.rounds)],
+        "samples": [sample(torch.Generator().manual_seed(10 * seed + 10 + r),
+                           sim.m, sim.sample_ratio)
+                    for r in range(sim.rounds)],
+        "tables": {kind: [topology.get_schedule(
+            kind, sim.m, sim.n_neighbors, seed).at(r)
+            for r in range(sim.rounds)] for kind in ("random", "undirected")}}
+
+
+def _baseline_rounds(ctx, name, dev, dtype, draws) -> dict:
+    """`draws["sim"].rounds` rounds of one baseline through its algorithm
+    object (`simulator.build_algorithm`) in `dtype` on `dev` -> {leaf name:
+    tensor} of the final state."""
+    torch = ctx["torch"]
+    from repro_torch import tree
+    from repro_torch.core import partition
+    from repro_torch.fl import simulator
+    from repro_torch.models import cnn
+    sim, cfg = draws["sim"], draws["cfg"]
+    init = tree.tree_map(lambda a: a.to(dtype), draws["init"])
+    mask = partition.build_mask(init, partition.classifier_personal)
+    algo = simulator.build_algorithm(
+        name, lambda p, b: cnn.loss_fn(p, b, cfg), mask, sim)
+    state = algo.init(init, device=dev)
+    kind = "undirected" if name in simulator.UNDIRECTED_ALGOS else "random"
+    for r in range(sim.rounds):
+        b = draws["batches"][r]
+        b = {"x": b["x"].to(dev, dtype), "y": b["y"].to(dev)}
+        if name in simulator.CFL:
+            ctx_r = draws["samples"][r].to(dev)
+        elif name == "local":
+            ctx_r = None
+        else:
+            ctx_r = draws["tables"][kind][r].to(dev)
+        state, _ = algo.round_fn(state, ctx_r, b)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    return dict(_state_leaves(state))
+
+
+def _hold(torch, algo, what, a, b, tol) -> float:
+    """Every leaf of a within rtol = atol = tol of b (tol 0: bitwise) ->
+    the max abs error."""
+    check(a.keys() == b.keys(), f"{algo} {what}: the states differ in "
+                                f"their leaves")
+    worst = 0.0
+    for leaf, x in a.items():
+        y = b[leaf]
+        d = x.cpu().double() - y.cpu().double()    # f64 leaves stay f64
+        err = float(d.abs().max()) if d.numel() else 0.0
+        worst = max(worst, err)
+        ok = torch.equal(x.cpu(), y.cpu()) if tol == 0 else \
+            torch.allclose(x.cpu(), y.cpu(), rtol=tol, atol=tol)
+        check(ok, f"{algo} {what} {leaf}: max abs err {err} (tol {tol})")
+    return worst
+
+
+def _parting_clients(torch, a, b, m) -> tuple:
+    """How far state a lies from b -> (max abs error, elements beyond
+    rtol 1e-4, atol 5e-5, the clients (rows of the (m, ...) leaves) with
+    one)."""
+    worst, elems, clients = 0.0, 0, set()
+    for leaf, x in a.items():
+        x, y = x.cpu().double(), b[leaf].cpu().double()
+        d = (x - y).abs()
+        worst = max(worst, float(d.max()) if d.numel() else 0.0)
+        over = d > 5e-5 + 1e-4 * y.abs()
+        elems += int(over.sum())
+        if over.dim() and over.shape[0] == m:
+            clients |= set(over.reshape(m, -1).any(1).nonzero()
+                           .flatten().tolist())
+    return worst, elems, clients
+
+
+def _cnn_probe(torch, cfg):
+    """One client's CNN forward as `cnn.features` computes it, returning
+    each max pool's input and argmax and each ReLU's input sign."""
+    import torch.nn.functional as F
+    from repro_torch.models import cnn
+
+    def probe(p, x):
+        # the loss only puts the forward under the grad transform, as in
+        # a step; the aux outputs are the readings
+        f = p["features"]
+        x = x.permute(0, 3, 1, 2)
+        a1 = cnn._gn(cnn._conv(x, f["conv1"]), f["gn1"], f["gb1"],
+                     cfg.gn_groups)
+        r1 = F.relu(a1)
+        h1, i1 = F.max_pool2d(r1, 2, 2, return_indices=True)
+        a2 = cnn._gn(cnn._conv(h1, f["conv2"]), f["gn2"], f["gb2"],
+                     cfg.gn_groups)
+        r2 = F.relu(a2)
+        h2, i2 = F.max_pool2d(r2, 2, 2, return_indices=True)
+        a3 = h2.permute(0, 2, 3, 1).reshape(h2.shape[0], -1) @ f["dense"]
+        return F.relu(a3).sum(), (r1, i1, r2, i2, a1 > 0, a2 > 0, a3 > 0)
+    run = torch.func.vmap(torch.func.grad_and_value(probe, has_aux=True))
+    return lambda p, x: run(p, x)[1][1]
+
+
+def _pool_witness(ctx, draws) -> dict:
+    """`local` in f32 on the card and on the CPU from one set of draws,
+    one SGD step at a time.  Before each step each device runs the
+    model's forward (vmap over the clients, as a step does) on its own
+    params and records both max pools' argmax and every ReLU input's
+    sign.  -> the clients beyond rtol 1e-4, atol 5e-5 after the rounds;
+    the clients with a max-pool window whose argmax differs between the
+    devices (its gradient goes to another input) and those with a ReLU
+    input of another sign; and the flipped window with the least gap:
+    its two inputs on each device and their distance in f32 ulps."""
+    import numpy as np
+    torch = ctx["torch"]
+    from repro_torch.core import baselines
+    from repro_torch.models import cnn
+    sim, cfg = draws["sim"], draws["cfg"]
+    algo = baselines.LocalOnly(loss_fn=lambda p, b: cnn.loss_fn(p, b, cfg))
+    probe = _cnn_probe(torch, cfg)
+    devs = {"card": "cuda", "cpu": "cpu"}
+    states = {side: algo.init(draws["init"], device=dev)
+              for side, dev in devs.items()}
+    pool_clients, relu_clients, tightest = set(), set(), None
+    step = 0
+    for r in range(sim.rounds):
+        b = draws["batches"][r]
+        for k in range(b["x"].shape[1]):
+            out = {}
+            for side, st in states.items():
+                bk = {n: a[:, k:k + 1].to(devs[side]) for n, a in b.items()}
+                out[side] = [t.cpu() for t in probe(st.params,
+                                                    bk["x"][:, 0])]
+                st = st._replace(round=torch.full_like(st.round, r))
+                states[side], _ = algo.round_fn(st, None, bk)
+            c, g = out["cpu"], out["card"]
+            for sc, sg in zip(c[4:], g[4:]):
+                relu_clients |= set((sc != sg).reshape(sim.m, -1).any(1)
+                                    .nonzero().flatten().tolist())
+            for pool, (x_c, i_c, x_g, i_g) in enumerate(
+                    ((c[0], c[1], g[0], g[1]), (c[2], c[3], g[2], g[3])), 1):
+                xc, xg = x_c.flatten(-2), x_g.flatten(-2)
+                ic, ig = i_c.flatten(-2), i_g.flatten(-2)
+                top = xc.gather(-1, ic)
+                flip = (ic != ig) & (top > 0)
+                if not bool(flip.any()):
+                    continue
+                pool_clients |= set(flip.reshape(sim.m, -1).any(1)
+                                    .nonzero().flatten().tolist())
+                other = xc.gather(-1, ig)
+                ulp = torch.nextafter(top, torch.full_like(top, float("inf")))
+                gap = torch.where(flip, (top - other) / (ulp - top),
+                                  torch.full_like(top, float("inf")))
+                at = int(gap.argmin())
+                pos = [int(t) for t in np.unravel_index(at, gap.shape)]
+                if tightest is None or float(gap.flatten()[at]) < \
+                        tightest["ulps"]:
+                    ia, ib = int(ic[tuple(pos)]), int(ig[tuple(pos)])
+                    tightest = {
+                        "step": step, "pool": pool, "client": pos[0],
+                        "sample": pos[1], "channel": pos[2],
+                        "window": pos[3], "cpu_argmax": ia,
+                        "card_argmax": ib,
+                        "cpu_inputs": [float(xc[tuple(pos[:3])][ia]),
+                                       float(xc[tuple(pos[:3])][ib])],
+                        "card_inputs": [float(xg[tuple(pos[:3])][ia]),
+                                        float(xg[tuple(pos[:3])][ib])],
+                        "ulps": float(gap.flatten()[at])}
+            step += 1
+    a, b = (dict(_state_leaves(states[side])) for side in ("card", "cpu"))
+    err, elems, parting = _parting_clients(torch, a, b, sim.m)
+    flipped = pool_clients | relu_clients
+    return {"seed": draws["seed"], "steps": step, "max_abs_err": err,
+            "elements_beyond_tol": elems,
+            "clients_beyond_tol": sorted(parting),
+            "pool_flip_clients": sorted(pool_clients),
+            "relu_flip_clients": sorted(relu_clients),
+            "parting_all_flipped": parting <= flipped,
+            "parting_with_pool_flip": len(parting & pool_clients),
+            "tightest_pool_flip": tightest}
+
+
+class _plain_kernels:
+    """Within the block every `kernels.ops` wrapper takes its plain
+    version, on any device."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.ops, self.saved = ops, ops._use_kernel
+        ops._use_kernel = lambda force, t: self.saved("ref", t)
+
+    def __exit__(self, *exc):
+        self.ops._use_kernel = self.saved
+
+
+def phase_baselines(ctx):
+    """The paper's baselines at its defaults (m 100, n_neighbors 10, batch
+    32, k_local 5, k_personal 1, sample_ratio 0.1): each of BASELINES for 3
+    rounds through run_experiment(device="cuda"), one gossip_gather launch
+    per DFL round and none for the CFL rows and local; the flat-core codec
+    runs (codec="topk", gossip="pallas"): osgp, then dfedavgm sampling 50
+    of 100 clients a round (at frac 0.25 its 25 active clients are fewer
+    than the undirected width k 31, and the mix densifies by the
+    reference's no_sparsity rule); then every algorithm 2 rounds from the
+    same data, init, tables, batches, CFL samples and Dis-PFL masks (CPU
+    generators), every state leaf held: the card against the CPU in f64
+    at rtol = atol = 1e-9, and the f32 card bitwise against itself with
+    every kernel swapped for its plain version (the flat-core runs too).
+    The f32 card against the f32 CPU is reported on `local` with the
+    max-pool / ReLU flips behind it (`_pool_witness`)."""
+    torch = ctx["torch"]
+    from repro_torch.compress import get_codec
+    from repro_torch.core import partition, sampling
+    from repro_torch.fl import simulator
+    from repro_torch.fl.simulator import SimConfig, run_experiment
+    from repro_torch.kernels import ops
+    from repro_torch.models import cnn
+    t_phase = time.perf_counter()
+    sim = SimConfig(rounds=3)
+    dfl = [a for a in BASELINES if a not in simulator.CFL and a != "local"]
+    total = dict.fromkeys(ops.KERNELS, 0)
+    runs = {}
+    for algo in BASELINES:
+        ops.reset_launch_counts()
+        h = run_experiment(algo, sim, device="cuda", eval_every=1)
+        counts = ops.launch_counts()
+        want = sim.rounds if algo in dfl else 0
+        check(counts["gossip_gather"] == want
+              and sum(counts.values()) == want,
+              f"{algo}: launches {counts} in {sim.rounds} rounds")
+        check(all(v == v and abs(v) < 1e3 for v in h["loss"])
+              and all(0.0 <= a <= 1.0 for a in h["acc"]),
+              f"{algo}: loss {h['loss']}, acc {h['acc']}")
+        check((h["wire_bytes"][-1] > 0) == (algo in dfl),
+              f"{algo}: wire_bytes {h['wire_bytes']}")
+        ms = [t * 1e3 for t in h["round_s"]]
+        runs[algo] = {"launches": counts, "loss": h["loss"],
+                      "acc": h["acc"], "round_ms": ms,
+                      "ms_per_round_after_first": statistics.median(ms[1:]),
+                      "wire_bytes": h["wire_bytes"][-1]}
+        for k, v in counts.items():
+            total[k] += v
+
+    # the flat-core codec runs
+    cfg = cnn.CNNConfig(image_size=sim.image_size, n_classes=sim.n_classes)
+    init = cnn.init_params(torch.Generator().manual_seed(8), cfg, (sim.m,))
+    flat_runs = {}
+    for name, algo, kw in (
+            ("osgp_topk", "osgp", {}),
+            ("dfedavgm_topk_sampled", "dfedavgm",
+             dict(participation="uniform", participation_frac=0.5))):
+        fsim = SimConfig(rounds=3, codec="topk", gossip="pallas", **kw)
+        sampled = fsim.participation != "full"
+        ops.reset_launch_counts()
+        h = run_experiment(algo, fsim, device="cuda", eval_every=1,
+                           return_state=True, init_params=init)
+        counts = ops.launch_counts()
+        r = fsim.rounds
+        check(counts["topk_gather"] == r and counts["gossip_gather"] == r
+              and counts["gossip_scatter"] == (r if sampled else 0)
+              and counts["pushsum_mix"] == 0,
+              f"{name}: launches {counts} in {r} rounds")
+        st = h["state"]
+        # the same run from the same init with every kernel swapped for
+        # its plain version: every state leaf bitwise (the kernels are
+        # bitwise their plain versions on distinct columns, and the rest of
+        # the round is the same code on the same card)
+        with _plain_kernels():
+            ops.reset_launch_counts()
+            hp = run_experiment(algo, fsim, device="cuda", eval_every=1,
+                                return_state=True, init_params=init)
+            plain_counts = ops.launch_counts()
+        check(sum(plain_counts.values()) == 0,
+              f"{name}: the plain run launched {plain_counts}")
+        plain_err = _hold(torch, name, "kernel vs plain f32",
+                          dict(_state_leaves(st)),
+                          dict(_state_leaves(hp["state"])), 0)
+        check(st.flat.shape == (sim.m, 13978)
+              and all(bool(torch.isfinite(t).all())
+                      for t in (st.flat, st.ef, st.ref))
+              and all(v == v and abs(v) < 1e3 for v in h["loss"]),
+              f"{name}: loss {h['loss']}")
+        entry = {"launches": counts, "loss": h["loss"], "acc": h["acc"],
+                 "round_ms": [t * 1e3 for t in h["round_s"]],
+                 "wire_bytes": h["wire_bytes"][-1],
+                 "kernel_vs_plain": {"check": "bitwise, every state leaf",
+                                     "max_abs_err": plain_err}}
+        if sampled:
+            sampler = sampling.get_sampler("uniform", fsim.m,
+                                           fsim.participation_frac,
+                                           fsim.seed)
+            ever = torch.zeros(fsim.m, dtype=torch.bool)
+            for t in range(r):
+                ever[torch.as_tensor(sampler.active_at(t)).long()] = True
+            dormant = (~ever).cuda()
+            check(bool(dormant.any()), f"{name}: no dormant client")
+            mask = partition.build_mask(init, partition.classifier_personal)
+            core = simulator.build_flat_core(
+                algo, None, mask, fsim,
+                get_codec("topk", ratio=fsim.codec_ratio, seed=fsim.seed))
+            st0, _ = core.init_flat(init, device="cuda")
+            for field in ("flat", "mu", "ef", "ref"):
+                a, b = getattr(st, field), getattr(st0, field)
+                check(torch.equal(a[dormant], b[dormant]),
+                      f"{name}: dormant rows of {field} moved")
+            check(torch.equal(st.opt_u.momentum[dormant],
+                              st0.opt_u.momentum[dormant])
+                  and not torch.equal(st.flat[~dormant], st0.flat[~dormant]),
+                  f"{name}: momentum rows moved or active rows froze")
+            entry.update(n_active=sampler.n_active,
+                         dormant_clients=int(dormant.sum()),
+                         dormant_rows_frozen=["flat", "mu", "opt_u", "ef",
+                                              "ref"])
+        flat_runs[name] = entry
+        for k, v in counts.items():
+            total[k] += v
+
+    # card vs CPU, 2 rounds of each algorithm from one set of CPU draws
+    # (data, init, tables, batches, CFL samples; Dis-PFL's masks from its
+    # default CPU generator).  In f32 the devices round convolutions and
+    # norms differently; where a max-pool window's two largest inputs lie
+    # a few ulps apart, or a ReLU input near 0, the devices send that
+    # step's gradient different ways, the client's trajectory parts by
+    # O(lr * grad) and gossip spreads it (`_pool_witness` shows it on
+    # `local`, which has no gossip, for two draw sets).  So the gate runs
+    # in f64, where ties that close are ~5e8 times rarer (the ratio of the
+    # machine epsilons), at rtol = atol = 1e-9 (f64 readings up to 2.4e-13
+    # on the H100); and the f32 card run is held bitwise against itself
+    # with every kernel swapped for its plain version
+    psim = SimConfig(rounds=2)
+    draws = _parity_draws(torch, psim, cfg)
+    parity = {}
+    for algo in BASELINES:
+        # gate 1: the code on the card = on the CPU, in f64
+        a = _baseline_rounds(ctx, algo, "cuda", torch.float64, draws)
+        b = _baseline_rounds(ctx, algo, "cpu", torch.float64, draws)
+        f64_err = _hold(torch, algo, "card vs CPU f64", a, b, 1e-9)
+        # gate 2: the f32 kernel path = the plain path, on the card
+        k32 = _baseline_rounds(ctx, algo, "cuda", torch.float32, draws)
+        with _plain_kernels():
+            p32 = _baseline_rounds(ctx, algo, "cuda", torch.float32, draws)
+        _hold(torch, algo, "kernel vs plain f32", k32, p32, 0)
+        parity[algo] = {"leaves": len(a), "f64_card_vs_cpu": f64_err,
+                        "f32_kernel_vs_plain": "bitwise"}
+        runs[algo]["card_vs_cpu_max_abs_err"] = f64_err
+    # reported: the f32 card against the f32 CPU on `local`, step by step,
+    # with the max-pool and ReLU flips behind its parting clients, on the
+    # gate's draws and on a second set
+    witness = [_pool_witness(ctx, draws),
+               _pool_witness(ctx, _parity_draws(torch, psim, cfg, seed=12))]
+    ctx["baseline_launches"] = total
+    emit("baselines", m=sim.m, n_neighbors=sim.n_neighbors, batch=sim.batch,
+         k_local=sim.k_local, k_personal=sim.k_personal,
+         sample_ratio=sim.sample_ratio, rounds=sim.rounds, runs=runs,
+         flat_core=flat_runs,
+         card_vs_cpu={"rounds": psim.rounds, "m": psim.m,
+                      "f64_rtol_atol": 1e-9, "by_algo": parity,
+                      "f32_local_witness": witness},
+         launches_total=total,
+         seconds=round(time.perf_counter() - t_phase, 3))
+
+
 def phase_serve(ctx):
     torch = ctx["torch"]
     from repro_torch import tree
@@ -1809,13 +2262,22 @@ def phase_timings(ctx):
 
     # gossip_gather at the main path's shape (the random topology's table,
     # m 100, k 11) and at the bench grid's m 1024, k 16, both at d_flat
-    # 13,328 f32: U read once, the output written once, idx + w; 2*m*k*d
-    # operations.  The library yardstick is torch.sparse.mm with the table
-    # in CSR.  cold_ms: the same call with L2 flushed before each
+    # 13,328 f32, then at the baselines' full-model widths (their
+    # mix_tree's one buffer): d 13,978 on OSGP's random table (k 11) and
+    # DFedAvgM's undirected one (k 31), d_flat 13,328 at k 31
+    # (DFedAvgM-P), d 27,956 at k 31 (Dis-PFL's num + den).  U read once,
+    # the output written once, idx + w; 2*m*k*d operations.  The library
+    # yardstick is torch.sparse.mm with the table in CSR.  cold_ms: the
+    # same call with L2 flushed before each
     gather_shapes = {}
-    for m, n in ((100, 10), (1024, 15)):
-        d = 13328
-        P = topology.get_schedule("random", m, n, 0).at(0).to("cuda")
+    for kind, m, n, d, key in (
+            ("random", 100, 10, 13328, "100x11"),
+            ("random", 1024, 15, 13328, "1024x16"),
+            ("random", 100, 10, 13978, "100x11x13978"),
+            ("undirected", 100, 10, 13978, "100x31x13978"),
+            ("undirected", 100, 10, 13328, "100x31x13328"),
+            ("undirected", 100, 10, 27956, "100x31x27956")):
+        P = topology.get_schedule(kind, m, n, 0).at(0).to("cuda")
         k = P.idx.shape[1]
         U = torch.randn((m, d), device="cuda")
         rows = torch.arange(m, device="cuda")[:, None].expand(m, k)
@@ -1831,7 +2293,7 @@ def phase_timings(ctx):
                     lambda: torch.sparse.mm(csr, U))
         b_ms, b_by = bound(2 * m * d * 4 + m * k * 8, 2 * m * k * d)
         pl = _gather_plan(m, k, d, U)
-        gather_shapes[f"{m}x{k}"] = dict(
+        gather_shapes[key] = dict(
             t, **_cold_and_share(torch, t, b_ms,
                                  lambda: ops.gossip_gather(
                                      P.idx, P.w, U, force="cuda"),
@@ -1853,7 +2315,8 @@ def phase_timings(ctx):
         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
         "call_ms": main["call_ms"], "cold_ms": main["cold_ms"],
         "bound_share": main["bound_share"],
-        "shape": [100, 11, 13328], "dtype": "float32"})
+        "shape": [100, 11, 13328], "dtype": "float32",
+        "baseline_launches": ctx["baseline_launches"]["gossip_gather"]})
 
     # head_gather_matmul at the serve path's shapes (m=100, d=64, n=10):
     # H read once, each distinct user's slab and bias read once, uid read
@@ -1989,7 +2452,8 @@ def phase_timings(ctx):
         "writeback_bound_ms": wb["bound_ms"],
         "writeback_library_ms": wb["library_ms"],
         "writeback_library": "index_copy_ per buffer (2 calls)",
-        "shape": [100, 25, 13328], "dtype": "float32"})
+        "shape": [100, 25, 13328], "dtype": "float32",
+        "baseline_launches": ctx["baseline_launches"]["gossip_scatter"]})
 
     # pushsum_mix at the kernel-mix path's shape (m=100, d=13,328, f32)
     # and at m = 1024: P and U read once, the output written once;
@@ -2091,7 +2555,8 @@ def phase_timings(ctx):
         "kernel_route": main["plan"]["route"],
         "call_ms": main["call_ms"], "cold_ms": main["cold_ms"],
         "bound_share": main["bound_share"], "shape": [100, 11, 13328, 833],
-        "dtype": "float32/uint16"})
+        "dtype": "float32/uint16",
+        "baseline_launches": ctx["baseline_launches"]["topk_gather"]})
     # flash_attention at the hybrid model's prefill shape (B 2, S 4096, H
     # 16, Hkv 1, hd 256, window 2048, bf16): q, k, v read once and the
     # output written once (142.6 MB); 4 * hd flops per (query, key) pair
@@ -2320,7 +2785,7 @@ def main(argv=None) -> int:
     wanted = set(only) | {"device"}
     needs = {"serve": {"train"}, "compress": {"train"},
              "timings": {"kernels", "train", "sampled", "kernel_mix",
-                         "compress", "serve", "lm"}}
+                         "compress", "baselines", "serve", "lm"}}
     for phase in only:
         missing = needs.get(phase, set()) - wanted
         if missing:
@@ -2329,7 +2794,7 @@ def main(argv=None) -> int:
            "kernels": phase_kernels, "train": phase_train,
            "parity": phase_parity, "sampled": phase_sampled,
            "kernel_mix": phase_kernel_mix, "compress": phase_compress,
-           "serve": phase_serve, "lm": phase_lm,
+           "baselines": phase_baselines, "serve": phase_serve, "lm": phase_lm,
            "timings": phase_timings}
     t0 = time.perf_counter()
     for phase in PHASES:

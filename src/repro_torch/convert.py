@@ -5,13 +5,15 @@ layouts (HWIO conv kernels, (in, out) dense weights), so conversion is a
 copy of each array.  Where the reference keeps None placeholders at the
 other partition side's leaves, the port's pruned trees drop them.  Inputs
 are numpy arrays (or anything `numpy.asarray` accepts): the reference's
-tree-form and resident DFedPGP states and its hetero `ClientProfile`.
+tree-form and resident DFedPGP states, its baselines' states and its hetero
+`ClientProfile`.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .core import baselines
 from .core.dfedpgp import DFedPGPState, FlatDFedPGPState
 from .hetero.profiles import ClientProfile
 from .optim import SGDState
@@ -68,6 +70,47 @@ def tree_state_from_reference(*, params, mu, mom_u, mom_v, round,
         opt_v=SGDState(params_from_reference(mom_v, device)),
         round=torch.tensor(int(np.asarray(round)), dtype=torch.int32,
                            device=device))
+
+
+def _round(r, device) -> torch.Tensor:
+    return torch.tensor(int(np.asarray(r)), dtype=torch.int32,
+                        device=device)
+
+
+def baseline_state_from_reference(state, device="cpu"):
+    """A reference baseline state (`repro.core.baselines`: SimpleState,
+    DittoState, OSGPState or DisPFLState, a NamedTuple whose leaves are
+    numpy arrays, e.g. after `jax.tree.map(np.asarray, state)`) -> the
+    port's state of the same name.  Told apart by their fields; a
+    SimpleState's `extra` is None, the FedAvg global model or the FedPartial
+    global shared part (None placeholders dropped)."""
+    f = state._asdict()
+
+    def tree_(t):
+        return params_from_reference(t, device)
+
+    def mom(opt):
+        return SGDState(tree_(opt.momentum))
+
+    fields = set(f)
+    if fields == set(baselines.SimpleState._fields):
+        extra = None if f["extra"] is None else tree_(f["extra"])
+        return baselines.SimpleState(tree_(f["params"]), mom(f["opt"]),
+                                     _round(f["round"], device), extra)
+    if fields == set(baselines.DittoState._fields):
+        return baselines.DittoState(
+            tree_(f["personal"]), tree_(f["glob_stacked"]), mom(f["opt_p"]),
+            mom(f["opt_g"]), tree_(f["glob"]), _round(f["round"], device))
+    if fields == set(baselines.OSGPState._fields):
+        return baselines.OSGPState(
+            tree_(f["params"]), _tensor(f["mu"], device).to(torch.float32),
+            mom(f["opt"]), _round(f["round"], device))
+    if fields == set(baselines.DisPFLState._fields):
+        return baselines.DisPFLState(
+            tree_(f["params"]), tree_(f["masks"]), mom(f["opt"]),
+            _round(f["round"], device))
+    raise TypeError(f"{type(state).__name__} with fields {sorted(fields)} "
+                    f"is not a baseline state of the reference")
 
 
 def profile_from_reference(*, step_cost, push_delay, avail_period,

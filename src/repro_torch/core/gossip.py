@@ -10,7 +10,8 @@ Port of `repro/core/gossip.py`:
    gn1, gn2 for the CNN); the tree form is rebuilt only at the loss / eval
    boundary.
 3. `mix_flat` — one push-pull transmission on the resident buffer, and
-   `gossip_mix` / `mix_tree`, its tree-form counterparts.  The modes keep
+   `gossip_mix` / `mix_tree`, its tree-form counterparts (`mix_tree`, the
+   baselines' gossip, mixes all its f32 leaves in one flat buffer).  The modes keep
    the reference's meanings:
      "dense"  — the (m, m) contraction in the payload dtype;
      "sparse" — `mix_rows` in the payload dtype.  An f32 payload goes
@@ -73,9 +74,26 @@ def mix_any(P, x: torch.Tensor) -> torch.Tensor:
 
 
 def mix_tree(P, params: dict) -> dict:
-    """mix_any over every leaf of a stacked params tree (the per-leaf
-    gossip of the tree-form engines)."""
-    return tree.tree_map(lambda a: mix_any(P, a), params)
+    """mix_any over every leaf of a stacked params tree (the gossip of the
+    tree-form baselines).  For a sparse P with all-f32 leaves the leaves are
+    flattened into one (m, sum numel) buffer and mixed by ONE
+    `ops.gossip_gather` call (the CUDA kernel on a GPU buffer), then sliced
+    back: each output element is the same j-ordered sum of rounded
+    products, so the result equals per-leaf `mix_rows` bit for bit.  Any
+    other P or dtype mixes leaf by leaf."""
+    items = list(tree.paths(params))
+    if not isinstance(P, SparseTopology) or no_sparsity(P) or not items \
+            or any(a.dtype != torch.float32 for _, a in items):
+        return tree.tree_map(lambda a: mix_any(P, a), params)
+    m = items[0][1].shape[0]
+    flat = torch.cat([a.reshape(m, -1) for _, a in items], dim=1)
+    mixed = ops.gossip_gather(P.idx, P.w, flat)
+    out, off = [], 0
+    for path, a in items:
+        n = a[0].numel()
+        out.append((path, mixed[:, off:off + n].reshape(a.shape)))
+        off += n
+    return tree.from_paths(out)
 
 
 # ---------------------------------------------------------------------------

@@ -1,16 +1,21 @@
 """Communication topologies: time-varying directed graphs.
 
-Port of the parts of `repro/core/topology.py` the resident DFedPGP round
-needs: the neighbor-indexed `SparseTopology`, the directed kinds (random,
-exponential, ring, full), the dense-degree ceiling, the
-`TopologySchedule` registry and, for partial participation, the
-`induced_subgraph` of the round's active clients.  Pull form: every row
-is row-stochastic.
+Port of the parts of `repro/core/topology.py` the synchronous rounds
+need: the neighbor-indexed `SparseTopology`, the directed kinds (random,
+exponential, ring, full), the undirected kind of the DFedAvgM / Dis-PFL
+baselines, the dense-degree ceiling, the `TopologySchedule` registry and,
+for partial participation, the `induced_subgraph` of the round's active
+clients.  Pull form: every row is row-stochastic (the undirected tables
+are doubly stochastic).
 
 The exponential, ring and full tables are deterministic and equal the
-reference's table for table.  `random` draws from a `torch.Generator`
-seeded from (seed, t): it cannot replay `jax.random`, so parity runs hand
-the reference's tables in (`fl.simulator.run_experiment(topology_at=)`).
+reference's table for table.  `random` and `undirected` draw from a
+`torch.Generator` seeded from (seed, t): it cannot replay `jax.random`, so
+parity runs hand the reference's tables in
+(`fl.simulator.run_experiment(topology_at=)`).  The undirected
+construction after the draw is the reference's numpy code
+(`undirected_from_picks`): from the reference's picks it gives the
+reference's tables bit for bit.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ import dataclasses
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 # Constructors whose neighbor table is O(m^2)-shaped refuse above this m.
@@ -117,6 +123,51 @@ def fully_connected(m: int) -> SparseTopology:
 
 
 # ---------------------------------------------------------------------------
+# undirected graphs (the DFedAvgM / Dis-PFL baselines)
+# ---------------------------------------------------------------------------
+def undirected_from_picks(picks, m: int, n: int) -> SparseTopology:
+    """Symmetric doubly-stochastic table from a directed draw: the (m, n+1)
+    neighbor ids `picks` (col 0 = self) are symmetrized, each row's degree
+    capped at dmax = min(3n, m-1) symmetrically, weighted by
+    Metropolis-Hastings and cut to width k = min(dmax+1, m) by
+    `np.argpartition`.  The reference's numpy calls in its order: the j
+    order of the table is the sum order of the mix.  n is the effective
+    degree min(n_neighbors, m-1)."""
+    picks = np.asarray(picks)
+    A = np.zeros((m, m), bool)
+    np.put_along_axis(A, picks, True, axis=1)
+    A |= A.T
+    np.fill_diagonal(A, False)
+
+    dmax = max(min(3 * n, m - 1), 1)
+    pos = A.cumsum(1) - 1                 # rank of each edge within its row
+    keep = A & (pos < dmax) & (pos.T < dmax)   # symmetric cap
+    deg = keep.sum(1)
+    W = np.where(keep,
+                 1.0 / (np.maximum(deg[:, None], deg[None, :]) + 1.0), 0.0)
+    np.fill_diagonal(W, 1.0 - W.sum(1))
+
+    k = min(dmax + 1, m)
+    order = np.argpartition(-W, kth=k - 1, axis=1)[:, :k]
+    w = np.take_along_axis(W, order, axis=1)
+    idx = np.where(w > 0, order, np.arange(m)[:, None])
+    return SparseTopology(torch.from_numpy(idx.astype(np.int32)),
+                          torch.from_numpy(w.astype(np.float32)))
+
+
+def undirected_random(generator: torch.Generator, m: int,
+                      n_neighbors: int) -> SparseTopology:
+    """The paper's undirected baseline graph: `directed_random`'s picks made
+    symmetric with Metropolis-Hastings weights (`undirected_from_picks`);
+    k = min(min(3n, m-1) + 1, m), a function of (m, n) alone.  Builds an
+    (m, m) host table: refuses above MAX_DENSE_M."""
+    _check_dense_degree(m, "undirected_random (dense host-side table)")
+    n = min(n_neighbors, m - 1)
+    return undirected_from_picks(directed_random(generator, m, n).idx.numpy(),
+                                 m, n)
+
+
+# ---------------------------------------------------------------------------
 # partial participation: induced subgraphs
 # ---------------------------------------------------------------------------
 def _sum_in_order(x: torch.Tensor) -> torch.Tensor:
@@ -190,31 +241,29 @@ def _round_seed(seed: int, t: int) -> int:
 class TopologySchedule:
     """The time-varying mixing schedule t -> SparseTopology.  `at(t)` is a
     pure function of (kind, m, n, seed, t) and returns CPU tables."""
-    kind: str                      # random | exponential | ring | full
+    kind: str      # random | exponential | ring | full | undirected
     m: int
-    n: int = 0                     # in-degree for the random kind
+    n: int = 0                     # in-degree for the random kinds
     seed: int = 0
 
-    KINDS = ("random", "exponential", "ring", "full")
+    KINDS = ("random", "exponential", "ring", "full", "undirected")
 
     def __post_init__(self):
-        if self.kind == "undirected":
-            raise NotImplementedError(
-                "topology='undirected' is ported with the baselines "
-                "(ROADMAP queue 1 item 9)")
         if self.kind not in self.KINDS:
             raise ValueError(
                 f"schedule kind {self.kind!r}; known: {self.KINDS}")
-        if self.kind == "full":
+        if self.kind in ("full", "undirected"):
             _check_dense_degree(self.m, f"topology={self.kind!r}")
         if self.kind == "exponential" and self.m & (self.m - 1):
             raise ValueError("exponential graph wants power-of-two m")
 
     def at(self, t) -> SparseTopology:
         """The round-t mixing pattern (CPU tensors)."""
-        if self.kind == "random":
+        if self.kind in ("random", "undirected"):
             gen = torch.Generator().manual_seed(_round_seed(self.seed, t))
-            return directed_random(gen, self.m, self.n)
+            build = directed_random if self.kind == "random" \
+                else undirected_random
+            return build(gen, self.m, self.n)
         if self.kind == "exponential":
             return directed_exponential(self.m, t)
         if self.kind == "ring":
@@ -230,8 +279,8 @@ class TopologySchedule:
 def get_schedule(kind: str, m: int, n: int = 0,
                  seed: int = 0) -> TopologySchedule:
     """kind string -> the run's one TopologySchedule.  The degree/seed
-    knobs parameterize only the random kind; static kinds zero them so two
+    knobs parameterize only the random kinds; static kinds zero them so two
     resolvers handed the same (kind, m) produce equal schedules."""
-    if kind == "random":
+    if kind in ("random", "undirected"):
         return TopologySchedule(kind, m, n, seed)
     return TopologySchedule(kind, m, 0, 0)

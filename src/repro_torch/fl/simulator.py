@@ -1,27 +1,36 @@
-"""FL simulation engine (Regime A) — the synchronous DFedPGP branch of
+"""FL simulation engine (Regime A) — the synchronous branch of
 `repro/fl/simulator.py`, on one device.
 
-`run_experiment("dfedpgp", SimConfig())` builds the synthetic non-IID
-data, m stacked CNN clients and the classifier-personal mask, packs the
-shared part once (`DFedPGP.init_flat`) and runs the rounds: all clients'
-local steps, then the push-pull mix of the buffer through the CUDA
-gossip_gather kernel.  Personalized test accuracy is evaluated on each
-client's own test split.  Variants of the round:
-- `participation="uniform"|"trace"` — each round only the sampler's active
-  clients act (`DFedPGP.round_fn_sampled` over the induced subgraph; the
-  CUDA gossip_scatter kernel writes them back into the resident buffer);
-- `resident=False` — the tree-form round (`DFedPGP.round_fn`);
-- `codec="identity"|"topk"|"randk"|"qsgd"` — the compressed crossing with
-  error feedback and reference tracking (`repro_torch.compress`); under
-  `gossip="pallas"` sparse payloads mix through the CUDA topk_gather
-  kernel.
+`run_experiment(algo, SimConfig())` builds the synthetic non-IID data, m
+stacked CNN clients and the classifier-personal mask, then runs the rounds
+of one of `ALGOS`: DFedPGP or one of the paper's baselines
+(`core.baselines`).  Personalized test accuracy is evaluated on each
+client's own test split.
+
+- "dfedpgp" packs the shared part once (`DFedPGP.init_flat`) and each round
+  runs all clients' local steps, then the push-pull mix of the buffer
+  through the CUDA gossip_gather kernel.  Variants: `participation=
+  "uniform"|"trace"` (`DFedPGP.round_fn_sampled` over the induced subgraph;
+  the CUDA gossip_scatter kernel writes the active rows back),
+  `resident=False` (the tree-form `DFedPGP.round_fn`), and a wire `codec`
+  (`repro_torch.compress`; under `gossip="pallas"` sparse payloads mix
+  through the CUDA topk_gather kernel).
+- The DFL baselines gossip their stacked trees through `gossip.mix_tree`
+  (one gossip_gather launch a round); "dfedavgm", "dfedavgm-p" and
+  "dispfl" always take the undirected schedule.  With a codec, "osgp" and
+  "dfedavgm" run on their flat-core (`build_flat_core`: DFedPGP with an
+  all-shared mask and no personal phase), with or without participation.
+- The CFL baselines and "local" draw no topology: each round a CFL run
+  samples `sample_ratio * m` clients (`baselines.sample`, a CPU generator
+  per round, so every device draws the same sample).
 `step_gates` (m, K) gate local steps per client (the sync computation
 heterogeneity of the paper's Table 3, `hetero.profiles.tier_gates`).
 
-The injection arguments (`data=`, `init_params=`, `topology_at=`,
-`batches_at=`) replay another run's draws — the reference's data, initial
-parameters, neighbor tables and minibatches — so a test can compare the
-two engines step for step.
+The injection arguments (`data=`, `init_params=`, `init_state=`,
+`topology_at=`, `batches_at=`, `sampled_at=`) replay another run's draws —
+the reference's data, initial parameters or state, neighbor tables,
+minibatches and CFL samples — so a test can compare the two engines step
+for step.
 """
 from __future__ import annotations
 
@@ -34,7 +43,7 @@ import torch
 from torch.func import vmap
 
 from .. import compress, tree
-from ..core import dfedpgp, gossip, partition, sampling, topology
+from ..core import baselines, dfedpgp, gossip, partition, sampling, topology
 from ..core.topology import SparseTopology
 from ..data import ClientData, from_arrays, make_dataset, sample_batches
 from ..device import resolve_device, seeded_generator
@@ -48,7 +57,7 @@ from ..optim import SGD
 class SimConfig:
     m: int = 100                    # clients
     n_neighbors: int = 10           # DFL gossip degree
-    sample_ratio: float = 0.1       # CFL baselines only
+    sample_ratio: float = 0.1       # CFL client sampling ratio
     rounds: int = 100
     batch: int = 32
     k_local: int = 5                # shared-part local steps
@@ -66,7 +75,8 @@ class SimConfig:
     image_size: int = 8
     noise: float = 0.7
     seed: int = 0
-    topology: str = "random"        # random | exponential | ring | full
+    topology: str = "random"        # a TopologySchedule kind
+
     gossip: str = "sparse"          # sparse | dense | pallas
     resident: bool = True           # False: the tree-form round
     runtime: str = "sync"           # "async": ROADMAP queue 1 item 11
@@ -88,23 +98,96 @@ class SimConfig:
     spec: Optional[object] = None
 
 
+# algo names, as the reference's `simulator.ALGOS`
+ALGOS = ("local", "fedavg", "fedper", "fedrep", "fedbabu", "ditto",
+         "dfedavgm", "dfedavgm-p", "osgp", "dispfl", "dfedpgp")
+CFL = ("fedavg", "fedper", "fedrep", "fedbabu", "ditto")
+# algorithms whose mixing must be symmetric (no push-sum de-bias): their
+# schedule is the undirected kind whatever SimConfig.topology says
+UNDIRECTED_ALGOS = ("dfedavgm", "dfedavgm-p", "dispfl")
+# the push-sum methods of the async runtime (ROADMAP queue 1 item 11)
+ASYNC_ALGOS = ("dfedpgp", "osgp", "dfedavgm")
+# the baselines with a flat-buffer core (build_flat_core)
+FLAT_CORE_ALGOS = ("osgp", "dfedavgm")
+# stream of `device.seeded_generator` the CFL client sample draws from
+CFL_STREAM = 4
+
 # SimConfig field -> ROADMAP queue 1 item that ports it
-_UNPORTED = {"sample_ratio": 9, "runtime": 11, "mailbox_depth": 11,
-             "stale_discount": 11, "spec": 13}
+_UNPORTED = {"runtime": 11, "mailbox_depth": 11, "stale_discount": 11,
+             "spec": 13}
 
 
 def _check_ported(algo_name: str, sim: SimConfig) -> None:
-    if algo_name != "dfedpgp":
-        raise NotImplementedError(
-            f"algorithm {algo_name!r} is not ported yet: this slice runs "
-            f"'dfedpgp'; the baselines (and their flat-core codec runs) "
-            f"are ROADMAP queue 1 item 9")
+    if algo_name not in ALGOS:
+        raise ValueError(f"unknown algorithm {algo_name!r}; known: {ALGOS}")
     defaults = {f.name: f.default for f in dataclasses.fields(SimConfig)}
     for name, item in _UNPORTED.items():
         if getattr(sim, name) != defaults[name]:
             raise NotImplementedError(
                 f"SimConfig({name}={getattr(sim, name)!r}) is not ported "
                 f"yet (ROADMAP queue 1 item {item})")
+
+
+def _sgd(sim: SimConfig) -> SGD:
+    return SGD(lr=sim.lr, momentum=sim.momentum,
+               weight_decay=sim.weight_decay)
+
+
+_PARTIAL_MODES = {"fedper": "per", "fedrep": "rep", "fedbabu": "babu"}
+
+
+def build_algorithm(name: str, loss_fn, mask: dict, sim: SimConfig,
+                    codec=None):
+    """algo name -> its round engine (`core.baselines` or DFedPGP); codec
+    is DFedPGP's wire codec."""
+    kw = dict(loss_fn=loss_fn, opt=_sgd(sim), lr_decay=sim.lr_decay)
+    if name == "local":
+        return baselines.LocalOnly(**kw)
+    if name == "fedavg":
+        return baselines.FedAvg(sample_ratio=sim.sample_ratio, **kw)
+    if name in ("fedper", "fedrep", "fedbabu"):
+        extra = dict(k_head=sim.k_personal) if name == "fedrep" else {}
+        return baselines.FedPartial(mask=mask, mode=_PARTIAL_MODES[name],
+                                    sample_ratio=sim.sample_ratio, **extra,
+                                    **kw)
+    if name == "ditto":
+        return baselines.Ditto(sample_ratio=sim.sample_ratio, **kw)
+    if name == "dfedavgm":
+        return baselines.DFedAvgM(**kw)
+    if name == "dfedavgm-p":
+        return baselines.DFedAvgM(partial_mask=mask, **kw)
+    if name == "osgp":
+        return baselines.OSGP(**kw)
+    if name == "dispfl":
+        return baselines.DisPFL(**kw)
+    if name == "dfedpgp":
+        return dfedpgp.DFedPGP(
+            loss_fn=loss_fn, mask=mask, opt_u=kw["opt"], opt_v=kw["opt"],
+            k_v=sim.k_personal, k_u=sim.k_local, lr_decay=sim.lr_decay,
+            gossip=sim.gossip, codec=codec, codec_gamma=sim.codec_gamma)
+    raise ValueError(f"unknown algorithm {name!r}; known: {ALGOS}")
+
+
+def build_flat_core(name: str, loss_fn, mask: dict, sim: SimConfig,
+                    codec=None) -> dfedpgp.DFedPGP:
+    """The flat-engine push-sum core behind osgp / dfedavgm: DFedPGP that
+    gossips the FULL model (all-shared mask, k_v = 0, k_u = k_local +
+    k_personal), so their rounds are the k_v = 0 specialization of
+    Algorithm 1.  The sync regime runs them when a wire codec is requested
+    (codecs live on the resident flat buffer).  dfedpgp itself is built by
+    `build_algorithm`."""
+    if name not in FLAT_CORE_ALGOS:
+        raise ValueError(
+            f"the flat push-sum core drives {FLAT_CORE_ALGOS}; {name!r} "
+            f"has no flat-buffer core (dfedpgp is built by "
+            f"build_algorithm)")
+    opt = _sgd(sim)
+    return dfedpgp.DFedPGP(
+        loss_fn=loss_fn, mask=tree.tree_map(lambda _: True, mask),
+        opt_u=opt, opt_v=opt, k_v=0, k_u=sim.k_local + sim.k_personal,
+        lr_decay=sim.lr_decay,
+        gossip="pallas" if sim.gossip == "pallas" else "sparse",
+        codec=codec, codec_gamma=sim.codec_gamma)
 
 
 def evaluate(eval_params: dict, data: ClientData, model_cfg: cnn.CNNConfig):
@@ -131,6 +214,13 @@ def _as_batches(b: dict, device) -> dict:
                                  device=device)}
 
 
+def _split_vu(b: dict, kv: int) -> dict:
+    """A round's (m, K, ...) batches -> DFedPGP's v steps (the first kv)
+    and u steps."""
+    return {"v": {k: a[:, :kv] for k, a in b.items()},
+            "u": {k: a[:, kv:] for k, a in b.items()}}
+
+
 def _trace_profile(sim: SimConfig):
     """The availability profile a trace-driven sampler ranks by, built
     from the fleet knobs; None for the other participation kinds."""
@@ -149,39 +239,72 @@ def run_experiment(algo_name: str, sim: SimConfig,
                    step_gates=None, sink=None,
                    data: Optional[ClientData] = None,
                    init_params: Optional[dict] = None,
+                   init_state=None,
                    topology_at: Optional[Callable] = None,
-                   batches_at: Optional[Callable] = None) -> dict:
-    """Returns the history dict: per-eval `round`, `acc`, `loss`, `vtime`
-    (lockstep ticks, (r + 1) * (k_local + k_personal)) and `wire_bytes`
-    (cumulative bytes on the wire: a lossy codec's reference bootstrap, then
-    per round every payload-carrying non-self edge times the payload's
-    bytes, `obs.gauges`; codec=None meters the uncompressed f32 rows), plus
-    `final_acc` and per-round wall seconds `round_s` (each round ends in
-    a device sync on CUDA).  return_state adds the final state and its
-    FlatLayout (`state`, `layout`; the layout is None for resident=False)
-    — the resident state is what the serve path takes.  step_gates: (m, K)
-    per-client step gates (K >= k_local), the first k_local columns gate
-    the shared-part steps.
+                   batches_at: Optional[Callable] = None,
+                   sampled_at: Optional[Callable] = None) -> dict:
+    """Returns the history dict: per-eval `round`, `acc`, `loss` (the round
+    metrics' "loss", DFedPGP's "loss_u"), `vtime` (lockstep ticks, (r + 1)
+    * (k_local + k_personal)) and `wire_bytes` (cumulative bytes on the
+    wire: a lossy codec's reference bootstrap, then per round every
+    payload-carrying non-self edge times the payload's bytes,
+    `obs.gauges`; codec=None meters the uncompressed f32 rows of the
+    gossiped part — the shared part for dfedpgp and dfedavgm-p, the whole
+    model otherwise; CFL and local runs meter 0), plus `final_acc` and
+    per-round wall seconds `round_s` (each round ends in a device sync on
+    CUDA).  return_state adds the final state and, for the resident runs,
+    its FlatLayout (`state`, `layout`; the layout is None otherwise) — the
+    resident DFedPGP state is what the serve path takes.  step_gates: (m,
+    K) per-client step gates; dfedpgp gates its k_local shared steps with
+    the first k_local columns, the other algorithms all k_local +
+    k_personal steps.
 
     Replay injection (test plumbing): `data` — a ClientData or a 5-tuple
-    of arrays; `init_params` — stacked (m, ...) params dict; `topology_at`
-    — t -> SparseTopology or (idx, w) arrays; `batches_at` — t -> {"x":
-    (m, K, B, H, W, C), "y": (m, K, B)} arrays."""
+    of arrays; `init_params` — stacked (m, ...) params dict; `init_state`
+    — a tree-form baseline's initial state (e.g.
+    `convert.baseline_state_from_reference`), in place of `algo.init`;
+    `topology_at` — t -> SparseTopology or (idx, w) arrays; `batches_at` —
+    t -> {"x": (m, K, B, H, W, C), "y": (m, K, B)} arrays; `sampled_at` —
+    t -> the CFL round's (m,) 0/1 sampled-client indicator."""
     _check_ported(algo_name, sim)
     if sink is not None:
         raise NotImplementedError("metric sinks are ported with "
                                   "observability (ROADMAP queue 1 item 13)")
+    if sim.gossip not in gossip.MODES:
+        raise ValueError(f"gossip mode {sim.gossip!r}: Regime A mixes "
+                         f"through the matrix engines {gossip.MODES}")
     dev = resolve_device(device)
+    codec = compress.get_codec(sim.codec, ratio=sim.codec_ratio,
+                               bits=sim.codec_bits, seed=sim.seed)
+    if codec is None and sim.codec_gamma != 1.0:
+        raise ValueError(
+            f"codec_gamma={sim.codec_gamma} only applies to lossy "
+            f"codecs; set the codec or drop the knob")
+    if codec is not None and algo_name not in ASYNC_ALGOS:
+        raise ValueError(
+            f"codec={sim.codec!r} rides the push-sum flat engines "
+            f"{ASYNC_ALGOS}; {algo_name!r} has no wire-payload boundary "
+            f"to compress")
+    if codec is not None and not sim.resident:
+        raise ValueError("wire codecs live on the resident flat buffer; "
+                         "resident=False has no payload boundary")
+    # the resident flat buffer: dfedpgp's, or a flat-core codec run's
+    use_flat = (algo_name == "dfedpgp" and sim.resident) or \
+        (codec is not None and algo_name in FLAT_CORE_ALGOS)
     sampler = sampling.get_sampler(sim.participation, sim.m,
                                    sim.participation_frac, sim.seed,
                                    _trace_profile(sim))
-    if sampler is not None and not sim.resident:
-        raise ValueError("partial participation gathers and scatters the "
-                         "resident flat buffer; resident=False has none")
-    gate_u = None
+    if sampler is not None and not use_flat:
+        raise ValueError(
+            f"partial participation gathers and scatters the resident flat "
+            f"buffer; {algo_name!r} with resident={sim.resident} has none "
+            f"— use dfedpgp with resident=True (or a flat-core codec run)")
+    k_total = sim.k_local + sim.k_personal
+    gate = None
     if step_gates is not None:
-        gate_u = torch.as_tensor(profiles.validate_step_gates(
-            step_gates, sim.m, sim.k_local)[:, :sim.k_local], device=dev)
+        need_k = sim.k_local if algo_name == "dfedpgp" else k_total
+        gate = torch.as_tensor(profiles.validate_step_gates(
+            step_gates, sim.m, need_k)[:, :need_k], device=dev)
     model_cfg = model_cfg or cnn.CNNConfig(image_size=sim.image_size,
                                            n_classes=sim.n_classes)
     if data is None:
@@ -206,39 +329,50 @@ def run_experiment(algo_name: str, sim: SimConfig,
             lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32),
             init_params)
     mask = partition.build_mask(stacked, partition.classifier_personal)
-    opt = SGD(lr=sim.lr, momentum=sim.momentum,
-              weight_decay=sim.weight_decay)
-    codec = compress.get_codec(sim.codec, ratio=sim.codec_ratio,
-                               bits=sim.codec_bits, seed=sim.seed)
-    if codec is None and sim.codec_gamma != 1.0:
-        raise ValueError(
-            f"codec_gamma={sim.codec_gamma} only applies to lossy "
-            f"codecs; set the codec or drop the knob")
-    algo = dfedpgp.DFedPGP(loss_fn=loss_fn, mask=mask, opt_u=opt, opt_v=opt,
-                           k_v=sim.k_personal, k_u=sim.k_local,
-                           lr_decay=sim.lr_decay, gossip=sim.gossip,
-                           codec=codec, codec_gamma=sim.codec_gamma)
-    schedule = topology.get_schedule(sim.topology, sim.m, sim.n_neighbors,
-                                     sim.seed)
-    if sim.resident:
+    if codec is not None and algo_name in FLAT_CORE_ALGOS:
+        algo = build_flat_core(algo_name, loss_fn, mask, sim, codec)
+    else:
+        algo = build_algorithm(algo_name, loss_fn, mask, sim, codec)
+    schedule = None
+    if algo_name not in CFL and algo_name != "local":
+        kind = "undirected" if algo_name in UNDIRECTED_ALGOS else sim.topology
+        schedule = topology.get_schedule(kind, sim.m, sim.n_neighbors,
+                                         sim.seed)
+    layout = None
+    if init_state is not None:
+        if use_flat or isinstance(algo, dfedpgp.DFedPGP):
+            raise ValueError("init_state replays a tree-form baseline's "
+                             "state; DFedPGP and the flat-core runs start "
+                             "from init_params")
+        state = init_state
+        eval_params = algo.eval_params
+    elif use_flat:
         state, layout = algo.init_flat(stacked, device=dev)
 
         def eval_params(s):
             return algo.eval_params_flat(s, layout)
     else:
-        state, layout = algo.init(stacked, device=dev), None
+        state = algo.init(stacked, device=dev)
         eval_params = algo.eval_params
-    k_total = sim.k_local + sim.k_personal
-    kv = algo.k_v
-
-    def split(b):
-        return {"v": {k: a[:, :kv] for k, a in b.items()},
-                "u": {k: a[:, kv:] for k, a in b.items()}}
+    if isinstance(algo, dfedpgp.DFedPGP):
+        def round_fn(state, P, b, g):
+            b = _split_vu(b, algo.k_v)
+            if use_flat:
+                return algo.round_fn_flat(state, P, b, layout,
+                                          step_gate_u=g)
+            return algo.round_fn(state, P, b, step_gate_u=g)
+    else:
+        def round_fn(state, ctx, b, g):
+            return algo.round_fn(state, ctx, b, step_gate=g)
 
     # the wire meter: host arithmetic on the round's CPU tables
-    d_wire = gossip.flat_width(stacked, mask)
-    wire_rb = gauges.payload_row_bytes(codec, d_wire)
-    wire_total = gauges.bootstrap_bytes(codec, sim.m, d_wire)
+    wire_rb = wire_total = 0
+    if schedule is not None:
+        wire_mask = mask if algo_name in ("dfedpgp", "dfedavgm-p") \
+            else tree.tree_map(lambda _: True, mask)
+        d_wire = gossip.flat_width(stacked, wire_mask)
+        wire_rb = gauges.payload_row_bytes(codec, d_wire)
+        wire_total = gauges.bootstrap_bytes(codec, sim.m, d_wire)
     history = {"round": [], "acc": [], "loss": [], "vtime": [],
                "wire_bytes": [], "round_s": [], "algo": algo_name,
                "runtime": "sync", "device": str(dev)}
@@ -248,31 +382,38 @@ def run_experiment(algo_name: str, sim: SimConfig,
         else:
             batches = sample_batches(seeded_generator(sim.seed, 2, r), data,
                                      k_total, sim.batch)
-        P = _as_topology(topology_at(r) if topology_at is not None
-                         else schedule.at(r))
-        if sampler is not None:
-            active = sampler.active_at(r)
-            P = topology.induced_subgraph(P, active, "row")
-            act = torch.as_tensor(active, device=dev)
-            idx = act.long()
-            batches = {k: a.index_select(0, idx) for k, a in batches.items()}
-            g = None if gate_u is None else gate_u.index_select(0, idx)
-        # only active <-> active edges carry bytes
-        wire_total += gauges.edge_count(P) * wire_rb
-        P = P.to(dev)
-        if sim.gossip == "dense" and sampler is None:
-            P = P.dense()
+        g = gate
+        if algo_name in CFL:
+            ctx = torch.as_tensor(
+                np.asarray(sampled_at(r)), dtype=torch.float32,
+                device=dev) if sampled_at is not None else \
+                baselines.sample(seeded_generator(sim.seed, CFL_STREAM, r),
+                                 sim.m, sim.sample_ratio, dev)
+        elif schedule is None:
+            ctx = None
+        else:
+            ctx = _as_topology(topology_at(r) if topology_at is not None
+                               else schedule.at(r))
+            if sampler is not None:
+                active = sampler.active_at(r)
+                ctx = topology.induced_subgraph(ctx, active, "row")
+                act = torch.as_tensor(active, device=dev)
+                idx = act.long()
+                batches = {k: a.index_select(0, idx)
+                           for k, a in batches.items()}
+                g = None if gate is None else gate.index_select(0, idx)
+            # only active <-> active edges carry bytes
+            wire_total += gauges.edge_count(ctx) * wire_rb
+            ctx = ctx.to(dev)
+            if sim.gossip == "dense" and sampler is None:
+                ctx = ctx.dense()
         t_round = time.perf_counter()
         if sampler is not None:
-            state, metrics = algo.round_fn_sampled(state, P, act,
-                                                   split(batches), layout,
-                                                   step_gate_u=g)
-        elif sim.resident:
-            state, metrics = algo.round_fn_flat(state, P, split(batches),
-                                                layout, step_gate_u=gate_u)
+            state, metrics = algo.round_fn_sampled(
+                state, ctx, act, _split_vu(batches, algo.k_v), layout,
+                step_gate_u=g)
         else:
-            state, metrics = algo.round_fn(state, P, split(batches),
-                                           step_gate_u=gate_u)
+            state, metrics = round_fn(state, ctx, batches, g)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         history["round_s"].append(time.perf_counter() - t_round)
@@ -283,7 +424,8 @@ def run_experiment(algo_name: str, sim: SimConfig,
             history["acc"].append(acc)
             history["vtime"].append(float((r + 1) * k_total))
             history["wire_bytes"].append(wire_total)
-            history["loss"].append(float(metrics["loss_u"]))
+            history["loss"].append(float(metrics["loss"] if "loss" in
+                                         metrics else metrics["loss_u"]))
     history["final_acc"] = history["acc"][-1] if history["acc"] \
         else float("nan")
     if return_state:

@@ -217,8 +217,9 @@ def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  ignore: int = -100) -> torch.Tensor:
-    """Mean token cross-entropy; labels == ignore are masked out."""
-    lf = logits.to(torch.float32)
+    """Mean token cross-entropy; labels == ignore are masked out.  Computed
+    in f32, or in the logits' dtype where that is wider (f64)."""
+    lf = logits.to(torch.promote_types(logits.dtype, torch.float32))
     lse = torch.logsumexp(lf, dim=-1)
     ll = torch.gather(lf, -1, labels.clamp(min=0).long()[..., None])[..., 0]
     nll = lse - ll

@@ -724,8 +724,9 @@ def test_codec_knobs_raise_the_reference_errors():
     with pytest.raises(ValueError, match="only applies to lossy"):
         tsim.run_experiment("dfedpgp", tsim.SimConfig(m=4, codec_gamma=0.5),
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tsim.run_experiment("osgp", tsim.SimConfig(m=4, codec="topk"),
+    # a codec on an algorithm without a flat engine (the reference's error)
+    with pytest.raises(ValueError, match="flat engines"):
+        tsim.run_experiment("dispfl", tsim.SimConfig(m=4, codec="topk"),
                             device="cpu")
 
 

@@ -193,7 +193,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(runtime="async"), "item 11"), (dict(sample_ratio=0.5), "item 9"),
+    (dict(runtime="async"), "item 11"),
+    (dict(runtime="async", mailbox_depth=8), "item 11"),
     (dict(stale_discount=True), "item 11"), (dict(mailbox_depth=8),
                                              "item 11"),
     (dict(spec=object()), "item 13")])
@@ -204,12 +205,14 @@ def test_unported_simconfig_knobs_raise(kw, item):
 
 
 def test_unported_algorithms_and_dfedpgp_knobs_raise():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tsim.run_experiment("osgp", tsim.SimConfig(m=4), device="cpu")
-    # the baselines' flat-core codec runs come with the baselines
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tsim.run_experiment("dfedavgm", tsim.SimConfig(m=4, codec="topk"),
+    # the baselines run in the sync regime; their async leg (and the flat
+    # cores' with a codec) comes with the async runtime
+    with pytest.raises(NotImplementedError, match="item 11"):
+        tsim.run_experiment("osgp", tsim.SimConfig(m=4, runtime="async"),
                             device="cpu")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        tsim.run_experiment("dfedavgm", tsim.SimConfig(
+            m=4, codec="topk", runtime="async"), device="cpu")
     mask = {"a": True}
     for kw, item in ((dict(grad_hook_flat=print), "item 14"),
                      (dict(grad_hook=print), "item 14"),

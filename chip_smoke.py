@@ -20,7 +20,9 @@ line is never printed):
 4. train      — run_experiment("dfedpgp", SimConfig(rounds=5)) at the paper
                 defaults on CUDA; gossip_gather must launch once per round;
 5. parity     — 2 rounds on CUDA and on the CPU from one init, tables and
-                batches: the kernel on the main path against the plain path;
+                batches (f32 at rtol 1e-4 / atol 5e-5, and f64 at rtol =
+                atol = 1e-9); the f32 kernel path bitwise the plain path
+                on the card;
 6. sampled    — run_experiment with participation="uniform", frac 0.25:
                 one gossip_scatter (the write-back of flat and momentum
                 in one launch) and one gossip_gather per round,
@@ -48,9 +50,19 @@ line is never printed):
                 plain path on the card (rtol 1e-4, atol 5e-5, every state
                 leaf); the f32 card-vs-CPU gap reported (max-pool
                 near-ties part f32 trajectories);
-10. serve     — mixed-user batches served from the trained state through
+10. async     — the async runtime (virtual clock, delayed push-sum
+                mailboxes) at the paper's defaults: the uniform zero-delay
+                ticks bitwise one round_fn_flat; 5 windows of tiered
+                speeds and push delays up to 2 through run_experiment:
+                mass conserved every tick, one gossip_gather per delay
+                group on each fire tick and none on the others, bitwise
+                against the plain kernels; 2 windows card vs CPU in f64;
+                topk codec fires (+ one topk_gather per group); the osgp
+                and dfedavgm legs; 25% participation; window and tick
+                times, busy share, the gated gather's device time;
+11. serve     — mixed-user batches served from the trained state through
                 head_gather_matmul, against force="ref" and serve_naive;
-11. lm        — recurrentgemma-9b at full width and depth (38 layers, f32
+12. lm        — recurrentgemma-9b at full width and depth (38 layers, f32
                 params drawn on the card, bf16 compute): prefill_logits
                 at B 2, S 4096 (12 flash_attention and 26 rglru launches
                 per prefill, finite logits, median ms, each kernel's
@@ -58,7 +70,7 @@ line is never printed):
                 memory; then reduced() in f32 and in bf16 (the wgmma flash
                 route) on the card against the CPU (prefill, 24 decode
                 steps across the ring wrap, caches);
-12. timings   — each kernel at its path's shape: kernel, plain and
+13. timings   — each kernel at its path's shape: kernel, plain and
                 library-call ms (CUDA events), the card's bound, launches;
                 gossip_gather, pushsum_mix and topk_gather also at m = 1024,
                 gossip_gather also at the baselines' full-model widths,
@@ -85,7 +97,8 @@ import time
 from pathlib import Path
 
 PHASES = ("device", "build", "kernels", "train", "parity", "sampled",
-          "kernel_mix", "compress", "baselines", "serve", "lm", "timings")
+          "kernel_mix", "compress", "baselines", "async", "serve", "lm",
+          "timings")
 # the paper's comparison rows (the port's simulator.ALGOS but dfedpgp)
 BASELINES = ("local", "fedavg", "fedper", "fedrep", "fedbabu", "ditto",
              "dfedavgm", "dfedavgm-p", "osgp", "dispfl")
@@ -1181,8 +1194,52 @@ def phase_parity(ctx):
     for path, leaf in tree.paths(a.opt_v.momentum):
         cmp("opt_v/" + "/".join(path), leaf,
             tree.get(b.opt_v.momentum, path))
+    # the f32 kernel path against the plain path on the card, every leaf
+    # bitwise: the same run with every kernel swapped for its plain version
+    with _plain_kernels():
+        hp = run_experiment("dfedpgp", sim, device="cuda", eval_every=1,
+                            return_state=True, data=data, init_params=init,
+                            topology_at=lambda r: tables[r],
+                            batches_at=lambda r: batches[r])
+    _hold(torch, "dfedpgp", "kernel vs plain f32", dict(_state_leaves(a)),
+          dict(_state_leaves(hp["state"])), 0)
+    # the same 2 rounds in f64 on both devices, every leaf at rtol = atol =
+    # 1e-9: in f64 a max-pool near-tie that parts f32 runs (the
+    # `baselines` phase's witness) is ~5e8 times rarer
+    f64 = {dev: _dfedpgp_rounds(ctx, sim, dev, torch.float64, init, tables,
+                                batches) for dev in ("cuda", "cpu")}
+    f64_err = _hold(torch, "dfedpgp", "card vs CPU f64", f64["cuda"],
+                    f64["cpu"], 1e-9)
     emit("parity", rounds=sim.rounds, m=sim.m, rtol=1e-4, atol=5e-5,
-         max_abs_err=errs)
+         max_abs_err=errs, f32_kernel_vs_plain="bitwise",
+         f64_card_vs_cpu={"rtol_atol": 1e-9, "max_abs_err": f64_err,
+                          "leaves": len(f64["cuda"])})
+
+
+def _dfedpgp_rounds(ctx, sim, dev, dtype, init, tables, batches) -> dict:
+    """len(tables) resident DFedPGP rounds (`round_fn_flat`) at `sim`'s
+    knobs in `dtype` on `dev` from CPU draws -> {leaf name: tensor} of the
+    final state."""
+    torch = ctx["torch"]
+    from repro_torch import tree
+    from repro_torch.core import partition
+    from repro_torch.fl import simulator
+    from repro_torch.models import cnn
+    cfg = cnn.CNNConfig(image_size=sim.image_size, n_classes=sim.n_classes)
+    init = tree.tree_map(lambda a: a.to(dtype), init)
+    mask = partition.build_mask(init, partition.classifier_personal)
+    algo = simulator.build_algorithm(
+        "dfedpgp", lambda p, b: cnn.loss_fn(p, b, cfg), mask, sim)
+    state, layout = algo.init_flat(init, device=dev)
+    kv = sim.k_personal
+    for P, b in zip(tables, batches):
+        b = {"x": b["x"].to(dev, dtype), "y": b["y"].to(dev)}
+        b = {"v": {k: a[:, :kv] for k, a in b.items()},
+             "u": {k: a[:, kv:] for k, a in b.items()}}
+        state, _ = algo.round_fn_flat(state, P.to(dev), b, layout)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    return dict(_state_leaves(state))
 
 
 def _paper_algo(sim, torch, **kw):
@@ -1936,6 +1993,417 @@ def phase_baselines(ctx):
          seconds=round(time.perf_counter() - t_phase, 3))
 
 
+def _tensor_leaves(state) -> dict:
+    """{leaf name: tensor} of an async state (the host tick index
+    dropped)."""
+    torch_leaves = {}
+    for name, val in _state_leaves(state):
+        if hasattr(val, "is_cuda"):
+            torch_leaves[name] = val
+    return torch_leaves
+
+
+def _async_draws(torch, sim, cfg, ticks: int, seed: int = 13) -> dict:
+    """One set of CPU draws for the async card-vs-CPU ticks: data and init
+    from `seed`, tick t's minibatch from 10 seed + t and its push table
+    (`to_push_sparse` of the random schedule's table t)."""
+    from repro_torch.core import topology
+    from repro_torch.data import make_dataset, sample_batches
+    from repro_torch.models import cnn
+    data = make_dataset(seed, sim.m, n_train=sim.n_train, n_test=sim.n_test)
+    sched = topology.get_schedule("random", sim.m, sim.n_neighbors, seed)
+    return {
+        "init": cnn.init_params(torch.Generator().manual_seed(seed), cfg,
+                                (sim.m,)),
+        "batches": [{k: a[:, 0] for k, a in sample_batches(
+            torch.Generator().manual_seed(10 * seed + t), data, 1,
+            sim.batch).items()} for t in range(ticks)],
+        "tables": [topology.to_push_sparse(sched.at(t))
+                   for t in range(ticks)]}
+
+
+def _async_ticks(ctx, sim, dev, dtype, draws) -> dict:
+    """len(draws["tables"]) ticks of dfedpgp's AsyncRuntime at `sim`'s
+    fleet knobs in `dtype` on `dev` -> {leaf name: tensor} of the final
+    state, mailbox included."""
+    torch = ctx["torch"]
+    from repro_torch import tree
+    from repro_torch.core import partition
+    from repro_torch.fl import simulator
+    from repro_torch.models import cnn
+    cfg = cnn.CNNConfig(image_size=sim.image_size, n_classes=sim.n_classes)
+    init = tree.tree_map(lambda a: a.to(dtype), draws["init"])
+    mask = partition.build_mask(init, partition.classifier_personal)
+    rt, state, _ = simulator.build_async(
+        "dfedpgp", sim, lambda p, b: cnn.loss_fn(p, b, cfg), mask, init,
+        device=dev)
+    for P, b in zip(draws["tables"], draws["batches"]):
+        state, _ = rt.tick(state, P.to(dev), {"x": b["x"].to(dev, dtype),
+                                              "y": b["y"].to(dev)})
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    return _tensor_leaves(state)
+
+
+def phase_async(ctx):
+    """The async heterogeneity runtime at the paper's defaults (m 100,
+    d_flat 13,328, n_neighbors 10, batch 32, k_local 5, k_personal 1):
+    the uniform zero-delay ticks bitwise one round_fn_flat; 5 windows of
+    tiered speeds (spread 5) and push delays up to 2 through
+    run_experiment and the same ticks driven directly: mass conserved at
+    every tick, one gossip_gather per delay group (3) on each fire tick
+    and none on the others, the kernel path bitwise the plain path,
+    finite loss, rising virtual time, fast tiers completing more rounds;
+    2 windows card against CPU in f64 (rtol = atol = 1e-9, the f32 gap
+    reported); topk codec fires under gossip="pallas" (one topk_gather and
+    one gossip_gather per group, exact wire bytes, bitwise vs plain); the
+    osgp and dfedavgm legs; 25% participation with frozen dormant rows;
+    window and tick times, the device's busy share and the gated gather's
+    device time."""
+    torch = ctx["torch"]
+    from repro_torch.core import partition, sampling, topology
+    from repro_torch.data import make_dataset
+    from repro_torch.device import seeded_generator
+    from repro_torch.fl import simulator
+    from repro_torch.fl.simulator import SimConfig, run_experiment
+    from repro_torch.hetero import mailbox as mbox
+    from repro_torch.hetero import profiles
+    from repro_torch.hetero.runtime import AsyncRuntime
+    from repro_torch.kernels import ops
+    from repro_torch.models import cnn
+    t_phase = time.perf_counter()
+    out, marks = {}, {}
+
+    def mark(name):
+        marks[name] = round(time.perf_counter() - t_phase, 3)
+
+    # 1. the sync reduction at full width: uniform profile, delay 0, one
+    # round's pull table; k_v + k_u ticks, flush and drain = one round
+    sim = SimConfig()
+    algo, cfg = _paper_algo(sim, torch)
+    data = make_dataset(21, sim.m, n_train=sim.n_train, n_test=sim.n_test,
+                        device="cuda")
+    init = cnn.init_params(torch.Generator().manual_seed(21), cfg, (sim.m,))
+    P = topology.get_schedule("random", sim.m, sim.n_neighbors, 21).at(0) \
+        .to("cuda")
+    b = _round_batches(sim, data, 210, torch)
+    s_sync, layout = algo.init_flat(init, device="cuda")
+    ops.reset_launch_counts()
+    s_sync, _ = algo.round_fn_flat(s_sync, P, b, layout)
+    sync_counts = ops.launch_counts()
+    rt, st = AsyncRuntime.build(algo, init, profiles.uniform(sim.m), depth=2,
+                                device="cuda")
+    ticks = [{k: a[:, t] for k, a in b["v"].items()}
+             for t in range(algo.k_v)] + \
+        [{k: a[:, t] for k, a in b["u"].items()} for t in range(algo.k_u)]
+    ops.reset_launch_counts()
+    for t, bt in enumerate(ticks):
+        st, mt = rt.tick(st, P, bt)
+        check(int(mt["n_fired"]) == (sim.m if t == len(ticks) - 1 else 0),
+              f"uniform tick {t}: {int(mt['n_fired'])} fired")
+    async_counts = ops.launch_counts()
+    check(async_counts["gossip_gather"] == sync_counts["gossip_gather"] == 1
+          and sum(async_counts.values()) == 1,
+          f"sync reduction launches {async_counts} vs {sync_counts}")
+    mail = mbox.flush(st.mail, st.clock.t)
+    mail, got_f, got_mu = mbox.drain(mail, torch.ones(
+        sim.m, dtype=torch.bool, device="cuda"))
+    red = {"flat": (st.flat + got_f, s_sync.flat),
+           "mu": (st.mu + got_mu, s_sync.mu),
+           "opt_u": (st.opt_u.momentum, s_sync.opt_u.momentum)}
+    for name, val in _state_leaves(st.personal, "personal/"):
+        red[name] = (val, dict(_state_leaves(s_sync.personal,
+                                             "personal/"))[name])
+    for name, val in _state_leaves(st.opt_v.momentum, "opt_v/"):
+        red[name] = (val, dict(_state_leaves(s_sync.opt_v.momentum,
+                                             "opt_v/"))[name])
+    for name, (x, y) in red.items():
+        check(torch.equal(x, y), f"sync reduction: {name} differs by "
+                                 f"{max_abs(x, y)}")
+    check(layout.d_flat == 13328, f"d_flat {layout.d_flat}")
+    out["sync_reduction"] = {"ticks": len(ticks), "leaves": len(red),
+                             "check": "bitwise", "launches": async_counts}
+    mark("sync_reduction")
+
+    # 2. heterogeneous windows through run_experiment, then the same
+    # ticks driven directly to read each tick's metrics and launches
+    hsim = SimConfig(rounds=5, runtime="async", hetero="tiered",
+                     speed_spread=5.0, push_delay_max=2, mailbox_depth=4)
+    hcfg = cnn.CNNConfig(image_size=hsim.image_size,
+                         n_classes=hsim.n_classes)
+    hdata = make_dataset(hsim.seed, hsim.m, n_train=hsim.n_train,
+                         n_test=hsim.n_test, device="cuda")
+    hinit = cnn.init_params(seeded_generator(hsim.seed, 1, 0), hcfg,
+                            (hsim.m,))
+
+    hmask = partition.build_mask(hinit, partition.classifier_personal)
+
+    def loss_fn(p, bb):
+        return cnn.loss_fn(p, bb, hcfg)
+
+    def hetero_run(name, s):
+        """run_experiment, then the same windows through async_round with
+        per-tick launch counts -> (history, ticks, final state)."""
+        ops.reset_launch_counts()
+        h = run_experiment(name, s, device="cuda", eval_every=1,
+                           return_state=True, init_params=hinit)
+        h["launches"] = ops.launch_counts()
+        rt_, st_, sched = simulator.build_async(
+            name, s, loss_fn, hmask, hinit, h["engine"].algo.codec, "cuda")
+        log = []
+
+        def on_tick(t, state, metrics):
+            log.append({"t": t, "launches": ops.launch_counts(),
+                        **{k: float(v) for k, v in metrics.items()}})
+            ops.reset_launch_counts()
+
+        ops.reset_launch_counts()
+        tick, wire = 0, 0
+        for _ in range(s.rounds):
+            st_, _, tick, wire = simulator.async_round(
+                rt_, st_, sched, hdata, s, tick, wire, on_tick=on_tick)
+        return h, log, st_, rt_
+
+    h, log, st_direct, hrt = hetero_run("dfedpgp", hsim)
+    groups = hrt.profile_groups
+    check(groups == 3, f"profile_groups {groups}")
+    fire_ticks = [e["t"] for e in log if e["n_fired"] > 0]
+    for e in log:
+        want = groups if e["n_fired"] > 0 else 0
+        check(e["launches"]["gossip_gather"] == want
+              and sum(e["launches"].values()) == want,
+              f"tick {e['t']}: launches {e['launches']}, fired "
+              f"{e['n_fired']}")
+        check(abs(e["mass_total"] - hsim.m) <= 1e-5 * hsim.m,
+              f"tick {e['t']}: mass {e['mass_total']}")
+        check(e["loss"] == e["loss"] and abs(e["loss"]) < 1e3,
+              f"tick {e['t']}: loss {e['loss']}")
+    check(h["launches"]["gossip_gather"] == groups * len(fire_ticks)
+          and sum(h["launches"].values()) == groups * len(fire_ticks),
+          f"run_experiment launches {h['launches']}, {len(fire_ticks)} "
+          f"fire ticks")
+    check(all(0.0 <= a <= 1.0 for a in h["acc"])
+          and all(v == v for v in h["loss"]), f"acc {h['acc']}")
+    check(all(x < y for x, y in zip(h["vtime"], h["vtime"][1:])),
+          f"vtime {h['vtime']}")
+    same = _hold(torch, "async", "run_experiment vs direct ticks",
+                 _tensor_leaves(h["state"]), _tensor_leaves(st_direct), 0)
+    rounds = h["state"].local_round.float().cpu()
+    tier = torch.arange(hsim.m) * 5 // hsim.m
+    by_tier = [float(rounds[tier == i].mean()) for i in range(5)]
+    check(by_tier[0] > by_tier[-1] and all(
+        x >= y for x, y in zip(by_tier, by_tier[1:])),
+        f"local rounds by tier {by_tier}")
+    ctx["async_launches"] = h["launches"]
+    window_ms = [t * 1e3 for t in h["round_s"]]
+    out["hetero"] = {
+        "windows": hsim.rounds, "ticks": len(log), "groups": groups,
+        "fire_ticks": fire_ticks, "launches": h["launches"],
+        "loss": h["loss"], "acc": h["acc"], "vtime": h["vtime"],
+        "mean_local_rounds": h["mean_local_rounds"],
+        "local_rounds_by_tier": by_tier,
+        "mass_total_by_tick": [e["mass_total"] for e in log],
+        "window_ms": window_ms,
+        "ms_per_window_after_first": statistics.median(window_ms[1:]),
+        "ms_per_tick_after_first": statistics.median(window_ms[1:])
+        / hrt.k_total, "direct_vs_run_experiment": same}
+    mark("hetero")
+
+    # 3. kernel against plain: the same ticks under the plain versions
+    with _plain_kernels():
+        ops.reset_launch_counts()
+        _, plog, st_plain, _ = hetero_run("dfedpgp", hsim)
+    check(all(sum(e["launches"].values()) == 0 for e in plog),
+          "the plain async run launched a kernel")
+    _hold(torch, "async", "kernel vs plain f32", _tensor_leaves(st_direct),
+          _tensor_leaves(st_plain), 0)
+    out["kernel_vs_plain"] = {"check": "bitwise, every state leaf incl. "
+                              "mailbox slots and inbox",
+                              "leaves": len(_tensor_leaves(st_direct))}
+    mark("kernel_vs_plain")
+
+    # 4. card against CPU: 2 windows from one set of CPU draws, f64 gated,
+    # the f32 gap reported
+    psim = SimConfig(rounds=2, runtime="async", hetero="tiered",
+                     speed_spread=5.0, push_delay_max=2, mailbox_depth=4)
+    draws = _async_draws(torch, psim, hcfg, 2 * hrt.k_total)
+    a64 = _async_ticks(ctx, psim, "cuda", torch.float64, draws)
+    b64 = _async_ticks(ctx, psim, "cpu", torch.float64, draws)
+    f64_err = _hold(torch, "async", "card vs CPU f64", a64, b64, 1e-9)
+    a32 = _async_ticks(ctx, psim, "cuda", torch.float32, draws)
+    b32 = _async_ticks(ctx, psim, "cpu", torch.float32, draws)
+    err32, elems32, parting32 = _parting_clients(torch, a32, b32, psim.m)
+    out["card_vs_cpu"] = {
+        "ticks": len(draws["tables"]), "f64_rtol_atol": 1e-9,
+        "f64_max_abs_err": f64_err, "leaves": len(a64),
+        "f32_max_abs_err": err32, "f32_elements_beyond_1e-4_5e-5": elems32,
+        "f32_clients_beyond": sorted(parting32)}
+    mark("card_vs_cpu")
+
+    # 5. codec fires: topk, gamma 0.5, gossip="pallas"
+    csim = SimConfig(rounds=3, runtime="async", hetero="tiered",
+                     speed_spread=5.0, push_delay_max=2, mailbox_depth=4,
+                     codec="topk", gossip="pallas", codec_gamma=0.5)
+    ch, clog, cst, crt = hetero_run("dfedpgp", csim)
+    cfire = [e["t"] for e in clog if e["n_fired"] > 0]
+    for e in clog:
+        want = groups if e["n_fired"] > 0 else 0
+        check(e["launches"]["gossip_gather"] == want
+              and e["launches"]["topk_gather"] == want
+              and sum(e["launches"].values()) == 2 * want,
+              f"codec tick {e['t']}: launches {e['launches']}")
+        check(abs(e["mass_total"] - csim.m) <= 1e-5 * csim.m,
+              f"codec tick {e['t']}: mass {e['mass_total']}")
+    with _plain_kernels():
+        _, _, cst_plain, _ = hetero_run("dfedpgp", csim)
+    _hold(torch, "async codec", "kernel vs plain f32", _tensor_leaves(cst),
+          _tensor_leaves(cst_plain), 0)
+    codec = crt.algo.codec
+    d = crt.layout.d_flat
+    edges = int(sum(e["wire_edges"] for e in clog))
+    want_bytes = edges * codec.row_bytes(d) + csim.m * 4 * d
+    check(ch["wire_bytes"][-1] == want_bytes,
+          f"codec wire bytes {ch['wire_bytes'][-1]} != {want_bytes}")
+    ctx["async_codec_launches"] = ch["launches"]
+    out["codec"] = {"windows": csim.rounds, "gamma": csim.codec_gamma,
+                    "fire_ticks": cfire, "launches": ch["launches"],
+                    "wire_bytes": ch["wire_bytes"], "wire_edges": edges,
+                    "loss": ch["loss"], "acc": ch["acc"],
+                    "kernel_vs_plain": "bitwise",
+                    "window_ms": [t * 1e3 for t in ch["round_s"]]}
+    mark("codec")
+
+    # 6. the other push-sum algorithms, and participation
+    legs = {}
+    for name in ("osgp", "dfedavgm"):
+        lsim = SimConfig(rounds=2, runtime="async", hetero="tiered",
+                         speed_spread=5.0, push_delay_max=2)
+        ops.reset_launch_counts()
+        lh = run_experiment(name, lsim, device="cuda", eval_every=1,
+                            return_state=True, init_params=hinit)
+        counts = ops.launch_counts()
+        mass = float(lh["engine"].mass_total(lh["state"]))
+        check(abs(mass - lsim.m) <= 1e-5 * lsim.m
+              and all(v == v and abs(v) < 1e3 for v in lh["loss"])
+              and counts["gossip_gather"] > 0
+              and counts["gossip_gather"] % groups == 0,
+              f"{name} async: mass {mass}, loss {lh['loss']}, launches "
+              f"{counts}")
+        legs[name] = {"launches": counts, "loss": lh["loss"],
+                      "acc": lh["acc"], "mass_total": mass,
+                      "d_flat": lh["layout"].d_flat,
+                      "window_ms": [t * 1e3 for t in lh["round_s"]]}
+    out["legs"] = legs
+    qsim = SimConfig(rounds=3, runtime="async", hetero="tiered",
+                     speed_spread=5.0, push_delay_max=2,
+                     participation="uniform", participation_frac=0.25)
+    qrt, qst, qsched = simulator.build_async("dfedpgp", qsim, loss_fn,
+                                             hmask, hinit, device="cuda")
+    sampler = sampling.get_sampler("uniform", qsim.m,
+                                   qsim.participation_frac, qsim.seed)
+    prev = [qst]
+    frozen = {"ticks": 0, "rows_checked": 0, "inbox_grew": 0}
+
+    def on_tick(t, state, metrics):
+        before = prev[0]
+        dormant = ~torch.as_tensor(sampler.active_mask(t)).cuda()
+        for name, (x, y) in {"flat": (state.flat, before.flat),
+                             "mu": (state.mu, before.mu),
+                             "opt_u": (state.opt_u.momentum,
+                                       before.opt_u.momentum)}.items():
+            check(torch.equal(x[dormant], y[dormant]),
+                  f"tick {t}: a dormant row of {name} moved")
+        grew = (state.mail.inbox_mu > before.mail.inbox_mu) & dormant
+        frozen["ticks"] += 1
+        frozen["rows_checked"] += int(dormant.sum())
+        frozen["inbox_grew"] += int(grew.sum())
+        check(abs(float(metrics["mass_total"]) - qsim.m) <= 1e-5 * qsim.m,
+              f"participation tick {t}: mass {float(metrics['mass_total'])}")
+        prev[0] = state
+
+    tick, wire = 0, 0
+    for _ in range(qsim.rounds):
+        qst, _, tick, wire = simulator.async_round(
+            qrt, qst, qsched, hdata, qsim, tick, wire, sampler=sampler,
+            on_tick=on_tick)
+    check(frozen["inbox_grew"] > 0, "no dormant inbox took mail")
+    out["participation"] = dict(frozen, frac=qsim.participation_frac,
+                                windows=qsim.rounds,
+                                mean_local_rounds=float(
+                                    qst.local_round.float().mean()))
+    mark("legs_participation")
+
+    # 7. timings: one profiled window from the hetero run's state, and the
+    # gossip_gather call on a fire tick's gated push table
+    def one_window():
+        s2 = st_direct
+        simulator.async_round(hrt, s2, topology.get_schedule(
+            "random", hsim.m, hsim.n_neighbors, hsim.seed), hdata, hsim,
+            len(log), 0)
+
+    _, events, wall_ms = profiled(torch, one_window, cpu=True)
+    busy_ms = sum(_dev_us(e) for e in events) / 1e3
+    top = sorted(events, key=_dev_us, reverse=True)[:8]
+    Pg = topology.to_push_sparse(topology.get_schedule(
+        "random", hsim.m, hsim.n_neighbors, hsim.seed).at(fire_ticks[0])
+    ).to("cuda")
+    delay = hrt.profile.push_delay[Pg.idx.long()]
+    gates = {dl: Pg.w * (delay == dl).to(Pg.w.dtype) for dl in range(groups)}
+    U = torch.randn((hsim.m, layout.d_flat), device="cuda")
+    gated = {}
+    for dl, wg in gates.items():
+        live = wg > 0
+        # the least work this table needs: each live sender's row read
+        # once, the output written once, the table read; 2 flops per live
+        # edge and column
+        senders = int(torch.unique(Pg.idx[live]).numel())
+        nbytes = (senders + hsim.m) * layout.d_flat * 4 + Pg.idx.numel() * 8
+        flops = 2 * int(live.sum()) * layout.d_flat
+        t_b = nbytes / ctx["peak_bw"] * 1e3
+        t_o = flops / ctx["peak_f32"] * 1e3
+        # the library yardstick: torch.sparse.mm on the live edges in CSR
+        rows = torch.arange(hsim.m, device="cuda")[:, None].expand_as(live)
+        csr = torch.sparse_coo_tensor(
+            torch.stack([rows[live], Pg.idx.long()[live]]), wg[live],
+            (hsim.m, hsim.m)).coalesce().to_sparse_csr()
+        check(torch.allclose(torch.sparse.mm(csr, U), ops.gossip_gather(
+            Pg.idx, wg, U), rtol=1e-5, atol=1e-5),
+            "gated sparse.mm yardstick disagrees")
+        gated[str(dl)] = {
+            "ms": device_ms(torch, lambda wg=wg: ops.gossip_gather(
+                Pg.idx, wg, U, force="cuda")),
+            "plain_ms": device_ms(torch, lambda wg=wg: ops.gossip_gather(
+                Pg.idx, wg, U, force="ref")),
+            "library_ms": device_ms(torch, lambda csr=csr: torch.sparse.mm(
+                csr, U)),
+            "bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "live_edges": int(live.sum()), "live_senders": senders,
+            "k": Pg.k}
+    out["timings"] = {
+        "card": ctx["smi"], "window_wall_ms": wall_ms,
+        "tick_wall_ms": wall_ms / hrt.k_total,
+        "device_busy_ms_per_window": busy_ms,
+        "device_busy_share": busy_ms / wall_ms,
+        "host_syncs_per_window": hrt.k_total,
+        "top_device_kernels": [
+            {"name": e.key[:90], "ms_per_window": _dev_us(e) / 1e3,
+             "calls_per_window": e.count} for e in top],
+        "gossip_gather_gated_by_delay_group": gated,
+        "note": "window_wall_ms under torch.profiler (CPU and CUDA "
+                "activities); ms per window of run_experiment in "
+                "hetero.window_ms; gated gather: device ms per call "
+                "(profiler, 50 calls), m 100, d_flat 13,328, the fire "
+                "tick's push table with delay group g's edges live"}
+    emit("async", card=ctx["smi"], m=hsim.m, n_neighbors=hsim.n_neighbors,
+         batch=hsim.batch,
+         k_local=hsim.k_local, k_personal=hsim.k_personal,
+         d_flat=layout.d_flat, profile=hsim.hetero,
+         speed_spread=hsim.speed_spread, push_delay_max=hsim.push_delay_max,
+         mailbox_depth=hsim.mailbox_depth, **out, seconds_at=marks,
+         seconds=round(time.perf_counter() - t_phase, 3))
+
+
 def phase_serve(ctx):
     torch = ctx["torch"]
     from repro_torch import tree
@@ -2316,7 +2784,10 @@ def phase_timings(ctx):
         "call_ms": main["call_ms"], "cold_ms": main["cold_ms"],
         "bound_share": main["bound_share"],
         "shape": [100, 11, 13328], "dtype": "float32",
-        "baseline_launches": ctx["baseline_launches"]["gossip_gather"]})
+        "baseline_launches": ctx["baseline_launches"]["gossip_gather"],
+        "async_launches": ctx["async_launches"]["gossip_gather"],
+        "async_codec_launches":
+            ctx["async_codec_launches"]["gossip_gather"]})
 
     # head_gather_matmul at the serve path's shapes (m=100, d=64, n=10):
     # H read once, each distinct user's slab and bias read once, uid read
@@ -2556,7 +3027,8 @@ def phase_timings(ctx):
         "call_ms": main["call_ms"], "cold_ms": main["cold_ms"],
         "bound_share": main["bound_share"], "shape": [100, 11, 13328, 833],
         "dtype": "float32/uint16",
-        "baseline_launches": ctx["baseline_launches"]["topk_gather"]})
+        "baseline_launches": ctx["baseline_launches"]["topk_gather"],
+        "async_codec_launches": ctx["async_codec_launches"]["topk_gather"]})
     # flash_attention at the hybrid model's prefill shape (B 2, S 4096, H
     # 16, Hkv 1, hd 256, window 2048, bf16): q, k, v read once and the
     # output written once (142.6 MB); 4 * hd flops per (query, key) pair
@@ -2785,7 +3257,7 @@ def main(argv=None) -> int:
     wanted = set(only) | {"device"}
     needs = {"serve": {"train"}, "compress": {"train"},
              "timings": {"kernels", "train", "sampled", "kernel_mix",
-                         "compress", "baselines", "serve", "lm"}}
+                         "compress", "baselines", "async", "serve", "lm"}}
     for phase in only:
         missing = needs.get(phase, set()) - wanted
         if missing:
@@ -2794,7 +3266,8 @@ def main(argv=None) -> int:
            "kernels": phase_kernels, "train": phase_train,
            "parity": phase_parity, "sampled": phase_sampled,
            "kernel_mix": phase_kernel_mix, "compress": phase_compress,
-           "baselines": phase_baselines, "serve": phase_serve, "lm": phase_lm,
+           "baselines": phase_baselines, "async": phase_async,
+           "serve": phase_serve, "lm": phase_lm,
            "timings": phase_timings}
     t0 = time.perf_counter()
     for phase in PHASES:

@@ -322,44 +322,64 @@ class DFedPGP:
                                codec=self.codec, ef=ef, ref=ref, key=key,
                                codec_gamma=self._gamma_value(flat, ef))
 
+    def _v_steps(self, flat, personal, mu, opt_v, batches_v, lr_scale,
+                 layout: gossip.FlatLayout):
+        """Every client's K_v personal steps at the pinned z^{t,0} = u/mu
+        (personal gradient only).  batches_v leaves (m, K_v, B, ...);
+        lr_scale (m,).  -> (personal, opt_v, (m,) mean loss)."""
+        z0 = (flat / mu[:, None]).to(flat.dtype)
+
+        def v_loss(pv, batch, z_row):
+            shared = layout.unravel_row(z_row)
+            return self.loss_fn(partition.merge(shared, pv), batch)
+
+        def client_v(pv, sv, bv, z_row, ls):
+            return local.sgd_steps(v_loss, self.opt_v, pv, sv, bv, ls,
+                                   extra=(z_row,))
+
+        return vmap(client_v)(personal, opt_v, batches_v, z0, lr_scale)
+
+    def _u_step(self, flat, personal, mu, opt_u, batch, lr_scale,
+                layout: gossip.FlatLayout):
+        """One shared step of every client: the gradient at z = u/mu,
+        applied to the biased row (not differentiated through the
+        de-bias).  batch leaves (m, B, ...); lr_scale (m,).  -> (flat,
+        opt_u, (m,) loss)."""
+        value_and_grad_u = vmap(grad_and_value(
+            local.flat_view_loss(self.loss_fn, layout)))
+        z = (flat / mu[:, None]).to(flat.dtype)
+        g, loss = value_and_grad_u(z, personal, batch)
+        flat2, s2 = self.opt_u.update(g, opt_u, flat, lr_scale[:, None])
+        return flat2, s2, loss
+
     def local_update_flat(self, flat, personal, mu, opt_u, opt_v,
                           batches_v, batches_u, lr_scale, step_gate_u,
                           layout: gossip.FlatLayout):
         """All clients' alternating update on the resident buffer.
         flat: (m, d_flat) biased rows; personal: stacked personal leaves;
-        batches leaves (m, K, B, ...); step_gate_u: (m, K_u) in {0, 1}.
-        -> (flat, personal, opt_u, opt_v, (loss_v, loss_u)) with (m,)
-        per-client mean losses."""
+        batches leaves (m, K, B, ...); lr_scale: 0-d or (m,);
+        step_gate_u: (m, K_u) in {0, 1}.  -> (flat, personal, opt_u,
+        opt_v, (loss_v, loss_u)) with (m,) per-client mean losses.  The
+        steps are `_v_steps` and `_u_step`, the functions the async tick
+        (`tick_update_flat`) runs one at a time."""
         m = flat.shape[0]
-        # ---- v-steps at the pinned z^{t,0} (personal gradient only);
-        # K_v = 0 skips the phase ----
+        lr_scale = torch.as_tensor(lr_scale, dtype=torch.float32,
+                                   device=flat.device).expand(m)
+        # ---- v-steps at the pinned z^{t,0}; K_v = 0 skips the phase ----
         if local.n_steps(batches_v) == 0:
             loss_v = torch.zeros((m,), dtype=torch.float32,
                                  device=flat.device)
         else:
-            z0 = (flat / mu[:, None]).to(flat.dtype)
-
-            def v_loss(pv, batch, z_row):
-                shared = layout.unravel_row(z_row)
-                return self.loss_fn(partition.merge(shared, pv), batch)
-
-            def client_v(pv, sv, bv, z_row):
-                return local.sgd_steps(v_loss, self.opt_v, pv, sv, bv,
-                                       lr_scale, extra=(z_row,))
-
-            personal, opt_v, loss_v = vmap(client_v)(personal, opt_v,
-                                                     batches_v, z0)
+            personal, opt_v, loss_v = self._v_steps(
+                flat, personal, mu, opt_v, batches_v, lr_scale, layout)
 
         # ---- u-steps: gradient at z^{t,k} = u^{t,k}/mu, applied to the
-        # biased row (not differentiated through the de-bias) ----
-        value_and_grad_u = vmap(grad_and_value(
-            local.flat_view_loss(self.loss_fn, layout)))
+        # biased row; a step gate of 1 keeps the step bit for bit ----
         losses = []
         for k in range(local.n_steps(batches_u)):
-            z = (flat / mu[:, None]).to(flat.dtype)
-            g, loss = value_and_grad_u(z, personal,
-                                       local.step_batch(batches_u, k))
-            flat2, s2 = self.opt_u.update(g, opt_u, flat, lr_scale)
+            flat2, s2, loss = self._u_step(
+                flat, personal, mu, opt_u, local.step_batch(batches_u, k),
+                lr_scale, layout)
             gate = step_gate_u[:, k:k + 1]
             flat = (gate * flat2 + (1.0 - gate) * flat).to(flat2.dtype)
             opt_u = SGDState((gate * s2.momentum + (1.0 - gate)
@@ -367,6 +387,38 @@ class DFedPGP:
             losses.append(loss)
         loss_u = torch.stack(losses, dim=1).mean(dim=1)
         return flat, personal, opt_u, opt_v, (loss_v, loss_u)
+
+    def tick_update_flat(self, flat, personal, mu, opt_u, opt_v, batch,
+                         in_v_phase, lr_scale, layout: gossip.FlatLayout,
+                         has_v_phase: bool = True):
+        """ONE tick of the alternating update for every client — the async
+        runtime's step (`hetero.runtime`).  batch leaves (m, B, ...);
+        in_v_phase (m,) bool; lr_scale (m,).
+
+        Computes one v-step (`_v_steps` over a single step: u does not move
+        in the v-phase, so de-biasing the CURRENT row is the z^{t,0} pin)
+        and one u-step (`_u_step`) for every client, then selects per
+        client with `torch.where` on in_v_phase.  The branches touch
+        disjoint state, so k_v v-ticks then k_u u-ticks are bit for bit
+        one `local_update_flat` on the same batches.  has_v_phase False
+        (k_v = 0: the full-model cores of async OSGP / DFedAvgM) skips the
+        v branch.  -> (flat, personal, opt_u, opt_v, (m,) loss)."""
+        row2, su2, loss_u = self._u_step(flat, personal, mu, opt_u, batch,
+                                         lr_scale, layout)
+        if not has_v_phase:
+            return row2, personal, su2, opt_v, loss_u
+        one_step = {k: a[:, None] for k, a in batch.items()}
+        pv2, sv2, loss_v = self._v_steps(flat, personal, mu, opt_v,
+                                         one_step, lr_scale, layout)
+
+        def sel(a, b):
+            return torch.where(in_v_phase.reshape((-1,) + (1,) * (a.dim()
+                                                                  - 1)),
+                               a, b)
+        return (sel(flat, row2), tree.tree_map(sel, pv2, personal),
+                SGDState(sel(opt_u.momentum, su2.momentum)),
+                SGDState(tree.tree_map(sel, sv2.momentum, opt_v.momentum)),
+                sel(loss_v, loss_u))
 
     def round_fn_flat(self, state: FlatDFedPGPState, P, batches: dict,
                       layout: gossip.FlatLayout, step_gate_u=None):

@@ -22,7 +22,9 @@ Port of `repro/core/gossip.py`:
    mu always mixes through `mix_rows` in f32.
 4. the codec branch of `mix_flat` — compressed directed gossip with error
    feedback and reference tracking (`repro_torch.compress`); under
-   "pallas" the sparse payloads mix through `kernels.ops.topk_gather`.
+   "pallas" the sparse payloads mix through `kernels.ops.topk_gather`;
+5. the edge-gated form of `mix_flat` (`edge_gate=`), one delay group of
+   the async runtime's mailbox push (`hetero.mailbox`).
 """
 from __future__ import annotations
 
@@ -229,6 +231,13 @@ def mix_flat(P, flat: torch.Tensor, mu: torch.Tensor, *,
     the mix (the buffer returns in its resident dtype); mu always mixes in
     f32 and is never compressed.
 
+    edge_gate: optional (m, k) {0, 1} mask multiplied into P's pull
+    weights WITHOUT renormalization — the mailbox form of the mix
+    (`hetero.mailbox`): a gated-off edge's mass has not arrived yet, it is
+    not handed to the live edges.  The gated table takes the same routes as
+    the plain mix (`kernels.ops.gossip_gather` for an f32 payload).  A
+    dense P raises: it has no per-edge identity.
+
     codec: optional wire codec (`repro_torch.compress`).  The non-self
     edges then ship compressed deltas against each sender's public
     reference copy (`compress.publish` with `ef`/`ref` memory), and the
@@ -251,9 +260,10 @@ def mix_flat(P, flat: torch.Tensor, mu: torch.Tensor, *,
             f"codec_gamma={codec_gamma} only applies to lossy codecs; "
             f"the exact/uncompressed mix never blends")
     if edge_gate is not None:
-        raise NotImplementedError("edge_gate (the async mailbox mix) is "
-                                  "ported with the async runtime (ROADMAP "
-                                  "queue 1 item 11)")
+        if not isinstance(P, SparseTopology):
+            raise ValueError("edge_gate needs a SparseTopology — a dense "
+                             "matrix has no per-edge (m, k) identity")
+        P = SparseTopology(P.idx, P.w * edge_gate.to(P.w.dtype))
     if codec is not None:
         if wire_dtype is not None:
             raise ValueError("codec defines the wire format; wire_dtype "

@@ -1,12 +1,14 @@
 """Communication topologies: time-varying directed graphs.
 
-Port of the parts of `repro/core/topology.py` the synchronous rounds
+Port of the parts of `repro/core/topology.py` the port's rounds and ticks
 need: the neighbor-indexed `SparseTopology`, the directed kinds (random,
 exponential, ring, full), the undirected kind of the DFedAvgM / Dis-PFL
-baselines, the dense-degree ceiling, the `TopologySchedule` registry and,
-for partial participation, the `induced_subgraph` of the round's active
-clients.  Pull form: every row is row-stochastic (the undirected tables
-are doubly stochastic).
+baselines, the dense-degree ceiling, the `TopologySchedule` registry,
+for partial participation the `induced_subgraph` of the round's active
+clients, and for the async runtime the lazy push form `to_push_sparse`
+with its `staleness_self_weight`.  Pull form: every row is
+row-stochastic (the undirected tables are doubly stochastic); the push
+form is column-stochastic.
 
 The exponential, ring and full tables are deterministic and equal the
 reference's table for table.  `random` and `undirected` draw from a
@@ -165,6 +167,68 @@ def undirected_random(generator: torch.Generator, m: int,
     n = min(n_neighbors, m - 1)
     return undirected_from_picks(directed_random(generator, m, n).idx.numpy(),
                                  m, n)
+
+
+# ---------------------------------------------------------------------------
+# the async regime's push form
+# ---------------------------------------------------------------------------
+def to_push_sparse(P: SparseTopology, self_weight=0.5) -> SparseTopology:
+    """Lazy column-stochastic (push) form of a pull pattern: P's edge set,
+    re-weighted so each SENDER j keeps `self_weight[j]` of its mass and
+    splits the rest uniformly over its non-self out-edges:
+
+        w[i, p] = (1 - self_weight[j]) / outdeg(j),  j = idx[i, p] != i
+        w[i, p] = self_weight[i] (+ the rest if outdeg == 0)  at the self
+                  edge
+
+    Every column sums to 1, so the push-sum mass is conserved under any
+    delay trace (`hetero.mailbox`).  self_weight: a scalar in [0, 1) or a
+    per-sender (m,) array (`staleness_self_weight`).  Every row must carry
+    a self entry, or the kept share has no slot and its mass is destroyed:
+    both conditions raise.  O(m*k) on P's device, the reference's f32
+    arithmetic op for op."""
+    m = P.idx.shape[0]
+    dev = P.idx.device
+    sw = torch.broadcast_to(torch.as_tensor(
+        self_weight, dtype=torch.float32).to(dev), (m,))
+    rows = torch.arange(m, device=dev)[:, None]
+    self_edge = P.idx.long() == rows
+    has_self = self_edge.any(1)
+    if not bool(has_self.all()):
+        bad = torch.nonzero(~has_self).flatten()[:5].tolist()
+        raise ValueError(
+            f"to_push_sparse needs a self entry in every row (rows {bad} "
+            f"have none): the sender's kept share would have no slot and "
+            f"its mass would be destroyed")
+    lo, hi = float(sw.min()), float(sw.max())
+    if lo < 0.0 or hi >= 1.0:
+        raise ValueError(
+            f"self_weight must lie in [0, 1) (a sender keeping >= 1 of its "
+            f"mass pushes none); got range [{lo}, {hi}]")
+    real = (P.w > 0) & ~self_edge
+    outdeg = torch.zeros((m,), dtype=torch.float32, device=dev).index_add_(
+        0, P.idx.reshape(-1).long(), real.to(torch.float32).reshape(-1))
+    share = (1.0 - sw) / torch.clamp(outdeg, min=1.0)
+    w = torch.where(real, share[P.idx.long()], 0.0)
+    w_self = sw + (1.0 - sw) * (outdeg <= 0).to(torch.float32)
+    # the kept share goes on the REAL self edge; a row whose self edge is
+    # only (self, 0) padding splits it evenly over those slots
+    real_self = self_edge & (P.w > 0)
+    self_slot = torch.where(real_self.any(1, keepdim=True), real_self,
+                            self_edge)
+    cnt = torch.clamp(self_slot.sum(1, keepdim=True), min=1)
+    w = torch.where(self_slot, w_self[:, None] / cnt, w)
+    return SparseTopology(P.idx, w.to(torch.float32))
+
+
+def staleness_self_weight(push_delay, base: float = 0.5) -> torch.Tensor:
+    """Stale-mass discounting: the per-sender lazy self share of a sender
+    in push-delay class d, 1 - (1 - base) / (1 + d).  A delay-0 sender
+    keeps `base`; a slow link pushes 1/(1 + d) as much, so the mass it
+    holds in flight stays about constant instead of growing with d.
+    -> (m,) f32 on the CPU (or on push_delay's device)."""
+    d = torch.as_tensor(push_delay).to(torch.float32)
+    return 1.0 - (1.0 - float(base)) / (1.0 + d)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""FL simulation engine (Regime A) — the synchronous branch of
-`repro/fl/simulator.py`, on one device.
+"""FL simulation engine (Regime A) — port of `repro/fl/simulator.py` on one
+device: the synchronous rounds and the asynchronous regime.
 
 `run_experiment(algo, SimConfig())` builds the synthetic non-IID data, m
 stacked CNN clients and the classifier-personal mask, then runs the rounds
@@ -26,10 +26,21 @@ client's own test split.
 `step_gates` (m, K) gate local steps per client (the sync computation
 heterogeneity of the paper's Table 3, `hetero.profiles.tier_gates`).
 
+`runtime="async"` runs dfedpgp, osgp or dfedavgm (`ASYNC_ALGOS`) on the
+virtual clock of `hetero.runtime.AsyncRuntime` instead (`async_experiment`):
+a round becomes a window of k_local + k_personal ticks, each client steps at
+its profile's speed (`SimConfig.hetero`, `speed_spread`, `availability`)
+and pushes its mass through delayed mailboxes (`push_delay_max`,
+`mailbox_depth`) over the lazy push form of the tick's table
+(`topology.to_push_sparse`, per-sender shares with `stale_discount`).
+Every fire mixes through the CUDA gossip_gather kernel once per delay
+group; a lossy codec under gossip="pallas" adds topk_gather.
+
 The injection arguments (`data=`, `init_params=`, `init_state=`,
 `topology_at=`, `batches_at=`, `sampled_at=`) replay another run's draws —
 the reference's data, initial parameters or state, neighbor tables,
-minibatches and CFL samples — so a test can compare the two engines step
+minibatches and CFL samples (async: the participation masks, and every
+hook takes the tick index) — so a test can compare the two engines step
 for step.
 """
 from __future__ import annotations
@@ -48,6 +59,7 @@ from ..core.topology import SparseTopology
 from ..data import ClientData, from_arrays, make_dataset, sample_batches
 from ..device import resolve_device, seeded_generator
 from ..hetero import profiles
+from ..hetero.runtime import AsyncRuntime
 from ..models import cnn
 from ..obs import gauges
 from ..optim import SGD
@@ -79,13 +91,13 @@ class SimConfig:
 
     gossip: str = "sparse"          # sparse | dense | pallas
     resident: bool = True           # False: the tree-form round
-    runtime: str = "sync"           # "async": ROADMAP queue 1 item 11
+    runtime: str = "sync"           # sync | async (virtual-clock ticks)
     # the simulated fleet: the profile a "trace" sampler ranks by
     hetero: str = "uniform"         # uniform | tiered | lognormal
     speed_spread: float = 5.0
     push_delay_max: int = 0
     availability: float = 1.0
-    mailbox_depth: int = 4          # async runtime (item 11)
+    mailbox_depth: int = 4          # async delivery ring (>= delays + 1)
     # wire codecs (item 10)
     codec: Optional[str] = None
     codec_ratio: float = 1.0 / 16.0
@@ -94,7 +106,9 @@ class SimConfig:
     # partial participation: "full" | "uniform" | "trace"
     participation: str = "full"
     participation_frac: float = 1.0
-    stale_discount: bool = False    # async runtime (item 11)
+    # async: slow-link senders keep more of their mass at home
+    # (topology.staleness_self_weight) instead of the flat 1/2
+    stale_discount: bool = False
     spec: Optional[object] = None
 
 
@@ -105,7 +119,8 @@ CFL = ("fedavg", "fedper", "fedrep", "fedbabu", "ditto")
 # algorithms whose mixing must be symmetric (no push-sum de-bias): their
 # schedule is the undirected kind whatever SimConfig.topology says
 UNDIRECTED_ALGOS = ("dfedavgm", "dfedavgm-p", "dispfl")
-# the push-sum methods of the async runtime (ROADMAP queue 1 item 11)
+RUNTIMES = ("sync", "async")
+# the push-sum methods the async runtime drives
 ASYNC_ALGOS = ("dfedpgp", "osgp", "dfedavgm")
 # the baselines with a flat-buffer core (build_flat_core)
 FLAT_CORE_ALGOS = ("osgp", "dfedavgm")
@@ -113,8 +128,10 @@ FLAT_CORE_ALGOS = ("osgp", "dfedavgm")
 CFL_STREAM = 4
 
 # SimConfig field -> ROADMAP queue 1 item that ports it
-_UNPORTED = {"runtime": 11, "mailbox_depth": 11, "stale_discount": 11,
-             "spec": 13}
+_UNPORTED = {"spec": 13}
+# stream of `device.seeded_generator` the minibatches draw from (a round's
+# in the sync regime, a tick's in the async one)
+BATCH_STREAM = 2
 
 
 def _check_ported(algo_name: str, sim: SimConfig) -> None:
@@ -265,7 +282,15 @@ def run_experiment(algo_name: str, sim: SimConfig,
     `convert.baseline_state_from_reference`), in place of `algo.init`;
     `topology_at` — t -> SparseTopology or (idx, w) arrays; `batches_at` —
     t -> {"x": (m, K, B, H, W, C), "y": (m, K, B)} arrays; `sampled_at` —
-    t -> the CFL round's (m,) 0/1 sampled-client indicator."""
+    t -> the CFL round's (m,) 0/1 sampled-client indicator.
+
+    runtime="async" (`async_experiment`): a round is a window of k_local +
+    k_personal ticks; `vtime` is the virtual clock, history adds
+    `mean_local_rounds` (the mean completed local rounds) and `round_s` is
+    per window; the hooks take the tick index t: `batches_at(t)` leaves
+    (m, 1, B, ...), `topology_at(t)` the tick's PULL table (the run
+    applies `to_push_sparse`) and `sampled_at(t)` the (m,) participation
+    mask (participation != "full")."""
     _check_ported(algo_name, sim)
     if sink is not None:
         raise NotImplementedError("metric sinks are ported with "
@@ -273,6 +298,18 @@ def run_experiment(algo_name: str, sim: SimConfig,
     if sim.gossip not in gossip.MODES:
         raise ValueError(f"gossip mode {sim.gossip!r}: Regime A mixes "
                          f"through the matrix engines {gossip.MODES}")
+    if sim.runtime not in RUNTIMES:
+        raise ValueError(f"runtime {sim.runtime!r}; known: sync | async")
+    run_async = sim.runtime == "async"
+    if run_async:
+        if step_gates is not None:
+            raise ValueError(
+                "step_gates are the sync regime's faked heterogeneity; "
+                "the async runtime models speed via SimConfig.hetero")
+        if algo_name not in ASYNC_ALGOS:
+            raise ValueError(
+                f"runtime='async' drives the push-sum flat engines "
+                f"{ASYNC_ALGOS}; {algo_name!r} has no flat-buffer core")
     dev = resolve_device(device)
     codec = compress.get_codec(sim.codec, ratio=sim.codec_ratio,
                                bits=sim.codec_bits, seed=sim.seed)
@@ -285,7 +322,7 @@ def run_experiment(algo_name: str, sim: SimConfig,
             f"codec={sim.codec!r} rides the push-sum flat engines "
             f"{ASYNC_ALGOS}; {algo_name!r} has no wire-payload boundary "
             f"to compress")
-    if codec is not None and not sim.resident:
+    if codec is not None and not sim.resident and not run_async:
         raise ValueError("wire codecs live on the resident flat buffer; "
                          "resident=False has no payload boundary")
     # the resident flat buffer: dfedpgp's, or a flat-core codec run's
@@ -294,7 +331,7 @@ def run_experiment(algo_name: str, sim: SimConfig,
     sampler = sampling.get_sampler(sim.participation, sim.m,
                                    sim.participation_frac, sim.seed,
                                    _trace_profile(sim))
-    if sampler is not None and not use_flat:
+    if sampler is not None and not use_flat and not run_async:
         raise ValueError(
             f"partial participation gathers and scatters the resident flat "
             f"buffer; {algo_name!r} with resident={sim.resident} has none "
@@ -329,6 +366,12 @@ def run_experiment(algo_name: str, sim: SimConfig,
             lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32),
             init_params)
     mask = partition.build_mask(stacked, partition.classifier_personal)
+    if run_async:
+        return async_experiment(
+            algo_name, sim, model_cfg, data, loss_fn, mask, stacked, dev,
+            codec=codec, sampler=sampler, eval_every=eval_every,
+            return_state=return_state, batches_at=batches_at,
+            topology_at=topology_at, sampled_at=sampled_at)
     if codec is not None and algo_name in FLAT_CORE_ALGOS:
         algo = build_flat_core(algo_name, loss_fn, mask, sim, codec)
     else:
@@ -380,8 +423,9 @@ def run_experiment(algo_name: str, sim: SimConfig,
         if batches_at is not None:
             batches = _as_batches(batches_at(r), dev)
         else:
-            batches = sample_batches(seeded_generator(sim.seed, 2, r), data,
-                                     k_total, sim.batch)
+            batches = sample_batches(seeded_generator(sim.seed, BATCH_STREAM,
+                                                      r), data, k_total,
+                                     sim.batch)
         g = gate
         if algo_name in CFL:
             ctx = torch.as_tensor(
@@ -430,4 +474,128 @@ def run_experiment(algo_name: str, sim: SimConfig,
         else float("nan")
     if return_state:
         history["state"], history["layout"] = state, layout
+    return history
+
+
+# ---------------------------------------------------------------------------
+# async regime: virtual-clock gossip
+# ---------------------------------------------------------------------------
+def build_async(algo_name: str, sim: SimConfig, loss_fn, mask: dict,
+                stacked: dict, codec=None, device="cuda"):
+    """The async run's engine and draws -> (runtime, state, schedule):
+    the algorithm's flat push-sum core (dfedpgp's own partition and
+    phases; osgp / dfedavgm on `build_flat_core`), the profile from the
+    fleet knobs, the mailbox ring of depth max(mailbox_depth,
+    push_delay_max + 1), and the run's TopologySchedule (undirected for
+    dfedavgm)."""
+    if algo_name not in ASYNC_ALGOS:
+        raise ValueError(
+            f"runtime='async' drives the push-sum flat engines "
+            f"{ASYNC_ALGOS}; {algo_name!r} has no flat-buffer core")
+    profile = profiles.make_profile(
+        sim.hetero, sim.m, spread=sim.speed_spread,
+        push_delay_max=sim.push_delay_max, availability=sim.availability,
+        seed=sim.seed)
+    if algo_name in FLAT_CORE_ALGOS:
+        algo = build_flat_core(algo_name, loss_fn, mask, sim, codec)
+    else:
+        algo = build_algorithm(algo_name, loss_fn, mask, sim, codec)
+    depth = max(sim.mailbox_depth, sim.push_delay_max + 1)
+    runtime, state = AsyncRuntime.build(algo, stacked, profile, depth=depth,
+                                        device=device)
+    kind = "undirected" if algo_name in UNDIRECTED_ALGOS else sim.topology
+    schedule = topology.get_schedule(kind, sim.m, sim.n_neighbors, sim.seed)
+    return runtime, state, schedule
+
+
+def async_round(runtime: AsyncRuntime, state, schedule, data,
+                sim: SimConfig, tick0: int, wire_edges=0, *, sampler=None,
+                batches_at: Optional[Callable] = None,
+                topology_at: Optional[Callable] = None,
+                sampled_at: Optional[Callable] = None,
+                on_tick: Optional[Callable] = None):
+    """Advance one sync-equivalent WINDOW of k_v + k_u ticks.  Each tick
+    draws one minibatch per client (`seeded_generator(seed, BATCH_STREAM,
+    t)`, or `batches_at(t)`), the tick's pull table (`schedule.at(t)` or
+    `topology_at(t)`) in its lazy push form (`to_push_sparse`: the sender
+    keeps 1/2, or its `staleness_self_weight` under stale_discount), the
+    participation mask (`sampler.active_mask(t)` or `sampled_at(t)`), and
+    runs `runtime.tick`.  A full-rate client completes one local round
+    per window.  on_tick(t, state, metrics): called after each tick.
+    -> (state, last metrics, next tick, wire_edges) — wire_edges sums the
+    payload-carrying edges on the device."""
+    dev = state.flat.device
+    self_weight = topology.staleness_self_weight(
+        runtime.profile.push_delay.cpu()) if sim.stale_discount else 0.5
+    metrics = {}
+    for t in range(tick0, tick0 + runtime.k_total):
+        if batches_at is not None:
+            b = _as_batches(batches_at(t), dev)
+        else:
+            b = sample_batches(seeded_generator(sim.seed, BATCH_STREAM, t),
+                               data, 1, sim.batch)
+        batch = {k: a[:, 0] for k, a in b.items()}
+        P = _as_topology(topology_at(t) if topology_at is not None
+                         else schedule.at(t))
+        P = topology.to_push_sparse(P, self_weight=self_weight).to(dev)
+        part = None
+        if sampler is not None or sampled_at is not None:
+            mask = sampled_at(t) if sampled_at is not None \
+                else sampler.active_mask(t)
+            part = torch.as_tensor(np.asarray(mask), dtype=torch.bool,
+                                   device=dev)
+        state, metrics = runtime.tick(state, P, batch, participation=part)
+        wire_edges = wire_edges + metrics["wire_edges"]
+        if on_tick is not None:
+            on_tick(t, state, metrics)
+    return state, metrics, tick0 + runtime.k_total, wire_edges
+
+
+def async_experiment(algo_name: str, sim: SimConfig, model_cfg, data,
+                     loss_fn, mask: dict, stacked: dict, dev, *, codec=None,
+                     sampler=None, eval_every: int = 10,
+                     return_state: bool = False,
+                     batches_at: Optional[Callable] = None,
+                     topology_at: Optional[Callable] = None,
+                     sampled_at: Optional[Callable] = None) -> dict:
+    """The runtime="async" leg of `run_experiment`: the same data, model
+    and protocol constants, but rounds become windows of ticks on the
+    virtual clock (`async_round`).  The wire meter is the sync one's
+    `obs.gauges` arithmetic on the run's flat width: the lossy codec's
+    reference bootstrap plus every fired payload-carrying edge times the
+    payload row bytes.  round_s: wall seconds per window, each ending in
+    a device sync on CUDA."""
+    runtime, state, schedule = build_async(algo_name, sim, loss_fn, mask,
+                                           stacked, codec, dev)
+    d_flat = runtime.layout.d_flat
+    wire_rb = gauges.payload_row_bytes(runtime.algo.codec, d_flat)
+    wire_boot = gauges.bootstrap_bytes(runtime.algo.codec, sim.m, d_flat)
+    history = {"round": [], "acc": [], "loss": [], "vtime": [],
+               "wire_bytes": [], "mean_local_rounds": [], "round_s": [],
+               "algo": algo_name, "runtime": "async", "device": str(dev)}
+    tick, wire_edges = 0, 0
+    for r in range(sim.rounds):
+        t_window = time.perf_counter()
+        state, metrics, tick, wire_edges = async_round(
+            runtime, state, schedule, data, sim, tick, wire_edges,
+            sampler=sampler, batches_at=batches_at, topology_at=topology_at,
+            sampled_at=sampled_at)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        history["round_s"].append(time.perf_counter() - t_window)
+        if (r + 1) % eval_every == 0 or r == sim.rounds - 1:
+            acc, _ = evaluate(runtime.eval_params(state), data, model_cfg)
+            history["round"].append(r + 1)
+            history["acc"].append(acc)
+            history["vtime"].append(float(metrics["vtime"]))
+            history["wire_bytes"].append(int(wire_edges) * wire_rb
+                                         + wire_boot)
+            history["loss"].append(float(metrics["loss"]))
+            history["mean_local_rounds"].append(
+                float(state.local_round.to(torch.float32).mean()))
+    history["final_acc"] = history["acc"][-1] if history["acc"] \
+        else float("nan")
+    if return_state:
+        history["state"], history["layout"] = state, runtime.layout
+        history["engine"] = runtime
     return history

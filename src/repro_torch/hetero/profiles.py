@@ -1,7 +1,8 @@
 """Per-client resource profiles: compute speed, push latency, availability.
 
 Port of `repro/hetero/profiles.py`.  A `ClientProfile` is a NamedTuple of
-(m,) numpy arrays describing how each client behaves on the virtual clock:
+(m,) arrays describing how each client behaves on the virtual clock — numpy
+as the samplers build them, or tensors on a device after `to(device)`:
 
 - `step_cost`   — virtual ticks one local SGD step takes (1.0 = fastest);
 - `push_delay`  — delivery delay class of the client's pushes, in ticks;
@@ -13,13 +14,16 @@ Port of `repro/hetero/profiles.py`.  A `ClientProfile` is a NamedTuple of
 The samplers draw from `numpy.random.default_rng(seed)` exactly as the
 reference does, so a profile is equal to the reference's for the same
 arguments.  The sync regime uses the profiles for trace-driven
-participation (`core.sampling`) and the Table 3 step gates (`tier_gates`).
+participation (`core.sampling`) and the Table 3 step gates (`tier_gates`);
+the async runtime (`hetero.runtime`) moves its profile to the buffer's
+device once and asks `available(t)` every tick.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 
 class ClientProfile(NamedTuple):
@@ -32,6 +36,24 @@ class ClientProfile(NamedTuple):
     @property
     def m(self) -> int:
         return self.step_cost.shape[0]
+
+    def to(self, device) -> "ClientProfile":
+        """The profile as tensors on `device` (the async runtime moves it
+        across once; validate the numpy profile first)."""
+        return ClientProfile(*(torch.as_tensor(a).to(device) for a in self))
+
+    def available(self, t) -> torch.Tensor:
+        """(m,) bool tensor — which clients are reachable at virtual time t,
+        on the device of the fields (the CPU for numpy fields).  f32
+        arithmetic as the reference's: ((t + phase) mod period) < duty *
+        period, where t + phase >= 0 and period >= 1, so the mod is the
+        exact `fmod`."""
+        period_raw, duty, phase = (torch.as_tensor(a) for a in (
+            self.avail_period, self.avail_duty, self.avail_phase))
+        period = torch.clamp(period_raw, min=1.0)
+        # t adds as an f32 scalar: no copy to the device
+        on = torch.fmod(phase + float(t), period) < duty * period
+        return torch.where(period_raw <= 0.0, True, on)
 
 
 def _rng(seed: int) -> np.random.Generator:

@@ -311,7 +311,11 @@ def test_run_experiment_refusals_match_reference():
     with pytest.raises(ValueError, match="init_state"):
         tsim.run_experiment("dfedpgp", tsim.SimConfig(**sim), device="cpu",
                             init_state=object())
-    for algo in ("osgp", "fedavg"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tsim.run_experiment(algo, tsim.SimConfig(runtime="async",
+    # the async runtime drives the push-sum flat engines: osgp runs, a
+    # CFL baseline raises the reference's ValueError
+    h = tsim.run_experiment("osgp", tsim.SimConfig(runtime="async", **sim),
+                            device="cpu")
+    assert h["runtime"] == "async" and np.isfinite(h["final_acc"])
+    with pytest.raises(ValueError, match="push-sum"):
+        tsim.run_experiment("fedavg", tsim.SimConfig(runtime="async",
                                                      **sim), device="cpu")

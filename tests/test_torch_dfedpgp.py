@@ -192,27 +192,67 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     assert np.isfinite(h["final_acc"]) and len(h["acc"]) == 1
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(runtime="async"), "item 11"),
-    (dict(runtime="async", mailbox_depth=8), "item 11"),
-    (dict(stale_discount=True), "item 11"), (dict(mailbox_depth=8),
-                                             "item 11"),
-    (dict(spec=object()), "item 13")])
-def test_unported_simconfig_knobs_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tsim.run_experiment("dfedpgp", tsim.SimConfig(m=4, **kw),
+def test_unported_simconfig_knobs_raise():
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tsim.run_experiment("dfedpgp", tsim.SimConfig(m=4, spec=object()),
                             device="cpu")
+
+
+ASYNC_TINY = dict(m=4, rounds=1, n_neighbors=2, n_train=8, n_test=4,
+                  batch=4, k_local=1, k_personal=1, runtime="async")
+
+
+def _build_async(**kw):
+    from repro_torch.hetero import profiles
+    from repro_torch.hetero.runtime import AsyncRuntime
+    stacked = tcnn.init_params(torch.Generator().manual_seed(0), CFG_T,
+                               (4,))
+    mask = tpartition.build_mask(stacked, tpartition.classifier_personal)
+    algo = tdfedpgp.DFedPGP(loss_fn=lambda p, b: tcnn.loss_fn(p, b, CFG_T),
+                            mask=mask, **kw.pop("algo", {}))
+    return AsyncRuntime.build(algo, stacked, kw.pop("profile", profiles
+                                                    .uniform(4)),
+                              device="cpu", **kw)
+
+
+# the reference's async rejections (tests/test_hetero_async.py:271, :387)
+@pytest.mark.parametrize("case,match", [
+    ("fedavg", "push-sum"), ("step_gates", "step_gates"),
+    ("warp", "runtime"), ("depth", "depth"), ("auto", "codec_gamma"),
+    ("mix_fn", "mix_fn")])
+def test_async_rejections(case, match):
+    sim = tsim.SimConfig(**ASYNC_TINY)
+    with pytest.raises(ValueError, match=match):
+        if case == "fedavg":
+            tsim.run_experiment("fedavg", sim, device="cpu")
+        elif case == "step_gates":
+            tsim.run_experiment("dfedpgp", sim, device="cpu",
+                                step_gates=np.ones((4, 2), np.float32))
+        elif case == "warp":
+            tsim.run_experiment("dfedpgp", tsim.SimConfig(
+                **dict(ASYNC_TINY, runtime="warp")), device="cpu")
+        elif case == "depth":
+            from repro_torch.hetero import profiles
+            _build_async(profile=profiles.tiered(4, push_delay_max=5),
+                         depth=2)
+        elif case == "auto":
+            tsim.run_experiment("dfedpgp", tsim.SimConfig(
+                **dict(ASYNC_TINY, codec="topk", codec_gamma="auto")),
+                device="cpu")
+        else:
+            _build_async(algo=dict(mix_fn_flat=lambda f, mu, r, P: (f, mu)))
 
 
 def test_unported_algorithms_and_dfedpgp_knobs_raise():
-    # the baselines run in the sync regime; their async leg (and the flat
-    # cores' with a codec) comes with the async runtime
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tsim.run_experiment("osgp", tsim.SimConfig(m=4, runtime="async"),
+    # the async leg of the flat cores runs (with a codec too); a baseline
+    # without one raises the reference's ValueError
+    for algo, kw in (("osgp", {}), ("dfedavgm", dict(codec="topk"))):
+        h = tsim.run_experiment(algo, tsim.SimConfig(**ASYNC_TINY, **kw),
+                                device="cpu")
+        assert h["runtime"] == "async" and np.isfinite(h["final_acc"])
+    with pytest.raises(ValueError, match="push-sum"):
+        tsim.run_experiment("dispfl", tsim.SimConfig(**ASYNC_TINY),
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tsim.run_experiment("dfedavgm", tsim.SimConfig(
-            m=4, codec="topk", runtime="async"), device="cpu")
     mask = {"a": True}
     for kw, item in ((dict(grad_hook_flat=print), "item 14"),
                      (dict(grad_hook=print), "item 14"),

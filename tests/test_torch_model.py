@@ -225,8 +225,13 @@ def test_mix_flat_dense_and_no_sparsity_paths():
     assert torch.equal(pallas, sparse)
     with pytest.raises(ValueError, match="known"):
         tgossip.mix_flat(Pr, flat, mu, mode="matrix")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tgossip.mix_flat(Pr, flat, mu, edge_gate=torch.ones(m, 2))
+    # the async mailbox's edge gate: all ones is the plain mix bit for
+    # bit; a dense P has no (m, k) edge identity and raises
+    gated, gmu = tgossip.mix_flat(Pr, flat, mu, edge_gate=torch.ones(m, 2))
+    _, smu = tgossip.mix_flat(Pr, flat, mu, mode="sparse")
+    assert torch.equal(gated, sparse) and torch.equal(gmu, smu)
+    with pytest.raises(ValueError, match="SparseTopology"):
+        tgossip.mix_flat(Pr.dense(), flat, mu, edge_gate=torch.ones(m, 2))
 
 
 # ---------------------------------------------------------------------------

@@ -60,9 +60,26 @@ line is never printed):
                 topk codec fires (+ one topk_gather per group); the osgp
                 and dfedavgm legs; 25% participation; window and tick
                 times, busy share, the gated gather's device time;
-11. serve     — mixed-user batches served from the trained state through
+11. obs       — the telemetry spine: telemetry-on runs through
+                run_experiment with a JSONL sink (5 rounds with graph
+                records every 2, 3 sampled rounds, 3 topk codec rounds, 2
+                async windows), each bitwise its telemetry-off run with
+                the same launches (cuDNN deterministic; two default runs'
+                gap reported); mass_total = m in every record; report
+                --check; the flight recorder's mass-drift trip and
+                post-mortem; maybe_trace naming the gather; peak memory;
+                metered serving at B 1, 64, 1024; ms per round with
+                telemetry off / on / on with a sink, and per graph
+                snapshot;
+12. checkpoint — resumed runs bitwise the uninterrupted ones: the resident
+                state after round 3 of 5 restored into a zeroed template
+                on the card, the topk codec state (ef / ref), the async
+                state with its profile after 7 of 12 ticks; serving from
+                from_checkpoint bitwise from_train_state's; a bf16 leaf;
+                save and restore ms and bytes;
+13. serve     — mixed-user batches served from the trained state through
                 head_gather_matmul, against force="ref" and serve_naive;
-12. lm        — recurrentgemma-9b at full width and depth (38 layers, f32
+14. lm        — recurrentgemma-9b at full width and depth (38 layers, f32
                 params drawn on the card, bf16 compute): prefill_logits
                 at B 2, S 4096 (12 flash_attention and 26 rglru launches
                 per prefill, finite logits, median ms, each kernel's
@@ -70,7 +87,7 @@ line is never printed):
                 memory; then reduced() in f32 and in bf16 (the wgmma flash
                 route) on the card against the CPU (prefill, 24 decode
                 steps across the ring wrap, caches);
-13. timings   — each kernel at its path's shape: kernel, plain and
+15. timings   — each kernel at its path's shape: kernel, plain and
                 library-call ms (CUDA events), the card's bound, launches;
                 gossip_gather, pushsum_mix and topk_gather also at m = 1024,
                 gossip_gather also at the baselines' full-model widths,
@@ -88,6 +105,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import re
 import statistics
@@ -97,8 +115,8 @@ import time
 from pathlib import Path
 
 PHASES = ("device", "build", "kernels", "train", "parity", "sampled",
-          "kernel_mix", "compress", "baselines", "async", "serve", "lm",
-          "timings")
+          "kernel_mix", "compress", "baselines", "async", "obs",
+          "checkpoint", "serve", "lm", "timings")
 # the paper's comparison rows (the port's simulator.ALGOS but dfedpgp)
 BASELINES = ("local", "fedavg", "fedper", "fedrep", "fedbabu", "ditto",
              "dfedavgm", "dfedavgm-p", "osgp", "dispfl")
@@ -2404,6 +2422,483 @@ def phase_async(ctx):
          seconds=round(time.perf_counter() - t_phase, 3))
 
 
+def _hold_bitwise(torch, a, b, what: str) -> int:
+    """Every leaf of two states (NamedTuples, dicts, tensors, host ints)
+    equal bit for bit -> the number of leaves held."""
+    la, lb = dict(_state_leaves(a)), dict(_state_leaves(b))
+    check(la.keys() == lb.keys(),
+          f"{what}: leaves differ {sorted(set(la) ^ set(lb))}")
+    for name, x in la.items():
+        y = lb[name]
+        if hasattr(x, "is_cuda"):
+            check(x.dtype == y.dtype and x.device == y.device
+                  and torch.equal(x, y),
+                  f"{what}: {name} differs by {max_abs(x, y)}")
+        else:
+            check(x == y, f"{what}: {name} {x} != {y}")
+    return len(la)
+
+
+def _add_counts(total: dict, counts: dict) -> dict:
+    return {k: total.get(k, 0) + v for k, v in counts.items()}
+
+
+@contextlib.contextmanager
+def _cudnn_deterministic(torch):
+    """cuDNN held to its deterministic algorithms for the span, the flag
+    restored after: a bitwise comparison of two runs on the card needs
+    each run to repeat itself, and with cuDNN's default choice the sampled
+    rounds do not (phase `obs` measures the gap)."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def _rerun_gap(torch, runs) -> float:
+    """Max |a - b| over every tensor leaf of two runs' final states."""
+    a, b = (dict(_state_leaves(h["state"])) for h in runs)
+    return max(max_abs(x, b[k]) for k, x in a.items()
+               if hasattr(x, "is_cuda"))
+
+
+def phase_obs(ctx):
+    """The observability spine at the paper's defaults (m 100, d_flat
+    13,328, random topology with 10 neighbours): telemetry-on runs through
+    run_experiment with a JSONL sink, each held bit for bit against the
+    same run with telemetry off, cuDNN deterministic (two runs with its
+    default algorithms are reported, not gated) (5 rounds with graph
+    records every 2, 3
+    sampled rounds at frac 0.25, 3 topk codec rounds with gamma "auto"
+    under gossip="pallas", 2 async windows of tiered speeds and delays up
+    to 2), with the same kernel launches; mass_total = m in every record;
+    the port's report --check on the JSONL; a flight recorder tripped by
+    mu scaled by 1.01; maybe_trace's file naming the gather kernel; the
+    peak device memory; metered serving at B 1, 64, 1024; ms per round
+    with telemetry off, on, and on with a sink, and per graph snapshot."""
+    torch = ctx["torch"]
+    import io
+    import os
+    import shutil
+    import tempfile
+    from repro_torch import obs
+    from repro_torch.core import topology
+    from repro_torch.data import make_dataset
+    from repro_torch.fl.simulator import SimConfig, run_experiment
+    from repro_torch.kernels import ops
+    from repro_torch.obs import flight, gauges, graph, record, report
+    from repro_torch.serve import ServeMeter, from_train_state, \
+        make_cnn_server
+    from repro_torch.spec import make_algo_spec
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    jsonl = os.path.join(tmp, "run.jsonl")
+    sink = obs.JsonlSink(jsonl)
+    runs = {
+        "sync": (dict(rounds=5), dict(graph_every=2)),
+        "sampled": (dict(rounds=3), dict(participation="uniform",
+                                         participation_frac=0.25)),
+        "codec": (dict(rounds=3), dict(codec="topk", codec_gamma="auto",
+                                       gossip="pallas")),
+        "async": (dict(rounds=2, runtime="async", hetero="tiered",
+                       speed_spread=5.0, push_delay_max=2,
+                       mailbox_depth=4), dict(graph_every=2)),
+    }
+    out, hists, path_counts = {}, {}, {}
+
+    def leg(name, tel, snk=None):
+        sim_kw, spec_kw = runs[name]
+        kw = dict(spec_kw)
+        if not tel:
+            kw.pop("graph_every", None)
+        sim = SimConfig(spec=make_algo_spec("dfedpgp", telemetry=tel, **kw),
+                        **sim_kw)
+        ops.reset_launch_counts()
+        h = run_experiment("dfedpgp", sim, device="cuda",
+                           eval_every=sim.rounds, return_state=True,
+                           sink=snk)
+        return h, ops.launch_counts()
+
+    # run to run on the card: the telemetry-off sampled leg twice with
+    # cuDNN's default algorithms, then twice deterministic (reported)
+    probe = {"default_cudnn": _rerun_gap(torch, [leg("sampled", False)[0]
+                                                 for _ in range(2)])}
+    with _cudnn_deterministic(torch):
+        probe["deterministic_cudnn"] = _rerun_gap(
+            torch, [leg("sampled", False)[0] for _ in range(2)])
+    print(f"# obs rerun probe: {probe}", file=sys.stderr, flush=True)
+    out["rerun_max_abs"] = probe
+    check(probe["deterministic_cudnn"] == 0.0,
+          f"two deterministic telemetry-off runs differ: {probe}")
+    for name in runs:
+        with _cudnn_deterministic(torch):
+            legs = {tel: leg(name, tel, sink if tel else None)
+                    for tel in (False, True)}
+        (h_off, c_off), (h_on, c_on) = legs[False], legs[True]
+        leaves = _hold_bitwise(torch, h_on["state"], h_off["state"],
+                               f"obs {name}: telemetry on vs off")
+        check(c_on == c_off, f"obs {name}: launches on {c_on} vs off "
+                             f"{c_off}")
+        r = runs[name][0]["rounds"]
+        want = {"sync": {"gossip_gather": r},
+                "sampled": {"gossip_gather": r, "gossip_scatter": r},
+                "codec": {"gossip_gather": r, "topk_gather": r}}.get(name)
+        if want is not None:
+            check(all(c_on[k] == want.get(k, 0) for k in c_on),
+                  f"obs {name}: launches {c_on}, want {want}")
+        else:
+            check(c_on["gossip_gather"] > 0
+                  and sum(c_on.values()) == c_on["gossip_gather"],
+                  f"obs {name}: launches {c_on}")
+        path_counts = _add_counts(path_counts, c_on)
+        hists[name] = h_on
+        out[name] = {"rounds": r, "leaves_bitwise": leaves,
+                     "launches": c_on, "loss": h_on["loss"],
+                     "acc": h_on["acc"],
+                     "round_ms_on": [t * 1e3 for t in h_on["round_s"]],
+                     "round_ms_off": [t * 1e3 for t in h_off["round_s"]]}
+    sink.close()
+
+    # the records: every ledger at m; the port's --check gate
+    recs = list(record.load_jsonl(jsonl))
+    m = SimConfig().m
+    kinds = [rec["kind"] for rec in recs]
+    check(kinds.count("round") == 5 + 3 + 3 and kinds.count("tick") == 2
+          and kinds.count("graph") == 2 + 1, f"record kinds {kinds}")
+    for rec in recs:
+        check("mass_total" in rec and abs(rec["mass_total"] - m)
+              <= 1e-5 * m, f"{rec['kind']} {rec['step']}: mass_total "
+                           f"{rec.get('mass_total')}")
+        check(rec["kind"] == "graph" or "consensus_gap_mean" in rec,
+              f"{rec['kind']} {rec['step']}: no gauges")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = report.main([jsonl, "--check"])
+    check(rc == 0, f"report --check exit {rc}")
+    out["records"] = {"count": len(recs), "kinds": sorted(set(kinds)),
+                      "bytes": os.path.getsize(jsonl),
+                      "report_check": buf.getvalue().strip()
+                      .splitlines()[-1],
+                      "graph_contraction": [r["contraction"] for r in recs
+                                            if r["kind"] == "graph"]}
+
+    # the flight recorder: the sync run's records, then mu scaled by 1.01
+    st = hists["sync"]["state"]
+    fr = flight.FlightRecorder(obs.RingSink(64), dump_dir=tmp)
+    sync_recs = [r for r in recs if r["kind"] == "round"][:5]
+    for rec in sync_recs:
+        fr.emit(rec)
+    check(fr.alerts == [], f"healthy run tripped {fr.alerts}")
+    fr.emit(obs.round_record(
+        run=sync_recs[0]["run"], algo="dfedpgp", step=6, wire_bytes=0,
+        **gauges.to_host(gauges.mass_ledger(st.mu * 1.01))))
+    check([a["detector"] for a in fr.alerts] == ["mass-drift"],
+          f"flight alerts {fr.alerts}")
+    pm = flight.load_postmortem(fr.dumps[0])
+    check(pm["alert"]["step"] == 6 and len(pm["records"]) == 6,
+          f"post-mortem {pm['alert']}, {len(pm['records'])} records")
+    out["flight"] = {"alert": fr.alerts[0]["reason"],
+                     "postmortem_records": len(pm["records"])}
+
+    # maybe_trace: one telemetry-on round; the trace names the gather
+    # (an empty profiler window is retried, as `profiled` does)
+    sim = SimConfig()
+    algo, cfg = _paper_algo(sim, torch, telemetry=True)
+    layout = hists["sync"]["layout"]
+    data = make_dataset(sim.seed, sim.m, n_train=sim.n_train,
+                        n_test=sim.n_test, device="cuda")
+    sched = topology.get_schedule("random", sim.m, sim.n_neighbors,
+                                  sim.seed)
+    tables = [sched.at(r).to("cuda") for r in range(12)]
+    batches = [_round_batches(sim, data, 700 + r, torch) for r in range(12)]
+    trace_dir = os.path.join(tmp, "trace")
+    named = False
+    for attempt in range(1, 4):
+        with obs.maybe_trace(trace_dir):
+            algo.round_fn_flat(st, tables[0], batches[0], layout)
+            torch.cuda.synchronize()
+        newest = max(os.listdir(trace_dir))
+        with open(os.path.join(trace_dir, newest)) as f:
+            text = f.read()
+        named = "gossip_gather" in text
+        if named:
+            break
+    check(named, "maybe_trace: no gossip_gather kernel in the trace")
+    out["trace"] = {"attempts": attempt, "bytes": len(text)}
+    peak = gauges.peak_device_memory()
+    check(isinstance(peak, int) and peak > 0, f"peak memory {peak}")
+    out["peak_device_memory"] = peak
+
+    # metered serving from the telemetry run's state
+    ring = obs.RingSink(256)
+    meter = ServeMeter(sink=ring, run="obs-serve")
+    server = make_cnn_server(from_train_state(st, layout=layout), cfg,
+                             device="cuda", meter=meter)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    ops.reset_launch_counts()
+    calls = 0
+    for B in (1, 64, 1024):
+        uid = torch.randint(0, sim.m, (B,), generator=g, device="cuda",
+                            dtype=torch.int32)
+        x = data.x_test[uid.long(), torch.arange(B, device="cuda")
+                        % sim.n_test]
+        for _ in range(5):
+            logits = server(uid, x)
+            calls += 1
+        check(logits.shape == (B, sim.n_classes)
+              and bool(torch.isfinite(logits).all()), f"serve B={B}")
+    counts = ops.launch_counts()
+    check(counts["head_gather_matmul"] == calls
+          and sum(counts.values()) == calls, f"metered serve {counts}")
+    path_counts = _add_counts(path_counts, counts)
+    check([(r["path"], r["batch"]) for r in ring.records][::5]
+          == [("fused", 1), ("fused", 64), ("fused", 1024)],
+          "serve records")
+    for rec in ring.records:
+        record.validate(rec)
+    out["serve"] = {"calls": calls, "launches": counts,
+                    "stats": meter.stats()}
+
+    # timings: host ms per round (each ending in a device sync) with
+    # telemetry off, on, and on with a sink (the gauges fetched in one
+    # sync, a JSONL record written), two passes of 12 rounds each, the
+    # second in reverse order (the median of the last 10 of each pass,
+    # the smaller pass kept); and per graph snapshot
+    algo_off, _ = _paper_algo(sim, torch)
+    tsink = obs.JsonlSink(os.path.join(tmp, "timing.jsonl"))
+    variants = {"off": (algo_off, None), "on": (algo, None),
+                "on_sink": (algo, tsink)}
+    per_pass = {k: [] for k in variants}
+    for order in (list(variants), list(variants)[::-1]):
+        for key in order:
+            (a, snk), s, ms = variants[key], _clone_flat_state(st), []
+            for r in range(12):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                s, mt = a.round_fn_flat(s, tables[r], batches[r], layout)
+                if snk is not None:
+                    snk.emit(obs.round_record(
+                        run="timing", algo="dfedpgp", step=r + 1,
+                        wire_bytes=0, **gauges.to_host(mt)))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            per_pass[key].append(statistics.median(ms[2:]))
+    tsink.close()
+    # where telemetry's time goes: 3 rounds of each under the profiler
+    profile = {}
+    for key in ("off", "on"):
+        def run(a=variants[key][0]):
+            s = st
+            for r in range(3):
+                s, _ = a.round_fn_flat(s, tables[r], batches[r], layout)
+
+        _, events, wall_ms = profiled(torch, run, cpu=True)
+        profile[key] = {
+            "wall_ms_per_round": wall_ms / 3,
+            "device_busy_ms_per_round": sum(map(_dev_us, events)) / 3e3,
+            "device_events_per_round": sum(e.count for e in events) / 3}
+    gring = obs.RingSink(16)
+    snap_ms = []
+    for r in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph.emit_graph_record(gring, run_id="timing", algo="dfedpgp",
+                                m=sim.m, seed=sim.seed, schedule=sched,
+                                step=r + 1, t0=r, flat=st.flat, mu=st.mu,
+                                personal=st.personal)
+        torch.cuda.synchronize()
+        snap_ms.append((time.perf_counter() - t0) * 1e3)
+    out["timings"] = {
+        "card": ctx["smi"],
+        "ms_per_round": {k: min(v) for k, v in per_pass.items()},
+        "ms_per_round_passes": per_pass,
+        "ms_per_graph_snapshot": statistics.median(snap_ms[1:]),
+        "profile_3_rounds": profile,
+        "note": "host perf_counter around one round_fn_flat at m 100 "
+                "(and for on_sink the one-sync gauge fetch and a JSONL "
+                "write), synchronized on both ends; the graph snapshot "
+                "is emit_graph_record with its own host syncs"}
+    shutil.rmtree(tmp)
+    ctx["obs_launches"] = path_counts
+    emit("obs", card=ctx["smi"], m=sim.m, n_neighbors=sim.n_neighbors,
+         d_flat=layout.d_flat, launches=path_counts, **out,
+         seconds=round(time.perf_counter() - t_phase, 3))
+
+
+def phase_checkpoint(ctx):
+    """Checkpoints at the paper's defaults (m 100, d_flat 13,328), each
+    resumed run held bit for bit against the uninterrupted one (cuDNN
+    deterministic): the resident state saved after round 3 of 5 and
+    restored into a zeroed template on the card; the same with the topk
+    codec's ef / ref (gossip="pallas", gamma "auto"); the async state with
+    its profile after 7 ticks (tiered, delays up to 2), then 5 more ticks;
+    serving from `from_checkpoint` bitwise `from_train_state`'s; a bf16
+    leaf's bits; save and restore ms and file bytes."""
+    with _cudnn_deterministic(ctx["torch"]):
+        _checkpoint_cases(ctx)
+
+
+def _checkpoint_cases(ctx):
+    torch = ctx["torch"]
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+    from repro_torch import checkpoint, compress
+    from repro_torch.core import partition, topology
+    from repro_torch.data import make_dataset, sample_batches
+    from repro_torch.fl import simulator
+    from repro_torch.fl.simulator import SimConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import cnn
+    from repro_torch.serve import from_checkpoint, from_train_state, \
+        make_cnn_server
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    sim = SimConfig()
+    cfg = cnn.CNNConfig(image_size=sim.image_size, n_classes=sim.n_classes)
+    data = make_dataset(31, sim.m, n_train=sim.n_train, n_test=sim.n_test,
+                        device="cuda")
+    init = cnn.init_params(torch.Generator().manual_seed(31), cfg, (sim.m,))
+    sched = topology.get_schedule("random", sim.m, sim.n_neighbors, 31)
+    tables = [sched.at(r).to("cuda") for r in range(5)]
+    batches = [_round_batches(sim, data, 310 + r, torch) for r in range(5)]
+
+    def timed_save(ckdir, step, state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = checkpoint.save_train_state(ckdir, step, state)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        template = checkpoint.zeros_like(state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored, got_step = checkpoint.restore_train_state(ckdir, template)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        check(got_step == step, f"restored step {got_step}")
+        return restored, {"save_ms": save_ms, "restore_ms": restore_ms,
+                          "bytes": os.path.getsize(path + ".npz")}
+
+    out, path_counts, saved = {}, {}, {}
+    cases = {"sync": {}, "codec": dict(
+        codec=compress.get_codec("topk", seed=sim.seed), gossip="pallas",
+        codec_gamma="auto")}
+    for name, kw in cases.items():
+        algo, _ = _paper_algo(sim, torch, **kw)
+        s, layout = algo.init_flat(init, device="cuda")
+        for r in range(3):
+            s, _ = algo.round_fn_flat(s, tables[r], batches[r], layout)
+        restored, io_stats = timed_save(os.path.join(tmp, name), 3, s)
+        check(restored.flat.device.type == "cuda" and (restored.ef is None)
+              == (name == "sync"), f"{name}: restored state")
+        _hold_bitwise(torch, restored, s, f"checkpoint {name}: restore")
+        saved[name] = (algo, layout, _clone_flat_state(s))
+        ops.reset_launch_counts()
+        for r in (3, 4):
+            restored, _ = algo.round_fn_flat(restored, tables[r],
+                                             batches[r], layout)
+        counts = ops.launch_counts()
+        for r in (3, 4):
+            s, _ = algo.round_fn_flat(s, tables[r], batches[r], layout)
+        leaves = _hold_bitwise(torch, restored, s,
+                               f"checkpoint {name}: resumed vs "
+                               f"uninterrupted")
+        want = {"gossip_gather": 2} if name == "sync" else \
+            {"gossip_gather": 2, "topk_gather": 2}
+        check(all(counts[k] == want.get(k, 0) for k in counts),
+              f"checkpoint {name}: launches {counts}")
+        path_counts = _add_counts(path_counts, counts)
+        out[name] = dict(io_stats, leaves_bitwise=leaves, launches=counts,
+                         rounds="3 + 2 of 5")
+
+    # the async state with its profile: 7 ticks, save, 5 more ticks
+    asim = SimConfig(runtime="async", hetero="tiered", speed_spread=5.0,
+                     push_delay_max=2, mailbox_depth=4)
+    mask = partition.build_mask(init, partition.classifier_personal)
+    rt, st, _ = simulator.build_async(
+        "dfedpgp", asim, lambda p, b: cnn.loss_fn(p, b, cfg), mask, init,
+        device="cuda")
+    ticks = []
+    for t in range(12):
+        b = sample_batches(torch.Generator().manual_seed(900 + t), data, 1,
+                           asim.batch)
+        ticks.append((topology.to_push_sparse(sched.at(t)).to("cuda"),
+                      {k: a[:, 0] for k, a in b.items()}))
+    for P, b in ticks[:7]:
+        st, _ = rt.tick(st, P, b)
+    blob, io_stats = timed_save(os.path.join(tmp, "async"), 7,
+                                {"state": st, "profile": rt.profile})
+    _hold_bitwise(torch, blob["state"], st, "checkpoint async: restore")
+    _hold_bitwise(torch, blob["profile"], rt.profile,
+                  "checkpoint async: profile")
+    check(blob["state"].clock.t == 7, f"clock {blob['state'].clock.t}")
+    rt2 = dataclasses.replace(rt, profile=blob["profile"])
+    restored = blob["state"]
+    ops.reset_launch_counts()
+    for P, b in ticks[7:]:
+        restored, _ = rt2.tick(restored, P, b)
+    counts = ops.launch_counts()
+    ops.reset_launch_counts()
+    for P, b in ticks[7:]:
+        st, _ = rt.tick(st, P, b)
+    check(counts == ops.launch_counts() and counts["gossip_gather"] > 0
+          and sum(counts.values()) == counts["gossip_gather"],
+          f"checkpoint async: launches {counts} vs {ops.launch_counts()}")
+    leaves = _hold_bitwise(torch, restored, st,
+                           "checkpoint async: resumed vs uninterrupted")
+    path_counts = _add_counts(path_counts, counts)
+    out["async"] = dict(io_stats, leaves_bitwise=leaves, launches=counts,
+                        ticks="7 + 5")
+
+    # serving from the checkpoint == from the state it holds
+    algo, layout, s3 = saved["sync"]
+    want_server = make_cnn_server(from_train_state(s3, layout=layout), cfg,
+                                  device="cuda")
+    sstate, step = from_checkpoint(os.path.join(tmp, "sync"),
+                                   checkpoint.zeros_like(s3), layout=layout)
+    check(step == 3, f"from_checkpoint step {step}")
+    server = make_cnn_server(sstate, cfg, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    requests = []
+    for B in (1, 64, 1024):
+        uid = torch.randint(0, sim.m, (B,), generator=g, device="cuda",
+                            dtype=torch.int32)
+        x = data.x_test[uid.long(), torch.arange(B, device="cuda")
+                        % sim.n_test]
+        requests.append((uid, x, want_server(uid, x)))
+    ops.reset_launch_counts()
+    for uid, x, want in requests:
+        got = server(uid, x)
+        check(torch.equal(got, want), f"from_checkpoint serve B="
+                                      f"{uid.shape[0]} differs by "
+                                      f"{max_abs(got, want)}")
+    counts = ops.launch_counts()
+    check(counts["head_gather_matmul"] == len(requests)
+          and sum(counts.values()) == len(requests),
+          f"serve launches {counts} for {len(requests)} calls")
+    path_counts = _add_counts(path_counts, counts)
+    out["serve"] = {"batches": [1, 64, 1024], "check": "bitwise",
+                    "launches": counts}
+
+    # a bf16 leaf's bits, on the card
+    bf = {"w": s3.flat.to(torch.bfloat16)}
+    bpath = os.path.join(tmp, "bf16")
+    checkpoint.save_pytree(bpath, bf)
+    back = checkpoint.load_pytree(bpath, checkpoint.zeros_like(bf))
+    check(back["w"].dtype == torch.bfloat16
+          and back["w"].device.type == "cuda"
+          and torch.equal(back["w"].view(torch.int16),
+                          bf["w"].view(torch.int16)), "bf16 bits")
+    out["bf16"] = {"shape": list(bf["w"].shape), "check": "bitwise"}
+    shutil.rmtree(tmp)
+    ctx["checkpoint_launches"] = path_counts
+    emit("checkpoint", card=ctx["smi"], m=sim.m, d_flat=layout.d_flat,
+         launches=path_counts, **out,
+         seconds=round(time.perf_counter() - t_phase, 3))
+
+
 def phase_serve(ctx):
     torch = ctx["torch"]
     from repro_torch import tree
@@ -2787,7 +3282,9 @@ def phase_timings(ctx):
         "baseline_launches": ctx["baseline_launches"]["gossip_gather"],
         "async_launches": ctx["async_launches"]["gossip_gather"],
         "async_codec_launches":
-            ctx["async_codec_launches"]["gossip_gather"]})
+            ctx["async_codec_launches"]["gossip_gather"],
+        "obs_launches": ctx["obs_launches"]["gossip_gather"],
+        "checkpoint_launches": ctx["checkpoint_launches"]["gossip_gather"]})
 
     # head_gather_matmul at the serve path's shapes (m=100, d=64, n=10):
     # H read once, each distinct user's slab and bias read once, uid read
@@ -2840,6 +3337,9 @@ def phase_timings(ctx):
         "source": "src/repro_torch/csrc/head_gather.cu",
         "replaces": "src/repro/kernels/head_gather.py:126",
         "launches": ctx["serve_launches"]["head_gather_matmul"],
+        "obs_launches": ctx["obs_launches"]["head_gather_matmul"],
+        "checkpoint_launches":
+            ctx["checkpoint_launches"]["head_gather_matmul"],
         "max_abs_err": ctx["head_err"], "ms": big["ms"],
         "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
         "bound_by": big["bound_by"], "library_ms": big["library_ms"],
@@ -2924,7 +3424,8 @@ def phase_timings(ctx):
         "writeback_library_ms": wb["library_ms"],
         "writeback_library": "index_copy_ per buffer (2 calls)",
         "shape": [100, 25, 13328], "dtype": "float32",
-        "baseline_launches": ctx["baseline_launches"]["gossip_scatter"]})
+        "baseline_launches": ctx["baseline_launches"]["gossip_scatter"],
+        "obs_launches": ctx["obs_launches"]["gossip_scatter"]})
 
     # pushsum_mix at the kernel-mix path's shape (m=100, d=13,328, f32)
     # and at m = 1024: P and U read once, the output written once;
@@ -3019,6 +3520,8 @@ def phase_timings(ctx):
         "source": "src/repro_torch/csrc/topk_gather.cu",
         "replaces": "src/repro/kernels/topk_gather.py:128",
         "launches": ctx["compress_launches"]["topk_gather"],
+        "obs_launches": ctx["obs_launches"]["topk_gather"],
+        "checkpoint_launches": ctx["checkpoint_launches"]["topk_gather"],
         "max_abs_err": ctx["topk_err"], "ms": main["ms"],
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
@@ -3257,7 +3760,8 @@ def main(argv=None) -> int:
     wanted = set(only) | {"device"}
     needs = {"serve": {"train"}, "compress": {"train"},
              "timings": {"kernels", "train", "sampled", "kernel_mix",
-                         "compress", "baselines", "async", "serve", "lm"}}
+                         "compress", "baselines", "async", "obs",
+                         "checkpoint", "serve", "lm"}}
     for phase in only:
         missing = needs.get(phase, set()) - wanted
         if missing:
@@ -3267,6 +3771,7 @@ def main(argv=None) -> int:
            "parity": phase_parity, "sampled": phase_sampled,
            "kernel_mix": phase_kernel_mix, "compress": phase_compress,
            "baselines": phase_baselines, "async": phase_async,
+           "obs": phase_obs, "checkpoint": phase_checkpoint,
            "serve": phase_serve, "lm": phase_lm,
            "timings": phase_timings}
     t0 = time.perf_counter()

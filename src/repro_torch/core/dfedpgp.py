@@ -21,6 +21,12 @@ Three forms of the round, as in the reference:
 With a wire `codec` the two resident forms cross through the codec branch
 of `gossip.mix_flat` and carry its error-feedback and reference memory in
 `FlatDFedPGPState.ef` / `.ref`; the tree form raises.
+
+`telemetry=True` adds the reference's round gauges to the resident rounds'
+metrics (`_round_gauges`: consensus gap, mass ledger, update and gradient
+norms, wire edges, moved mass, the EF ratio): pure reads of the post-round
+buffer, so the state that flows on is bit for bit the telemetry-off
+state, and telemetry off runs exactly the uninstrumented round.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ from .. import compress, tree
 from ..device import resolve_device, seeded_generator
 from ..kernels import ops
 from ..obs import gauges
+from ..obs import graph as obs_graph
 from ..optim import SGD, SGDState
 from . import gossip, local, partition
 
@@ -73,7 +80,7 @@ class FlatDFedPGPState(NamedTuple):
 
 # knobs of the reference DFedPGP that later slices port: field -> ROADMAP
 # queue 1 item that ports it
-_UNPORTED = {"grad_hook": 14, "grad_hook_flat": 14, "telemetry": 13}
+_UNPORTED = {"grad_hook": 14, "grad_hook_flat": 14}
 # stream of `device.seeded_generator` the codec draws come from
 CODEC_STREAM = 3
 
@@ -110,6 +117,8 @@ class DFedPGP:
     # a float in (0, 1], or "auto": g = ||u|| / (||u|| + ||ef||) clipped
     # to [0.05, 1] each round (`obs.gauges.ef_signal_ratio`)
     codec_gamma: Any = 1.0
+    # round gauges (repro_torch.obs) in the resident rounds' metrics;
+    # the tree-form round_fn refuses them
     telemetry: bool = False
 
     def __post_init__(self):
@@ -206,6 +215,11 @@ class DFedPGP:
             raise ValueError("wire codecs ride the resident flat buffer "
                              "(round_fn_flat / round_fn_sampled); the "
                              "tree-form round_fn has no payload boundary")
+        if self.telemetry:
+            raise ValueError("telemetry gauges read the resident "
+                             "(m, d_flat) buffer (round_fn_flat / "
+                             "round_fn_sampled); the tree-form round_fn "
+                             "has no buffer to gauge")
         dev = state.mu.device
         lr_scale = self._lr_scale(state.round)
         if step_gate_u is None:
@@ -340,16 +354,21 @@ class DFedPGP:
         return vmap(client_v)(personal, opt_v, batches_v, z0, lr_scale)
 
     def _u_step(self, flat, personal, mu, opt_u, batch, lr_scale,
-                layout: gossip.FlatLayout):
+                layout: gossip.FlatLayout, grad_norm: bool = False):
         """One shared step of every client: the gradient at z = u/mu,
         applied to the biased row (not differentiated through the
         de-bias).  batch leaves (m, B, ...); lr_scale (m,).  -> (flat,
-        opt_u, (m,) loss)."""
+        opt_u, (m,) loss), and with grad_norm the (m,) f32 norm of each
+        client's gradient row (what the optimizer consumed) — read after
+        the update, so the step's arithmetic is the same."""
         value_and_grad_u = vmap(grad_and_value(
             local.flat_view_loss(self.loss_fn, layout)))
         z = (flat / mu[:, None]).to(flat.dtype)
         g, loss = value_and_grad_u(z, personal, batch)
         flat2, s2 = self.opt_u.update(g, opt_u, flat, lr_scale[:, None])
+        if grad_norm:
+            return flat2, s2, loss, torch.linalg.vector_norm(
+                g.to(torch.float32), dim=1)
         return flat2, s2, loss
 
     def local_update_flat(self, flat, personal, mu, opt_u, opt_v,
@@ -359,9 +378,11 @@ class DFedPGP:
         flat: (m, d_flat) biased rows; personal: stacked personal leaves;
         batches leaves (m, K, B, ...); lr_scale: 0-d or (m,);
         step_gate_u: (m, K_u) in {0, 1}.  -> (flat, personal, opt_u,
-        opt_v, (loss_v, loss_u)) with (m,) per-client mean losses.  The
-        steps are `_v_steps` and `_u_step`, the functions the async tick
-        (`tick_update_flat`) runs one at a time."""
+        opt_v, (loss_v, loss_u)) with (m,) per-client mean losses, and
+        with telemetry a third (m,) entry, each client's gradient norm
+        averaged over its u-steps.  The steps are `_v_steps` and
+        `_u_step`, the functions the async tick (`tick_update_flat`) runs
+        one at a time."""
         m = flat.shape[0]
         lr_scale = torch.as_tensor(lr_scale, dtype=torch.float32,
                                    device=flat.device).expand(m)
@@ -375,17 +396,21 @@ class DFedPGP:
 
         # ---- u-steps: gradient at z^{t,k} = u^{t,k}/mu, applied to the
         # biased row; a step gate of 1 keeps the step bit for bit ----
-        losses = []
+        losses, norms = [], []
         for k in range(local.n_steps(batches_u)):
-            flat2, s2, loss = self._u_step(
+            flat2, s2, loss, *norm = self._u_step(
                 flat, personal, mu, opt_u, local.step_batch(batches_u, k),
-                lr_scale, layout)
+                lr_scale, layout, grad_norm=self.telemetry)
             gate = step_gate_u[:, k:k + 1]
             flat = (gate * flat2 + (1.0 - gate) * flat).to(flat2.dtype)
             opt_u = SGDState((gate * s2.momentum + (1.0 - gate)
                               * opt_u.momentum).to(s2.momentum.dtype))
             losses.append(loss)
+            norms += norm
         loss_u = torch.stack(losses, dim=1).mean(dim=1)
+        if self.telemetry:
+            return flat, personal, opt_u, opt_v, (
+                loss_v, loss_u, torch.stack(norms, dim=1).mean(dim=1))
         return flat, personal, opt_u, opt_v, (loss_v, loss_u)
 
     def tick_update_flat(self, flat, personal, mu, opt_u, opt_v, batch,
@@ -439,11 +464,13 @@ class DFedPGP:
             m, k_u = next(iter(batches["u"].values())).shape[:2]
             step_gate_u = torch.ones((m, k_u), dtype=torch.float32,
                                      device=state.flat.device)
-        flat, personal, opt_u, opt_v, (loss_v, loss_u) = \
+        flat, personal, opt_u, opt_v, aux = \
             self.local_update_flat(state.flat, state.personal, state.mu,
                                    state.opt_u, state.opt_v, batches["v"],
                                    batches["u"], lr_scale, step_gate_u,
                                    layout)
+        loss_v, loss_u = aux[0], aux[1]
+        flat_local = flat     # post-local / pre-mix buffer (update gauge)
         ef, ref = state.ef, state.ref
         if self.mix_fn_flat is not None:
             flat, mu = self.mix_fn_flat(flat, state.mu, state.round, P)
@@ -457,7 +484,30 @@ class DFedPGP:
                                      state.round + 1, ef, ref)
         metrics = {"loss_v": loss_v.mean(), "loss_u": loss_u.mean(),
                    "mu_min": mu.min(), "mu_max": mu.max()}
+        if self.telemetry:
+            metrics.update(self._round_gauges(
+                flat=flat, mu=mu, mu_pre=state.mu, upd_before=state.flat,
+                upd_after=flat_local, ef_pre=state.ef,
+                grad_norm=aux[2].mean(), P=P))
         return new_state, metrics
+
+    def _round_gauges(self, *, flat, mu, mu_pre, upd_before, upd_after,
+                      ef_pre, grad_norm, P, active_mask=None) -> dict:
+        """The telemetry pack of the resident rounds: 0-d reductions over
+        the post-round buffer — consensus gap, mass ledger, update and
+        gradient norms, wire edges, moved mass (over the PRE-mix mu, the
+        mass in motion this round), and with codec memory the EF signal
+        ratio of the post-local buffer against the residual the mix is
+        about to drain.  Never touches the state that flows on."""
+        g = dict(gauges.consensus_gap(flat, mu))
+        g.update(gauges.mass_ledger(mu, active_mask))
+        g["update_norm"] = gauges.buffer_update_norm(upd_before, upd_after)
+        g["grad_norm"] = grad_norm
+        g["wire_edges"] = gauges.wire_edges(P)
+        g["moved_mass"] = obs_graph.moved_mass(P, mu_pre)
+        if ef_pre is not None:
+            g["ef_ratio"] = gauges.ef_signal_ratio(upd_after, ef_pre)
+        return g
 
     def round_fn_sampled(self, state: FlatDFedPGPState, P_act, active,
                          batches: dict, layout: gossip.FlatLayout,
@@ -499,21 +549,25 @@ class DFedPGP:
         def take(t):
             return t.index_select(0, idx)
 
-        flat_a, personal_a, opt_u_a, opt_v_a, (loss_v, loss_u) = \
+        flat_pre = take(state.flat)     # gathered pre-local rows
+        mu_pre = take(state.mu)
+        flat_a, personal_a, opt_u_a, opt_v_a, aux = \
             self.local_update_flat(
-                take(state.flat), tree.tree_map(take, state.personal),
-                take(state.mu), SGDState(take(state.opt_u.momentum)),
+                flat_pre, tree.tree_map(take, state.personal),
+                mu_pre, SGDState(take(state.opt_u.momentum)),
                 SGDState(tree.tree_map(take, state.opt_v.momentum)),
                 batches["v"], batches["u"], lr_scale, step_gate_u, layout)
+        loss_v, loss_u = aux[0], aux[1]
+        flat_local = flat_a   # post-local / pre-mix compact rows
         if self.codec is not None:
             # codec memory (None for an exact codec) rides with its rows
-            ef_a, ref_a = (None if t is None else take(t)
-                           for t in (state.ef, state.ref))
+            ef_pre, ref_a = (None if t is None else take(t)
+                             for t in (state.ef, state.ref))
             flat_a, mu_a, ef_a, ref_a = self._codec_mix(
-                P_act, flat_a, take(state.mu), ef_a, ref_a, state.round)
+                P_act, flat_a, mu_pre, ef_pre, ref_a, state.round)
         else:
-            ef_a = ref_a = None
-            flat_a, mu_a = gossip.mix_flat(P_act, flat_a, take(state.mu),
+            ef_pre = ef_a = ref_a = None
+            flat_a, mu_a = gossip.mix_flat(P_act, flat_a, mu_pre,
                                            mode=self.gossip,
                                            wire_dtype=self.gossip_dtype)
 
@@ -541,6 +595,16 @@ class DFedPGP:
         metrics = {"loss_v": loss_v.mean(), "loss_u": loss_u.mean(),
                    "mu_min": mu.min(), "mu_max": mu.max(),
                    "n_active": int(idx.shape[0])}
+        if self.telemetry:
+            # the ledger and the consensus gap span the FULL buffer, the
+            # dormant rows' share visible
+            active_mask = torch.zeros(mu.shape, dtype=torch.bool,
+                                      device=dev).index_fill_(0, idx, True)
+            metrics.update(self._round_gauges(
+                flat=flat, mu=mu, mu_pre=mu_pre, upd_before=flat_pre,
+                upd_after=flat_local, ef_pre=ef_pre,
+                grad_norm=aux[2].mean(), P=P_act,
+                active_mask=active_mask))
         return new_state, metrics
 
     def eval_params_flat(self, state: FlatDFedPGPState,

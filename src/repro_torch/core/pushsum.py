@@ -4,8 +4,8 @@
 State per client i: biased shared parameters u_i, push-sum weight mu_i,
 de-biased parameters z_i = u_i / mu_i (Algorithm 1 lines 14-18).  Client
 states are stacked along a leading axis of size m.  The async runtime
-(`hetero.runtime`) reads `total_mass` and `debias_in_flight`; the rest
-serves the diagnostics and the gauges of ROADMAP queue 1 item 13.
+(`hetero.runtime`) reads `total_mass` and `debias_in_flight`;
+`mass_split` is the mass ledger of `obs.gauges`.
 """
 from __future__ import annotations
 

@@ -72,6 +72,12 @@ class SparseTopology(NamedTuple):
     def to(self, device) -> "SparseTopology":
         return SparseTopology(self.idx.to(device), self.w.to(device))
 
+    def __matmul__(self, x):
+        """P @ x: out[i] = sum_j w[i,j] * x[idx[i,j]] for x (m,) or
+        (m, ...), through `gossip.mix_any` (densified when k >= m)."""
+        from . import gossip  # gossip imports this module
+        return gossip.mix_any(self, torch.as_tensor(x))
+
 
 # ---------------------------------------------------------------------------
 # directed graphs
@@ -320,6 +326,17 @@ class TopologySchedule:
             _check_dense_degree(self.m, f"topology={self.kind!r}")
         if self.kind == "exponential" and self.m & (self.m - 1):
             raise ValueError("exponential graph wants power-of-two m")
+
+    @property
+    def period(self) -> int:
+        """Rounds until the schedule repeats: the B of the exponential
+        graph's B-strongly-connected window, 1 for the static graphs, 0
+        for the aperiodic random kinds."""
+        if self.kind == "exponential":
+            return max(int(math.log2(self.m)), 1)
+        if self.kind in ("ring", "full"):
+            return 1
+        return 0
 
     def at(self, t) -> SparseTopology:
         """The round-t mixing pattern (CPU tensors)."""

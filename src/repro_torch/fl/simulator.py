@@ -36,6 +36,14 @@ and pushes its mass through delayed mailboxes (`push_delay_max`,
 Every fire mixes through the CUDA gossip_gather kernel once per delay
 group; a lossy codec under gossip="pallas" adds topk_gather.
 
+The algorithm's knobs are one `spec.AlgoSpec`: `SimConfig(spec=...)`, or
+the legacy SimConfig fields funneled through the same factory
+(`resolve_spec`; a spec next to a non-default legacy knob raises).
+`spec.telemetry` adds the round gauges to the resident rounds' and the
+ticks' metrics, and a `sink=` (`repro_torch.obs`) receives one "round" or
+"tick" record per round or window (one device sync each), plus a "graph"
+record every `spec.graph_every` rounds.
+
 The injection arguments (`data=`, `init_params=`, `init_state=`,
 `topology_at=`, `batches_at=`, `sampled_at=`) replay another run's draws —
 the reference's data, initial parameters or state, neighbor tables,
@@ -53,16 +61,20 @@ import numpy as np
 import torch
 from torch.func import vmap
 
-from .. import compress, tree
-from ..core import baselines, dfedpgp, gossip, partition, sampling, topology
+from .. import obs, tree
+from .. import spec as spec_mod
+from ..core import baselines, dfedpgp, gossip, partition, topology
 from ..core.topology import SparseTopology
 from ..data import ClientData, from_arrays, make_dataset, sample_batches
 from ..device import resolve_device, seeded_generator
+from ..hetero import mailbox as mbox
 from ..hetero import profiles
 from ..hetero.runtime import AsyncRuntime
 from ..models import cnn
 from ..obs import gauges
+from ..obs import graph as obs_graph
 from ..optim import SGD
+from . import compat
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,7 +121,10 @@ class SimConfig:
     # async: slow-link senders keep more of their mass at home
     # (topology.staleness_self_weight) instead of the flat 1/2
     stale_discount: bool = False
-    spec: Optional[object] = None
+    # the one knob surface (spec.AlgoSpec): when set, the legacy knob
+    # fields above (topology, n_neighbors, gossip, resident, codec*,
+    # participation*) must stay at their defaults — resolve_spec raises
+    spec: Optional[spec_mod.AlgoSpec] = None
 
 
 # algo names, as the reference's `simulator.ALGOS`
@@ -117,8 +132,8 @@ ALGOS = ("local", "fedavg", "fedper", "fedrep", "fedbabu", "ditto",
          "dfedavgm", "dfedavgm-p", "osgp", "dispfl", "dfedpgp")
 CFL = ("fedavg", "fedper", "fedrep", "fedbabu", "ditto")
 # algorithms whose mixing must be symmetric (no push-sum de-bias): their
-# schedule is the undirected kind whatever SimConfig.topology says
-UNDIRECTED_ALGOS = ("dfedavgm", "dfedavgm-p", "dispfl")
+# schedule is the undirected kind whatever the topology knob says
+UNDIRECTED_ALGOS = spec_mod.UNDIRECTED_ALGOS
 RUNTIMES = ("sync", "async")
 # the push-sum methods the async runtime drives
 ASYNC_ALGOS = ("dfedpgp", "osgp", "dfedavgm")
@@ -127,22 +142,53 @@ FLAT_CORE_ALGOS = ("osgp", "dfedavgm")
 # stream of `device.seeded_generator` the CFL client sample draws from
 CFL_STREAM = 4
 
-# SimConfig field -> ROADMAP queue 1 item that ports it
-_UNPORTED = {"spec": 13}
 # stream of `device.seeded_generator` the minibatches draw from (a round's
 # in the sync regime, a tick's in the async one)
 BATCH_STREAM = 2
+# legacy SimConfig fields the spec owns (resolve_spec's conflict check)
+_SPEC_KNOBS = ("topology", "n_neighbors", "gossip", "resident", "codec",
+               "codec_ratio", "codec_bits", "codec_gamma",
+               "participation", "participation_frac")
 
 
-def _check_ported(algo_name: str, sim: SimConfig) -> None:
-    if algo_name not in ALGOS:
-        raise ValueError(f"unknown algorithm {algo_name!r}; known: {ALGOS}")
-    defaults = {f.name: f.default for f in dataclasses.fields(SimConfig)}
-    for name, item in _UNPORTED.items():
-        if getattr(sim, name) != defaults[name]:
-            raise NotImplementedError(
-                f"SimConfig({name}={getattr(sim, name)!r}) is not ported "
-                f"yet (ROADMAP queue 1 item {item})")
+def resolve_spec(algo_name: str, sim: SimConfig) -> spec_mod.AlgoSpec:
+    """The run's one AlgoSpec.  `SimConfig(spec=...)` wins, but only when
+    the legacy knobs sit at their defaults — two copies that could
+    disagree raise instead.  Without a spec, the legacy fields go through
+    the one factory (`compat.spec_from_sim`)."""
+    if sim.spec is not None:
+        defaults = {f.name: f.default for f in dataclasses.fields(SimConfig)}
+        clash = [k for k in _SPEC_KNOBS if getattr(sim, k) != defaults[k]]
+        if clash:
+            raise ValueError(
+                f"SimConfig(spec=...) conflicts with legacy knob(s) "
+                f"{clash}: the spec owns them now — drop the duplicated "
+                f"SimConfig fields (or drop spec= to keep the deprecated "
+                f"surface)")
+        if sim.spec.algo != algo_name:
+            raise ValueError(
+                f"spec.algo={sim.spec.algo!r} but the experiment runs "
+                f"{algo_name!r}; one spec describes one algorithm")
+        return sim.spec
+    return compat.spec_from_sim(sim, algo_name)
+
+
+def _spec_view(sim: SimConfig, sp: spec_mod.AlgoSpec) -> SimConfig:
+    """sim with its legacy knob fields set to the spec's values (spec
+    None), the form build_algorithm and build_flat_core read."""
+    return dataclasses.replace(
+        sim, spec=None, **{k: getattr(sp, k) for k in _SPEC_KNOBS})
+
+
+# the deprecated knob-surface helpers live in fl/compat.py; PEP 562 keeps
+# `simulator.make_schedule(...)` and the others reachable
+_DEPRECATED = ("make_sim_codec", "make_schedule", "make_sampler")
+
+
+def __getattr__(name):
+    if name in _DEPRECATED:
+        return getattr(compat, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def _sgd(sim: SimConfig) -> SGD:
@@ -154,9 +200,9 @@ _PARTIAL_MODES = {"fedper": "per", "fedrep": "rep", "fedbabu": "babu"}
 
 
 def build_algorithm(name: str, loss_fn, mask: dict, sim: SimConfig,
-                    codec=None):
+                    codec=None, telemetry: bool = False):
     """algo name -> its round engine (`core.baselines` or DFedPGP); codec
-    is DFedPGP's wire codec."""
+    is DFedPGP's wire codec, telemetry its round gauges."""
     kw = dict(loss_fn=loss_fn, opt=_sgd(sim), lr_decay=sim.lr_decay)
     if name == "local":
         return baselines.LocalOnly(**kw)
@@ -181,12 +227,13 @@ def build_algorithm(name: str, loss_fn, mask: dict, sim: SimConfig,
         return dfedpgp.DFedPGP(
             loss_fn=loss_fn, mask=mask, opt_u=kw["opt"], opt_v=kw["opt"],
             k_v=sim.k_personal, k_u=sim.k_local, lr_decay=sim.lr_decay,
-            gossip=sim.gossip, codec=codec, codec_gamma=sim.codec_gamma)
+            gossip=sim.gossip, codec=codec, codec_gamma=sim.codec_gamma,
+            telemetry=telemetry)
     raise ValueError(f"unknown algorithm {name!r}; known: {ALGOS}")
 
 
 def build_flat_core(name: str, loss_fn, mask: dict, sim: SimConfig,
-                    codec=None) -> dfedpgp.DFedPGP:
+                    codec=None, telemetry: bool = False) -> dfedpgp.DFedPGP:
     """The flat-engine push-sum core behind osgp / dfedavgm: DFedPGP that
     gossips the FULL model (all-shared mask, k_v = 0, k_u = k_local +
     k_personal), so their rounds are the k_v = 0 specialization of
@@ -204,7 +251,7 @@ def build_flat_core(name: str, loss_fn, mask: dict, sim: SimConfig,
         opt_u=opt, opt_v=opt, k_v=0, k_u=sim.k_local + sim.k_personal,
         lr_decay=sim.lr_decay,
         gossip="pallas" if sim.gossip == "pallas" else "sparse",
-        codec=codec, codec_gamma=sim.codec_gamma)
+        codec=codec, codec_gamma=sim.codec_gamma, telemetry=telemetry)
 
 
 def evaluate(eval_params: dict, data: ClientData, model_cfg: cnn.CNNConfig):
@@ -252,7 +299,8 @@ def _trace_profile(sim: SimConfig):
 def run_experiment(algo_name: str, sim: SimConfig,
                    model_cfg: Optional[cnn.CNNConfig] = None, *,
                    device="cuda", eval_every: int = 10,
-                   return_state: bool = False,
+                   verbose: bool = False, return_state: bool = False,
+                   return_params: bool = False,
                    step_gates=None, sink=None,
                    data: Optional[ClientData] = None,
                    init_params: Optional[dict] = None,
@@ -271,10 +319,17 @@ def run_experiment(algo_name: str, sim: SimConfig,
     per-round wall seconds `round_s` (each round ends in a device sync on
     CUDA).  return_state adds the final state and, for the resident runs,
     its FlatLayout (`state`, `layout`; the layout is None otherwise) — the
-    resident DFedPGP state is what the serve path takes.  step_gates: (m,
-    K) per-client step gates; dfedpgp gates its k_local shared steps with
-    the first k_local columns, the other algorithms all k_local +
-    k_personal steps.
+    resident DFedPGP state is what the serve path takes; return_params
+    adds the final personalized models (`params`).  verbose prints each
+    evaluation.  step_gates: (m, K) per-client step gates; dfedpgp gates
+    its k_local shared steps with the first k_local columns, the other
+    algorithms all k_local + k_personal steps.
+
+    sink: an `obs.MetricsSink` — every round then emits one "round"
+    record (the round metrics, the wire meter, the phase times and, with
+    spec.telemetry, the gauges; fetching them costs one device sync per
+    round), and with spec.graph_every a "graph" record every that many
+    rounds on the resident runs.
 
     Replay injection (test plumbing): `data` — a ClientData or a 5-tuple
     of arrays; `init_params` — stacked (m, ...) params dict; `init_state`
@@ -291,13 +346,15 @@ def run_experiment(algo_name: str, sim: SimConfig,
     (m, 1, B, ...), `topology_at(t)` the tick's PULL table (the run
     applies `to_push_sparse`) and `sampled_at(t)` the (m,) participation
     mask (participation != "full")."""
-    _check_ported(algo_name, sim)
-    if sink is not None:
-        raise NotImplementedError("metric sinks are ported with "
-                                  "observability (ROADMAP queue 1 item 13)")
-    if sim.gossip not in gossip.MODES:
-        raise ValueError(f"gossip mode {sim.gossip!r}: Regime A mixes "
-                         f"through the matrix engines {gossip.MODES}")
+    if algo_name not in ALGOS:
+        raise ValueError(f"unknown algorithm {algo_name!r}; known: {ALGOS}")
+    sp = resolve_spec(algo_name, sim)
+    if sp.gossip not in gossip.MODES:
+        raise ValueError(
+            f"gossip mode {sp.gossip!r}: Regime A mixes through the "
+            f"matrix engines {gossip.MODES}; 'ppermute' is the sharded "
+            f"trainer's mix")
+    sim = _spec_view(sim, sp)
     if sim.runtime not in RUNTIMES:
         raise ValueError(f"runtime {sim.runtime!r}; known: sync | async")
     run_async = sim.runtime == "async"
@@ -311,8 +368,7 @@ def run_experiment(algo_name: str, sim: SimConfig,
                 f"runtime='async' drives the push-sum flat engines "
                 f"{ASYNC_ALGOS}; {algo_name!r} has no flat-buffer core")
     dev = resolve_device(device)
-    codec = compress.get_codec(sim.codec, ratio=sim.codec_ratio,
-                               bits=sim.codec_bits, seed=sim.seed)
+    codec = sp.make_codec()
     if codec is None and sim.codec_gamma != 1.0:
         raise ValueError(
             f"codec_gamma={sim.codec_gamma} only applies to lossy "
@@ -328,9 +384,7 @@ def run_experiment(algo_name: str, sim: SimConfig,
     # the resident flat buffer: dfedpgp's, or a flat-core codec run's
     use_flat = (algo_name == "dfedpgp" and sim.resident) or \
         (codec is not None and algo_name in FLAT_CORE_ALGOS)
-    sampler = sampling.get_sampler(sim.participation, sim.m,
-                                   sim.participation_frac, sim.seed,
-                                   _trace_profile(sim))
+    sampler = sp.sampler(sim.m, _trace_profile(sim))
     if sampler is not None and not use_flat and not run_async:
         raise ValueError(
             f"partial participation gathers and scatters the resident flat "
@@ -370,17 +424,25 @@ def run_experiment(algo_name: str, sim: SimConfig,
         return async_experiment(
             algo_name, sim, model_cfg, data, loss_fn, mask, stacked, dev,
             codec=codec, sampler=sampler, eval_every=eval_every,
-            return_state=return_state, batches_at=batches_at,
-            topology_at=topology_at, sampled_at=sampled_at)
+            verbose=verbose, return_state=return_state,
+            return_params=return_params, batches_at=batches_at,
+            topology_at=topology_at, sampled_at=sampled_at, spec=sp,
+            sink=sink)
+    if sp.telemetry and not use_flat:
+        raise ValueError(
+            f"spec.telemetry gauges read the resident flat buffer; "
+            f"{algo_name!r} with resident={sp.resident} has no buffer to "
+            f"gauge (use dfedpgp with resident=True or a flat-core codec "
+            f"run)")
     if codec is not None and algo_name in FLAT_CORE_ALGOS:
-        algo = build_flat_core(algo_name, loss_fn, mask, sim, codec)
+        algo = build_flat_core(algo_name, loss_fn, mask, sim, codec,
+                               telemetry=sp.telemetry)
     else:
-        algo = build_algorithm(algo_name, loss_fn, mask, sim, codec)
+        algo = build_algorithm(algo_name, loss_fn, mask, sim, codec,
+                               telemetry=sp.telemetry)
     schedule = None
     if algo_name not in CFL and algo_name != "local":
-        kind = "undirected" if algo_name in UNDIRECTED_ALGOS else sim.topology
-        schedule = topology.get_schedule(kind, sim.m, sim.n_neighbors,
-                                         sim.seed)
+        schedule = sp.schedule(sim.m)
     layout = None
     if init_state is not None:
         if use_flat or isinstance(algo, dfedpgp.DFedPGP):
@@ -419,7 +481,11 @@ def run_experiment(algo_name: str, sim: SimConfig,
     history = {"round": [], "acc": [], "loss": [], "vtime": [],
                "wire_bytes": [], "round_s": [], "algo": algo_name,
                "runtime": "sync", "device": str(dev)}
+    run_id = f"{algo_name}-sync-seed{sim.seed}"
+    timer = obs.PhaseTimer()
+    t0 = time.perf_counter()
     for r in range(sim.rounds):
+        active = None
         if batches_at is not None:
             batches = _as_batches(batches_at(r), dev)
         else:
@@ -451,29 +517,49 @@ def run_experiment(algo_name: str, sim: SimConfig,
             ctx = ctx.to(dev)
             if sim.gossip == "dense" and sampler is None:
                 ctx = ctx.dense()
-        t_round = time.perf_counter()
-        if sampler is not None:
-            state, metrics = algo.round_fn_sampled(
-                state, ctx, act, _split_vu(batches, algo.k_v), layout,
-                step_gate_u=g)
-        else:
-            state, metrics = round_fn(state, ctx, batches, g)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        history["round_s"].append(time.perf_counter() - t_round)
+        # the round ends in a device sync on CUDA (round_s)
+        timer.reset()
+        with timer.phase("round", block=True) as ph:
+            if sampler is not None:
+                state, metrics = algo.round_fn_sampled(
+                    state, ctx, act, _split_vu(batches, algo.k_v), layout,
+                    step_gate_u=g)
+            else:
+                state, metrics = round_fn(state, ctx, batches, g)
+            ph.out = state
+        history["round_s"].append(timer.seconds("round"))
 
+        acc = None
         if (r + 1) % eval_every == 0 or r == sim.rounds - 1:
-            acc, _ = evaluate(eval_params(state), data, model_cfg)
+            with timer.phase("eval"):
+                acc, _ = evaluate(eval_params(state), data, model_cfg)
             history["round"].append(r + 1)
             history["acc"].append(acc)
             history["vtime"].append(float((r + 1) * k_total))
             history["wire_bytes"].append(wire_total)
             history["loss"].append(float(metrics["loss"] if "loss" in
                                          metrics else metrics["loss_u"]))
+            if verbose:
+                print(f"[{algo_name}] round {r + 1:4d} acc={acc:.4f} "
+                      f"({time.perf_counter() - t0:.1f}s)")
+        if sink is not None:
+            sink.emit(obs.round_record(
+                run=run_id, algo=algo_name, step=r + 1, m=sim.m, acc=acc,
+                vtime=float((r + 1) * k_total), wire_bytes=wire_total,
+                **timer.gauges(), **gauges.to_host(metrics)))
+            if sp.graph_every and (r + 1) % sp.graph_every == 0 \
+                    and schedule is not None and use_flat:
+                obs_graph.emit_graph_record(
+                    sink, run_id=run_id, algo=algo_name, m=sim.m,
+                    seed=sim.seed, schedule=schedule, step=r + 1, t0=r,
+                    flat=state.flat, mu=state.mu, personal=state.personal,
+                    active=active)
     history["final_acc"] = history["acc"][-1] if history["acc"] \
         else float("nan")
     if return_state:
         history["state"], history["layout"] = state, layout
+    if return_params:
+        history["params"] = eval_params(state)
     return history
 
 
@@ -481,13 +567,14 @@ def run_experiment(algo_name: str, sim: SimConfig,
 # async regime: virtual-clock gossip
 # ---------------------------------------------------------------------------
 def build_async(algo_name: str, sim: SimConfig, loss_fn, mask: dict,
-                stacked: dict, codec=None, device="cuda"):
+                stacked: dict, codec=None, device="cuda", spec=None):
     """The async run's engine and draws -> (runtime, state, schedule):
     the algorithm's flat push-sum core (dfedpgp's own partition and
-    phases; osgp / dfedavgm on `build_flat_core`), the profile from the
-    fleet knobs, the mailbox ring of depth max(mailbox_depth,
-    push_delay_max + 1), and the run's TopologySchedule (undirected for
-    dfedavgm)."""
+    phases; osgp / dfedavgm on `build_flat_core`; the spec's telemetry),
+    the profile from the fleet knobs, the mailbox ring of depth
+    max(mailbox_depth, push_delay_max + 1), and the spec's
+    TopologySchedule (undirected for dfedavgm)."""
+    sp = spec if spec is not None else resolve_spec(algo_name, sim)
     if algo_name not in ASYNC_ALGOS:
         raise ValueError(
             f"runtime='async' drives the push-sum flat engines "
@@ -496,16 +583,14 @@ def build_async(algo_name: str, sim: SimConfig, loss_fn, mask: dict,
         sim.hetero, sim.m, spread=sim.speed_spread,
         push_delay_max=sim.push_delay_max, availability=sim.availability,
         seed=sim.seed)
-    if algo_name in FLAT_CORE_ALGOS:
-        algo = build_flat_core(algo_name, loss_fn, mask, sim, codec)
-    else:
-        algo = build_algorithm(algo_name, loss_fn, mask, sim, codec)
+    build = build_flat_core if algo_name in FLAT_CORE_ALGOS \
+        else build_algorithm
+    algo = build(algo_name, loss_fn, mask, sim, codec,
+                 telemetry=sp.telemetry)
     depth = max(sim.mailbox_depth, sim.push_delay_max + 1)
     runtime, state = AsyncRuntime.build(algo, stacked, profile, depth=depth,
                                         device=device)
-    kind = "undirected" if algo_name in UNDIRECTED_ALGOS else sim.topology
-    schedule = topology.get_schedule(kind, sim.m, sim.n_neighbors, sim.seed)
-    return runtime, state, schedule
+    return runtime, state, sp.schedule(sim.m)
 
 
 def async_round(runtime: AsyncRuntime, state, schedule, data,
@@ -554,37 +639,50 @@ def async_round(runtime: AsyncRuntime, state, schedule, data,
 def async_experiment(algo_name: str, sim: SimConfig, model_cfg, data,
                      loss_fn, mask: dict, stacked: dict, dev, *, codec=None,
                      sampler=None, eval_every: int = 10,
-                     return_state: bool = False,
+                     verbose: bool = False, return_state: bool = False,
+                     return_params: bool = False,
                      batches_at: Optional[Callable] = None,
                      topology_at: Optional[Callable] = None,
-                     sampled_at: Optional[Callable] = None) -> dict:
+                     sampled_at: Optional[Callable] = None,
+                     spec=None, sink=None) -> dict:
     """The runtime="async" leg of `run_experiment`: the same data, model
     and protocol constants, but rounds become windows of ticks on the
     virtual clock (`async_round`).  The wire meter is the sync one's
     `obs.gauges` arithmetic on the run's flat width: the lossy codec's
     reference bootstrap plus every fired payload-carrying edge times the
     payload row bytes.  round_s: wall seconds per window, each ending in
-    a device sync on CUDA."""
+    a device sync on CUDA.  sink: each window then emits one "tick" record
+    (the last tick's metrics and gauges, the cumulative wire meter), and
+    with spec.graph_every a "graph" record of the in-flight-aware ledger
+    every that many windows."""
+    sp = spec if spec is not None else resolve_spec(algo_name, sim)
     runtime, state, schedule = build_async(algo_name, sim, loss_fn, mask,
-                                           stacked, codec, dev)
+                                           stacked, codec, dev, spec=sp)
     d_flat = runtime.layout.d_flat
     wire_rb = gauges.payload_row_bytes(runtime.algo.codec, d_flat)
     wire_boot = gauges.bootstrap_bytes(runtime.algo.codec, sim.m, d_flat)
     history = {"round": [], "acc": [], "loss": [], "vtime": [],
                "wire_bytes": [], "mean_local_rounds": [], "round_s": [],
                "algo": algo_name, "runtime": "async", "device": str(dev)}
+    run_id = f"{algo_name}-async-seed{sim.seed}"
+    timer = obs.PhaseTimer()
+    t0 = time.perf_counter()
     tick, wire_edges = 0, 0
     for r in range(sim.rounds):
-        t_window = time.perf_counter()
-        state, metrics, tick, wire_edges = async_round(
-            runtime, state, schedule, data, sim, tick, wire_edges,
-            sampler=sampler, batches_at=batches_at, topology_at=topology_at,
-            sampled_at=sampled_at)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        history["round_s"].append(time.perf_counter() - t_window)
+        # the window ends in a device sync on CUDA (round_s)
+        timer.reset()
+        with timer.phase("window", block=True) as ph:
+            state, metrics, tick, wire_edges = async_round(
+                runtime, state, schedule, data, sim, tick, wire_edges,
+                sampler=sampler, batches_at=batches_at,
+                topology_at=topology_at, sampled_at=sampled_at)
+            ph.out = state
+        history["round_s"].append(timer.seconds("window"))
+        acc = None
         if (r + 1) % eval_every == 0 or r == sim.rounds - 1:
-            acc, _ = evaluate(runtime.eval_params(state), data, model_cfg)
+            with timer.phase("eval"):
+                acc, _ = evaluate(runtime.eval_params(state), data,
+                                  model_cfg)
             history["round"].append(r + 1)
             history["acc"].append(acc)
             history["vtime"].append(float(metrics["vtime"]))
@@ -593,9 +691,35 @@ def async_experiment(algo_name: str, sim: SimConfig, model_cfg, data,
             history["loss"].append(float(metrics["loss"]))
             history["mean_local_rounds"].append(
                 float(state.local_round.to(torch.float32).mean()))
+            if verbose:
+                print(f"[{algo_name}/async] window {r + 1:4d} "
+                      f"vtime={float(metrics['vtime']):.0f} acc={acc:.4f} "
+                      f"mass={float(metrics['mass_total']):.3f} "
+                      f"({time.perf_counter() - t0:.1f}s)")
+        if sink is not None:
+            sink.emit(obs.tick_record(
+                run=run_id, algo=algo_name, step=r + 1, m=sim.m, acc=acc,
+                wire_bytes=int(wire_edges) * wire_rb + wire_boot,
+                **timer.gauges(), **gauges.to_host(metrics)))
+            if sp.graph_every and (r + 1) % sp.graph_every == 0:
+                # the in-flight-aware ledger (eval_params' accounting):
+                # mass_total over it is the conserved local + in-flight
+                # total; the age histogram keys off the last tick run
+                mail_f, mail_mu = mbox.in_flight(state.mail)
+                extra = dict(gauges.staleness_gauges(state.local_round))
+                extra.update(obs_graph.mailbox_age_hist(
+                    state.mail.slots_mu, tick - 1))
+                obs_graph.emit_graph_record(
+                    sink, run_id=run_id, algo=algo_name, m=sim.m,
+                    seed=sim.seed, schedule=schedule, step=r + 1, t0=tick,
+                    flat=state.flat + mail_f.to(state.flat.dtype),
+                    mu=state.mu + mail_mu, personal=state.personal,
+                    extra=extra)
     history["final_acc"] = history["acc"][-1] if history["acc"] \
         else float("nan")
     if return_state:
         history["state"], history["layout"] = state, runtime.layout
         history["engine"] = runtime
+    if return_params:
+        history["params"] = runtime.eval_params(state)
     return history

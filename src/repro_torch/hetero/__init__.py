@@ -10,8 +10,8 @@
                push-sum weight at every tick (`repro/hetero/mailbox.py`);
 - `runtime`  — the AsyncRuntime tick engine (`repro/hetero/runtime.py`).
                Its fires mix through the CUDA gossip_gather kernel, and
-               a lossy codec's through topk_gather as well.  The tick's
-               telemetry gauges come with ROADMAP queue 1 item 13.
+               a lossy codec's through topk_gather as well; with
+               `algo.telemetry` each tick reports the reference's gauges.
 """
 from .clock import ClockState, active_mask, advance, init_clock
 from .mailbox import Mailbox

@@ -22,9 +22,11 @@ The reference's `lax.cond(any(fired), ...)` is a host branch on
 fires launches no kernel.  The fire launches one `gossip_gather` per delay
 group (`profile_groups`), and a lossy codec fire one `topk_gather` more
 per group under gossip="pallas".  The tick steps every client and selects
-the active rows, as the reference's vmap does.  The reference's telemetry
-gauges of the tick (`algo.telemetry`) come with ROADMAP queue 1 item 13;
-the tick's metrics are its untelemetered six.
+the active rows, as the reference's vmap does.  With `algo.telemetry` the
+tick's metrics add the reference's gauges (in-flight-aware consensus gap,
+mass ledger with the mailbox, staleness, mailbox occupancy, update norm,
+EF ratio, moved mass over the fired senders): pure reads, so the state is
+bit for bit the telemetry-off state.
 
 Contracts (tests/test_torch_async.py): under the uniform profile with
 zero delay the tick trajectory is bit for bit the resident sync path
@@ -44,6 +46,8 @@ from ..core.dfedpgp import CODEC_STREAM, DFedPGP
 from ..core.topology import SparseTopology
 from ..compress import feedback
 from ..device import resolve_device, seeded_generator
+from ..obs import gauges
+from ..obs import graph as obs_graph
 from ..optim import SGDState
 from . import clock as vclock
 from . import mailbox as mbox
@@ -152,7 +156,8 @@ class AsyncRuntime:
         optional (m,) bool sampler gate AND-ed into the clock's mask: a
         gated-off client neither steps nor fires, its mu freezes, and mass
         fired at it waits in its inbox.  -> (state', metrics): 0-d tensors
-        loss, n_active, n_fired, wire_edges, mass_total, vtime."""
+        loss, n_active, n_fired, wire_edges, mass_total, vtime, and the
+        gauges with telemetry."""
         if not isinstance(P, SparseTopology):
             raise ValueError("async ticks need a SparseTopology topology")
         algo, prof = self.algo, self.profile
@@ -172,6 +177,7 @@ class AsyncRuntime:
         mail, got_f, got_mu = mbox.drain(mail, starters)
         flat = state.flat + got_f.to(state.flat.dtype)
         mu = state.mu + got_mu
+        flat_pre_step = flat   # post-drain view (update gauge)
 
         # 3. one alternating step, taken by the active rows
         lr_scale = self._lr_scale(state.local_round, t)
@@ -184,6 +190,7 @@ class AsyncRuntime:
             return torch.where(active.reshape((-1,) + (1,) * (n.dim() - 1)),
                                n, o)
         flat = sel(flat2, flat)
+        flat_stepped = flat
         personal = tree.tree_map(sel, personal2, state.personal)
         opt_u = SGDState(sel(ou2.momentum, state.opt_u.momentum))
         opt_v = SGDState(tree.tree_map(sel, ov2.momentum,
@@ -218,6 +225,7 @@ class AsyncRuntime:
             else:
                 mail = mbox.push(mail, P, flat, mu, fired, edge_delay, t,
                                  mode=self._mix_mode(), n_groups=groups)
+        mu_at_fire = mu       # pre-zeroing mu: the mass each fire pushed
         flat = torch.where(fired[:, None], 0.0, flat).to(state.flat.dtype)
         mu = torch.where(fired, 0.0, mu)
 
@@ -236,6 +244,25 @@ class AsyncRuntime:
             "mass_total": pushsum.total_mass(mu, mbox.mass(mail)),
             "vtime": torch.tensor(float(clk.t), dtype=torch.float32),
         }
+        if algo.telemetry:
+            # in-flight-aware de-bias (eval_params' accounting): a fired
+            # client's mass, self share included, sits in the mailbox
+            mail_f, mail_mu = mbox.in_flight(mail)
+            metrics.update(gauges.consensus_gap(
+                flat + mail_f.to(flat.dtype), mu + mail_mu))
+            metrics.update(gauges.mass_ledger(mu, active, mbox.mass(mail)))
+            metrics.update(gauges.staleness_gauges(local_round))
+            metrics.update(gauges.mailbox_gauges(mail.slots_mu,
+                                                 mail.inbox_mu))
+            metrics["update_norm"] = gauges.buffer_update_norm(
+                flat_pre_step, flat_stepped)
+            if state.ef is not None:
+                metrics["ef_ratio"] = gauges.ef_signal_ratio(
+                    flat_pre_step, state.ef)
+            # over the table the fires rode (gamma-blended under a lossy
+            # codec)
+            metrics["moved_mass"] = obs_graph.moved_mass(P, mu_at_fire,
+                                                         fired=fired)
         return AsyncState(flat, personal, mu, opt_u, opt_v, phase,
                           local_round, clk, mail, ef, ref), metrics
 

@@ -9,6 +9,10 @@ The serving state stores exactly those two pieces:
   (m, d_flat) buffer via `FlatLayout`;
 - ``personal``: the stacked (m, ...) personal leaves, the per-user
   classifier block the CUDA `head_gather_matmul` kernel gathers from.
+
+Converters accept the resident `FlatDFedPGPState`, the tree-form
+`DFedPGPState`, and a checkpoint directory (`from_checkpoint`, through
+`checkpoint.restore_train_state`).
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ from typing import NamedTuple
 import torch
 
 from .. import tree
+from ..checkpoint import restore_train_state
 from ..core import gossip, partition
 from ..core.dfedpgp import DFedPGPState, FlatDFedPGPState
 
@@ -91,3 +96,16 @@ def from_train_state(state, *, mask=None, layout=None,
                         f"{type(state).__name__}")
     trunk = layout.unravel_row(_consensus_row(flat, mu, consensus))
     return ServingState(trunk=trunk, personal=personal)
+
+
+def from_checkpoint(ckpt_dir: str, template, *, mask=None, layout=None,
+                    consensus="mass"):
+    """-> (ServingState, step).  Restores the latest `step_*.npz` in
+    ckpt_dir against `template` (a FlatDFedPGPState or DFedPGPState of the
+    run's structure; the restored leaves take its dtypes and device) and
+    converts.  bf16 leaves round-trip bit for bit."""
+    state, step = restore_train_state(ckpt_dir, template)
+    if state is None:
+        raise FileNotFoundError(f"no step_*.npz checkpoint in {ckpt_dir}")
+    return from_train_state(state, mask=mask, layout=layout,
+                            consensus=consensus), step

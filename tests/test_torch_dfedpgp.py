@@ -193,9 +193,13 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
 
 
 def test_unported_simconfig_knobs_raise():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tsim.run_experiment("dfedpgp", tsim.SimConfig(m=4, spec=object()),
-                            device="cpu")
+    # every SimConfig knob is ported: spec= is taken, and (as in the
+    # reference) a spec describing another algorithm raises
+    from repro_torch.spec import make_algo_spec
+    assert not hasattr(tsim, "_UNPORTED")
+    with pytest.raises(ValueError, match="one spec"):
+        tsim.run_experiment("dfedpgp", tsim.SimConfig(
+            m=4, spec=make_algo_spec("osgp")), device="cpu")
 
 
 ASYNC_TINY = dict(m=4, rounds=1, n_neighbors=2, n_train=8, n_test=4,
@@ -255,10 +259,12 @@ def test_unported_algorithms_and_dfedpgp_knobs_raise():
                             device="cpu")
     mask = {"a": True}
     for kw, item in ((dict(grad_hook_flat=print), "item 14"),
-                     (dict(grad_hook=print), "item 14"),
-                     (dict(telemetry=True), "item 13")):
+                     (dict(grad_hook=print), "item 14")):
         with pytest.raises(NotImplementedError, match=item):
             tdfedpgp.DFedPGP(loss_fn=print, mask=mask, **kw)
+    # telemetry is ported
+    assert tdfedpgp.DFedPGP(loss_fn=print, mask=mask,
+                            telemetry=True).telemetry
     # the reference's three gossip modes are all accepted; others raise
     for mode in ("dense", "sparse", "pallas"):
         assert tdfedpgp.DFedPGP(loss_fn=print, mask=mask,

@@ -1,6 +1,7 @@
 """Architecture config registry: arch id -> ModelConfig, for the archs the
-port runs so far.  The reference's other archs raise a KeyError naming
-ROADMAP item 15 (the LM architectures still to port)."""
+port runs so far (the hybrid recurrentgemma-9b and the four dense archs).
+The reference's other archs (moe, ssm, encdec, vlm) raise a KeyError
+naming ROADMAP item 15 (the LM architectures still to port)."""
 from __future__ import annotations
 
 import importlib
@@ -11,11 +12,23 @@ from .shapes import SHAPES, InputShape
 
 _MODULES = {
     "recurrentgemma-9b": "recurrentgemma_9b",
+    "codeqwen1.5-7b": "codeqwen1_5_7b",
+    "h2o-danube-1.8b": "h2o_danube_1_8b",
+    "qwen2-0.5b": "qwen2_0_5b",
+    "granite-3-2b": "granite_3_2b",
 }
 # the reference's archs whose family the port does not run yet
 _UNPORTED = ("deepseek-moe-16b", "xlstm-125m", "whisper-large-v3",
-             "codeqwen1.5-7b", "h2o-danube-1.8b", "deepseek-v2-236b",
-             "qwen2-0.5b", "granite-3-2b", "qwen2-vl-7b")
+             "deepseek-v2-236b", "qwen2-vl-7b")
+
+# every arch of the reference, in its registry's order
+ARCH_IDS = ("deepseek-moe-16b", "recurrentgemma-9b", "xlstm-125m",
+            "whisper-large-v3", "codeqwen1.5-7b", "h2o-danube-1.8b",
+            "deepseek-v2-236b", "qwen2-0.5b", "granite-3-2b", "qwen2-vl-7b")
+
+# archs allowed to run the long_500k decode shape (sub-quadratic or
+# windowed attention)
+LONG_CONTEXT_ARCHS = ("recurrentgemma-9b", "xlstm-125m", "h2o-danube-1.8b")
 
 
 def _module(arch_id: str):
@@ -36,4 +49,11 @@ def get_reduced(arch_id: str) -> ModelConfig:
     return _module(arch_id).reduced()
 
 
-__all__ = ["SHAPES", "InputShape", "get_config", "get_reduced"]
+def shape_applicable(arch_id: str, shape_name: str) -> bool:
+    if shape_name == "long_500k":
+        return arch_id in LONG_CONTEXT_ARCHS
+    return True
+
+
+__all__ = ["ARCH_IDS", "SHAPES", "InputShape", "LONG_CONTEXT_ARCHS",
+           "get_config", "get_reduced", "shape_applicable"]

@@ -4,7 +4,7 @@
 //
 // over keys j <= i (and j > i - window when window > 0), hk = h / (H / Hkv).
 // q, out: (B, S, H, hd); k, v: (B, S, Hkv, hd); f32 or bf16, contiguous;
-// hd in {32, 64, 128, 256}, any S.  Masked logits -1e30, online softmax,
+// hd in {32, 64, 80, 128, 256}, any S.  Masked logits -1e30, online softmax,
 // acc / max(l, 1e-30), output rounded once to the input dtype.  Replaces
 // the Pallas TPU kernel repro/kernels/flash_attention.py:76 (_flash_kernel,
 // launched by flash_attention_pallas), which asserts S % bq == 0.
@@ -43,6 +43,20 @@
 //   the wgmma descriptors use the same swizzle.  Rows and keys past S,
 //   and heads past g, are zero-filled by TMA on load and clipped by the
 //   TMA store.
+// - hd 80 (h2o-danube) is no multiple of the 64-wide box: the tiles are
+//   laid out 128 wide (two boxes) while the tensor maps keep the real 80
+//   as their innermost extent (rows of 160 bytes, a multiple of 16).  TMA
+//   zero-fills columns 80-127 of Q, K and V on load (the transaction
+//   counts whole boxes, the filled bytes included) and the store clips
+//   them.  Q K^T runs its k-steps over the 80 real columns only; P V
+//   runs both boxes, and its columns 80-127 are P times zeros, never
+//   stored.
+// - When hb does not divide 128 (g 7: hb 7, P 18, 126 live rows), the Q
+//   box fills the first hb * P rows of the tile.  The idle rows past it
+//   hold whatever shared memory held; each row's scores, softmax and
+//   P V use that row alone (the row max and sum reduce over the 4
+//   threads of the row), and the TMA store's box ends at the last live
+//   row, so nothing of the idle rows reaches a live row or the output.
 // - S = Q K^T on wgmma m64n64k16 (bf16 x bf16, f32 accumulate): the
 //   products of bf16 values are exact in f32, so only the sum order
 //   differs from the plain version.
@@ -77,7 +91,8 @@
 //   and keys tx + 16 j (f32 FMAs over hd), the row max and sum reduced
 //   over the 16 lanes of the row by shuffles; P goes through shared
 //   memory, and the same thread accumulates rows ty + 16 i of P V in
-//   columns 2 tx + 32 c (+1), in registers.
+//   columns 2 tx + 32 c (+1), in registers.  At hd 80 the last group of
+//   32 columns holds 16: only threads tx < 8 own a pair there.
 // Q, K and V tiles of 64 rows at hd 256 exceed 48 KB, so the launch asks
 // for dynamic shared memory with cudaFuncSetAttribute.
 #include <cuda.h>
@@ -126,7 +141,13 @@ __global__ void __launch_bounds__(THREADS)
                            int S, int H, int Hkv, int window, float scale,
                            int bq, int bk) {
   using L = Layout<T, HD>;
-  constexpr int NJ = HD / 32;        // column pairs per thread in P V
+  // column pairs per thread in P V: groups of 32 columns, the last one
+  // TAIL wide (32, or 16 at hd 80), where threads tx < TAIL / 2 own a pair
+  constexpr int NJ = (HD + 31) / 32;
+  constexpr int TAIL = HD - 32 * (NJ - 1);
+  static_assert(HD % 16 == 0 && TAIL % 16 == 0 && TAIL > 0 && TAIL <= 32 &&
+                    32 * (NJ - 1) + TAIL == HD,
+                "the P V column split must cover hd exactly");
   constexpr int HALF = HD / 2;
   extern __shared__ __align__(16) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);
@@ -144,6 +165,10 @@ __global__ void __launch_bounds__(THREADS)
   const int h = blockIdx.y;
   const int hk = h / (H / Hkv);
   const int q0 = qt * bq;
+  // does this thread own a column pair in group cc of P V
+  auto owns = [tx](int cc) {
+    return TAIL == 32 || cc < NJ - 1 || 2 * tx < TAIL;
+  };
 
   const int64_t qrow = static_cast<int64_t>(H) * HD;
   const int64_t krow = static_cast<int64_t>(Hkv) * HD;
@@ -260,6 +285,7 @@ __global__ void __launch_bounds__(THREADS)
         p[i] = i < ri ? Ps[(ty + TY * i) * PST + c] : 0.f;
 #pragma unroll
       for (int cc = 0; cc < NJ; ++cc) {
+        if (!owns(cc)) continue;
         const float2 vv = ld2(Vs + c * L::VST + 2 * tx + 32 * cc);
 #pragma unroll
         for (int i = 0; i < MAX_RI; ++i) {
@@ -279,8 +305,9 @@ __global__ void __launch_bounds__(THREADS)
       const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
       for (int c = 0; c < NJ; ++c)
-        st2(ob + qp * qrow + 2 * tx + 32 * c, acc[i][c][0] / den,
-            acc[i][c][1] / den);
+        if (owns(c))
+          st2(ob + qp * qrow + 2 * tx + 32 * c, acc[i][c][0] / den,
+              acc[i][c][1] / den);
     }
   }
 }
@@ -319,6 +346,9 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B,
     case 64:
       return launch<T, 64>(q, k, v, out, B, S, H, Hkv, window, scale, bq, bk,
                            stream);
+    case 80:
+      return launch<T, 80>(q, k, v, out, B, S, H, Hkv, window, scale, bq, bk,
+                           stream);
     case 128:
       return launch<T, 128>(q, k, v, out, B, S, H, Hkv, window, scale, bq,
                             bk, stream);
@@ -346,16 +376,23 @@ template <int HD>
 struct Cfg {
   static constexpr int SWB = HD >= 64 ? 128 : 64;    // swizzle = box row bytes
   static constexpr int EB = SWB / 2;                 // bf16 per box row
-  static constexpr int NB = HD / EB;                 // boxes across hd
+  static constexpr int NB = (HD + EB - 1) / EB;      // boxes across hd
+  static constexpr int HDP = NB * EB;                // tile width (hd padded)
   static constexpr int NACC = EB / 2;                // f32 accumulators a box
   static constexpr int QBOX = BM * SWB;              // bytes of one Q box
   static constexpr int KBOX = BN * SWB;              // bytes of one K/V box
-  static constexpr int Q_BYTES = BM * HD * 2;
-  static constexpr int KV_BYTES = BN * HD * 2;       // one K (or V) tile
+  static constexpr int Q_BYTES = BM * HDP * 2;
+  static constexpr int KV_BYTES = BN * HDP * 2;      // one K (or V) tile
   static constexpr int BAR_BYTES = 8 * (1 + 4 * STAGES);
   // + 1024 of slack to align the tiles to the swizzle atom
   static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 128;
   static_assert(BAR_BYTES <= 128, "barriers");
+  // the boxes cover hd exactly once, padded by less than one box; Q K^T's
+  // k-steps of 16 cover the real hd
+  static_assert(HD % 16 == 0 && NB * EB == HDP && HDP >= HD &&
+                    HDP - HD < EB && Q_BYTES == NB * QBOX &&
+                    KV_BYTES == NB * KBOX,
+                "the TMA boxes and wgmma steps must cover hd exactly");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -525,7 +562,8 @@ __device__ __forceinline__ void named_arrive(int id) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
 }
 
-// S (64 x 64 keys) = Q (this warpgroup's 64 rows) K^T over hd
+// S (64 x 64 keys) = Q (this warpgroup's 64 rows) K^T over the real hd
+// (a padded tile's zero columns add nothing)
 template <int HD>
 __device__ __forceinline__ void issue_qk(float (&sc)[32], uint32_t q,
                                          uint32_t k) {
@@ -544,7 +582,8 @@ __device__ __forceinline__ void issue_qk(float (&sc)[32], uint32_t q,
   }
 }
 
-// O += P_hi V + P_lo V, V MN-major, one box (EB columns of hd) per wgmma
+// O += P_hi V + P_lo V, V MN-major, one box (EB columns of the tile) per
+// wgmma
 template <int HD>
 __device__ __forceinline__ void issue_pv(
     float (&o)[Cfg<HD>::NB][Cfg<HD>::NACC], const uint32_t (&phi)[16],
@@ -964,6 +1003,8 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B,
       return launch<32>(q, k, v, out, B, S, H, Hkv, window, scale, stream);
     case 64:
       return launch<64>(q, k, v, out, B, S, H, Hkv, window, scale, stream);
+    case 80:
+      return launch<80>(q, k, v, out, B, S, H, Hkv, window, scale, stream);
     case 128:
       return launch<128>(q, k, v, out, B, S, H, Hkv, window, scale, stream);
     case 256:

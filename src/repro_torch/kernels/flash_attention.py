@@ -15,7 +15,9 @@ softmax, acc / max(l, 1e-30), output in q's dtype.  Two routes:
   feeds the whole group; TMA loads K and V in tiles of 64 keys into a
   2-stage ring; Q K^T and P V run on wgmma, P V as P_hi V + P_lo V with
   P = P_hi + P_lo split into two bf16 parts (P is f32 by definition).
-  Its one tile is TC_TILES[0] = (bq 128 folded rows, bk 64 keys).
+  Its one tile is TC_TILES[0] = (bq 128 folded rows, bk 64 keys).  Its
+  tiles are `tc_width(hd)` columns wide: hd 80 is padded to 128 (two
+  64-column boxes, zero-filled past 80 by TMA, clipped on store).
 - f32: one block of 256 threads per (b, h, q-tile), K and V tiles staged
   in shared memory, f32 FMAs; bq / bk are multiples of 16 up to 64.
 
@@ -30,7 +32,7 @@ import torch
 
 from . import _build
 
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 80, 128, 256)
 DEFAULT_BQ = 64                 # f32 route
 DEFAULT_BK = 64
 TC_TILES = ((128, 64),)         # bf16 route: its (folded rows, keys)
@@ -50,6 +52,13 @@ def _lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib._repro_typed = True
     return lib
+
+
+def tc_width(hd: int) -> int:
+    """Columns of the bf16 route's Q, K and V tiles at head dim hd: whole
+    TMA boxes of 64 bf16 (32 at hd 32), so hd 80 takes 128."""
+    eb = 64 if hd >= 64 else 32
+    return -(-hd // eb) * eb
 
 
 def fold(H: int, Hkv: int, rows: int = TC_TILES[0][0]):
@@ -83,20 +92,22 @@ def tc_visits(B: int, S: int, H: int, Hkv: int, window: int) -> int:
 def tc_tile_flops(B: int, S: int, H: int, Hkv: int, hd: int,
                   window: int) -> int:
     """Tensor-core flops the bf16 route issues: every (tile, k-tile) pair
-    it visits, masked keys and idle rows included, Q K^T once and P V
-    twice (P_hi and P_lo)."""
+    it visits, masked keys and idle rows included, Q K^T once over hd and
+    P V twice (P_hi and P_lo) over the tile's `tc_width(hd)` columns."""
     (rows, bk), = TC_TILES
-    return 3 * 2 * rows * bk * hd * tc_visits(B, S, H, Hkv, window)
+    return 2 * rows * bk * (hd + 2 * tc_width(hd)) * tc_visits(
+        B, S, H, Hkv, window)
 
 
 def smem_bytes(dtype: torch.dtype, hd: int, bq: int, bk: int) -> int:
     """Dynamic shared memory of one block, as csrc/flash_attention.cu lays
     it out.  bf16: 1 KB to align the tiles to the swizzle atom, the bq-row
-    Q tile, TC_STAGES K and V tiles of bk keys, 128 bytes of mbarriers.
-    f32: the f32 Q tile, the K and V tiles (rows padded against bank
-    conflicts) and the f32 P tile."""
+    Q tile, TC_STAGES K and V tiles of bk keys (all `tc_width(hd)` wide),
+    128 bytes of mbarriers.  f32: the f32 Q tile, the K and V tiles (rows
+    padded against bank conflicts) and the f32 P tile."""
     if dtype == torch.bfloat16:
-        return 1024 + bq * hd * 2 + 2 * TC_STAGES * bk * hd * 2 + 128
+        w = tc_width(hd)
+        return 1024 + bq * w * 2 + 2 * TC_STAGES * bk * w * 2 + 128
     return bq * (hd + 2) * 4 + bk * (2 * hd + 2) * 4 + bq * (bk + 1) * 4
 
 

@@ -1,15 +1,16 @@
 """Models of the port: the FL simulation CNN (`cnn`), the hybrid LM family
-(`hybrid`, Griffin / RecurrentGemma) and their layers.
+(`hybrid`, Griffin / RecurrentGemma), the dense decoder-only LM family
+(`dense`: qwen2, granite, codeqwen, h2o-danube) and their layers.
 
 Registry counterpart of `repro/models/__init__.py`: one `ModelApi` per
-family the port runs.  The reference's other LM families (dense, moe,
-ssm, encdec, vlm) are still to port (ROADMAP item 15) and raise.
+family the port runs.  The reference's other LM families (moe, ssm,
+encdec, vlm) are still to port (ROADMAP item 15) and raise.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple
 
-from . import hybrid
+from . import dense, hybrid
 from .config import ModelConfig
 
 
@@ -21,10 +22,12 @@ class ModelApi(NamedTuple):
 
 
 _FAMILIES = {
+    "dense": ModelApi(dense.init_params, dense.loss_fn, dense.init_cache,
+                      dense.decode_step),
     "hybrid": ModelApi(hybrid.init_params, hybrid.loss_fn, hybrid.init_cache,
                        hybrid.decode_step),
 }
-_UNPORTED = ("dense", "moe", "ssm", "encdec", "vlm")
+_UNPORTED = ("moe", "ssm", "encdec", "vlm")
 
 
 def _check_family(fam: str) -> None:
@@ -45,7 +48,9 @@ def prefill_logits(params: dict, batch: dict, cfg: ModelConfig):
     """Inference prefill: the full forward, lm_head on the LAST position
     only (the next-token sample point)."""
     _check_family(cfg.family)
-    return hybrid.forward_train(params, batch["tokens"], cfg, last_only=True)
+    fam = dense if cfg.family == "dense" else hybrid
+    return fam.forward_train(params, batch["tokens"], cfg, last_only=True)
 
 
-__all__ = ["ModelConfig", "ModelApi", "get_model", "prefill_logits", "hybrid"]
+__all__ = ["ModelConfig", "ModelApi", "get_model", "prefill_logits", "dense",
+           "hybrid"]

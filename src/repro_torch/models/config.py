@@ -2,9 +2,9 @@
 
 Port of `repro/models/config.py`: one frozen dataclass with the same
 fields, defaults and analytic parameter count; `pdtype` and `cdtype`
-return torch dtypes.  Only the hybrid family runs in the port so far
-(ROADMAP item 15); the other families' fields are kept so that a config
-compares field by field with the reference's.
+return torch dtypes.  Only the hybrid and dense families run in the port
+so far (ROADMAP item 15); the other families' fields are kept so that a
+config compares field by field with the reference's.
 """
 from __future__ import annotations
 

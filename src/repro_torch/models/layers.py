@@ -1,5 +1,5 @@
 """Shared building blocks of `repro/models/layers.py`: the CNN's helpers
-and what the hybrid (Griffin / RecurrentGemma) family uses.
+and what the hybrid (Griffin / RecurrentGemma) and dense families use.
 
 Parameters are plain nested dicts of tensors, weights (in, out) as the
 reference keeps them.  Every block casts its weights to the activation's
@@ -163,13 +163,32 @@ def attention_train(p: dict, x: torch.Tensor, positions: torch.Tensor,
     return out.reshape(*x.shape[:2], -1) @ p["wo"].to(x.dtype)
 
 
-def attention_decode(p: dict, x: torch.Tensor, pos: int,
-                     cache_k: torch.Tensor, cache_v: torch.Tensor,
-                     cfg: ModelConfig, window: int = 0,
-                     theta: Optional[float] = None):
-    """One-token decode.  x: (B, 1, D); pos: int; a ring buffer if window.
-    cache_k/v: (B, C, Hkv, hd).  Returns (y, new cache_k, new cache_v);
-    the caches passed in are not modified."""
+def decode_slot(pos: int, C: int, window: int) -> int:
+    """The cache slot a decode step at absolute position `pos` writes: a
+    ring of C slots with a window, else the last slot once the cache is
+    full."""
+    return pos % C if window else min(pos, C - 1)
+
+
+def decode_valid(pos: int, C: int, window: int, device=None) -> torch.Tensor:
+    """(C,) mask of the cache slots a query at `pos` attends to, from the
+    keys' absolute positions (the ring's slots hold the last C of them)."""
+    idx = torch.arange(C, device=device)
+    if window:
+        n_wraps = pos // C
+        kpos = torch.where(idx <= pos % C, idx + n_wraps * C,
+                           idx + (n_wraps - 1) * C)
+        return (kpos >= 0) & (kpos <= pos) & (kpos > pos - window)
+    return idx <= min(pos, C - 1)
+
+
+def attention_decode_into(p: dict, x: torch.Tensor, pos: int,
+                          cache_k: torch.Tensor, cache_v: torch.Tensor,
+                          cfg: ModelConfig, window: int = 0,
+                          theta: Optional[float] = None) -> torch.Tensor:
+    """One-token decode that writes the new key and value into their slot
+    of cache_k / cache_v (B, C, Hkv, hd) in place.  x: (B, 1, D); pos:
+    int; a ring buffer if window.  Returns y (B, 1, D)."""
     pos = int(pos)
     q, k, v = _qkv(p, x, cfg)
     th = theta if theta is not None else cfg.rope_theta
@@ -179,23 +198,25 @@ def attention_decode(p: dict, x: torch.Tensor, pos: int,
         q = apply_rope(q, posv, th)
         k = apply_rope(k, posv, th)
     C = cache_k.shape[1]
-    slot = pos % C if window else min(pos, C - 1)
-    cache_k = cache_k.clone()
-    cache_v = cache_v.clone()
+    slot = decode_slot(pos, C, window)
     cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
     cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
-    # key absolute positions for masking
-    idx = torch.arange(C, device=x.device)
-    if window:
-        n_wraps = pos // C
-        kpos = torch.where(idx <= pos % C, idx + n_wraps * C,
-                           idx + (n_wraps - 1) * C)
-        valid = (kpos >= 0) & (kpos <= pos) & (kpos > pos - window)
-    else:
-        valid = idx <= min(pos, C - 1)
+    valid = decode_valid(pos, C, window, x.device)
     out = gqa_attend(q, cache_k.to(q.dtype), cache_v.to(q.dtype),
                      valid[None, :])
-    y = out.reshape(x.shape[0], 1, -1) @ p["wo"].to(x.dtype)
+    return out.reshape(x.shape[0], 1, -1) @ p["wo"].to(x.dtype)
+
+
+def attention_decode(p: dict, x: torch.Tensor, pos: int,
+                     cache_k: torch.Tensor, cache_v: torch.Tensor,
+                     cfg: ModelConfig, window: int = 0,
+                     theta: Optional[float] = None):
+    """attention_decode_into on copies of the caches: returns (y, new
+    cache_k, new cache_v); the caches passed in are not modified."""
+    cache_k = cache_k.clone()
+    cache_v = cache_v.clone()
+    y = attention_decode_into(p, x, pos, cache_k, cache_v, cfg, window,
+                              theta)
     return y, cache_k, cache_v
 
 

@@ -100,7 +100,18 @@ line is never printed):
                 head, the head at (8, 896, 151,936)); reduced() card
                 against CPU in f32 and bf16 and the int8 KV decode;
                 python -m repro_torch.serve.decode on the card;
-16. timings   — each kernel at its path's shape: kernel, plain and
+16. regime_b  — Regime B (launch/) on the card: qwen2-0.5b at full
+                width with m 4 clients through `python -m
+                repro_torch.launch.train`'s main: 3 resident rounds (3
+                gossip_gather), 3 sampled rounds of 2 clients (3
+                gossip_scatter, dormant rows bit for bit), 2 tree-form
+                rounds, 2 telemetry rounds (report --check), ms per
+                round, peak memory, a profiled round's busy share;
+                gossip_gather and gossip_scatter at d 494,031,872 bitwise
+                against their plain versions, timed warm and cold;
+                reduced() card vs CPU (3 resident, 2 sampled rounds); one
+                full-width prefill step (24 x 4 flash_attention);
+17. timings   — each kernel at its path's shape: kernel, plain and
                 library-call ms (CUDA events), the card's bound, launches;
                 gossip_gather, pushsum_mix and topk_gather also at m = 1024,
                 gossip_gather also at the baselines' full-model widths,
@@ -131,7 +142,7 @@ from pathlib import Path
 
 PHASES = ("device", "build", "kernels", "train", "parity", "sampled",
           "kernel_mix", "compress", "baselines", "async", "obs",
-          "checkpoint", "serve", "lm", "dense", "timings")
+          "checkpoint", "serve", "lm", "dense", "regime_b", "timings")
 # the paper's comparison rows (the port's simulator.ALGOS but dfedpgp)
 BASELINES = ("local", "fedavg", "fedper", "fedrep", "fedbabu", "ditto",
              "dfedavgm", "dfedavgm-p", "osgp", "dispfl")
@@ -819,6 +830,16 @@ def _scatter_cases(ctx):
     # rows, d 13,978 (not a multiple of 4)
     for acc in (False, True):
         case(m, 50, 13978, f32, f32, acc, pairs=4)
+    # more chunks than the grid's y extent: the striding instance (at
+    # 128 columns a chunk, 65,537 chunks; both routes, 1 and 2 pairs)
+    wide = 128 * gs.MAX_GRID_Y + 132     # a multiple of 4: vector route
+    for xt, ut, acc, pairs, off in ((f32, f32, False, 1, ()),
+                                    (f32, f32, True, 2, ()),
+                                    (bf16, bf16, False, 2, ()),
+                                    (f32, f32, True, 1, (0,))):
+        p = case(4, 2, wide, xt, ut, acc, pairs=pairs, block_d=128,
+                 offset=off)
+        check(p.grid_y == gs.MAX_GRID_Y < p.chunks, f"wide plan {p}")
     rows = torch.arange(3, dtype=torch.int32, device="cuda")
     try:
         ops.gossip_scatter_many(
@@ -3793,6 +3814,420 @@ def phase_dense(ctx):
          launches=ctx["dense_launches"])
 
 
+# ---------------------------------------------------------------------------
+# Regime B (launch/): qwen2-0.5b at full width, m 4 clients
+# ---------------------------------------------------------------------------
+REGIME_B_ARGS = ["--arch", "qwen2-0.5b", "--clients", "4", "--batch", "2",
+                 "--seq", "128", "--neighbors", "2", "--device", "cuda"]
+# the shared row: qwen2-0.5b's 630,167,424 leaves less lm_head (896 x
+# 151,936) and final_norm (896), which stay personal
+REGIME_B_D = 494_031_872
+REGIME_B_PREFILL = (1, 4096)       # (B, S) per client of the prefill step
+REGIME_B_TOL = dict(rtol=1e-4, atol=2e-5)
+
+
+def _train_main(ctx, argv) -> dict:
+    """`python -m repro_torch.launch.train` in this process, with a JSONL
+    sink: its launch counts (set to 0 just before, read just after), its
+    round records, `report --check` on them, its printed lines, the state
+    it returns and the peak device memory."""
+    torch = ctx["torch"]
+    import io
+    import tempfile
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.obs import record, report
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trainB.jsonl")
+        out = io.StringIO()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            state = train.main(argv + ["--metrics", path])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        recs = list(record.load_jsonl(path))
+        with contextlib.redirect_stdout(io.StringIO()):
+            report_rc = report.main([path, "--check"])
+    return {"launches": counts, "records": recs, "state": state,
+            "seconds": seconds, "report_check_rc": report_rc,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "stdout_tail": out.getvalue()[-600:]}
+
+
+def _round_summary(run: dict, rounds: int, m: int = 4) -> dict:
+    """Finite losses, sum(mu) = m to rtol 1e-6, ms per round (each round
+    ends in a device sync: the records' `round_s`)."""
+    recs = [r for r in run["records"] if r["kind"] == "round"]
+    check(len(recs) == rounds, f"{len(recs)} round records, want {rounds}")
+    losses = [[r["loss"], r["loss_v"]] for r in recs]
+    check(all(x is not None and math.isfinite(x) for pair in losses
+              for x in pair), f"losses {losses}")
+    mu_sum = float(run["state"].mu.sum())
+    check(abs(mu_sum - m) <= 1e-6 * m, f"sum mu = {mu_sum}")
+    ms = [r["round_s"] * 1e3 for r in recs]
+    return {"rounds": rounds, "launches": run["launches"], "loss": losses,
+            "round_ms": ms, "ms_per_round_after_first":
+                statistics.median(ms[1:]) if rounds > 1 else ms[0],
+            "mu_sum": mu_sum, "wire_bytes": recs[-1]["wire_bytes"],
+            "peak_bytes": run["peak_bytes"], "seconds": run["seconds"],
+            "stdout_tail": run["stdout_tail"]}
+
+
+def _trainer(argv):
+    from repro_torch.launch import train
+    ap = train.build_parser()
+    return train.Trainer(ap.parse_args(argv), ap)
+
+
+def _only(counts: dict, **want) -> bool:
+    return all(counts[k] == want.get(k, 0) for k in counts)
+
+
+def _round_profile(ctx, run, r: int) -> dict:
+    """torch.profiler over round r of a Trainer: wall and device ms, the
+    device's busy share, the gossip_gather kernel's device ms and the
+    kernels that take the most."""
+    torch = ctx["torch"]
+    _, events, wall = profiled(torch, lambda: run.step(r), cpu=True)
+    total = sum(_dev_us(e) for e in events) / 1e3
+    gather = sum(_dev_us(e) for e in events
+                 if "gossip_gather" in e.key) / 1e3
+    top = sorted(events, key=_dev_us, reverse=True)[:10]
+    return {"wall_ms": wall, "device_ms": total,
+            "device_busy_share": total / wall, "gossip_gather_ms": gather,
+            "device_events": sum(e.count for e in events),
+            "top_device_kernels": [{"name": e.key[:90],
+                                    "ms": _dev_us(e) / 1e3,
+                                    "calls": e.count} for e in top]}
+
+
+def _regime_b_sampled(ctx) -> dict:
+    """3 sampled rounds (2 of 4 clients) at full width through the
+    Trainer `main` drives: one gossip_scatter launch a round writing the
+    buffer and the momentum back, the dormant rows bit for bit, sum(mu) =
+    4, ms per round (each ending in a device sync)."""
+    torch = ctx["torch"]
+    from repro_torch import tree
+    from repro_torch.core import gossip
+    from repro_torch.kernels import ops
+    torch.cuda.empty_cache()
+    run = _trainer(REGIME_B_ARGS + ["--resident", "--sample", "0.5"])
+    st = run.state
+    ops.reset_launch_counts()
+    want_gather, ms, losses, dormant_ids = 0, [], [], []
+    for r in range(3):
+        P, active = run.topology(r)
+        want_gather += not gossip.no_sparsity(P)
+        dormant = torch.ones(run.m, dtype=torch.bool)
+        dormant[torch.as_tensor(active).long()] = False
+        dormant = dormant.cuda()
+        st = run.state
+        before = [st.flat[dormant], st.opt_u.momentum[dormant], st.mu[dormant]]
+        before += [leaf[dormant] for _, leaf in tree.paths(st.personal)]
+        before += [leaf[dormant] for _, leaf in tree.paths(st.opt_v.momentum)]
+        ptr = st.flat.data_ptr()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics, _, _ = run.step(r)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        st = run.state
+        after = [st.flat[dormant], st.opt_u.momentum[dormant], st.mu[dormant]]
+        after += [leaf[dormant] for _, leaf in tree.paths(st.personal)]
+        after += [leaf[dormant] for _, leaf in tree.paths(st.opt_v.momentum)]
+        check(st.flat.data_ptr() == ptr, "the sampled round did not write "
+                                         "the resident buffer in place")
+        check(all(torch.equal(a, b) for a, b in zip(before, after)),
+              f"round {r}: dormant rows moved")
+        del before, after
+        losses.append([float(metrics["loss_u"]), float(metrics["loss_v"])])
+        dormant_ids.append(torch.nonzero(dormant).flatten().tolist())
+    counts = ops.launch_counts()
+    check(_only(counts, gossip_scatter=3, gossip_gather=want_gather),
+          f"3 sampled rounds launched {counts}; want 3 gossip_scatter and "
+          f"{want_gather} gossip_gather")
+    check(all(math.isfinite(x) for p in losses for x in p), f"{losses}")
+    mu_sum = float(run.state.mu.sum())
+    check(abs(mu_sum - run.m) <= 1e-6 * run.m, f"sum mu = {mu_sum}")
+    out = {"rounds": 3, "n_active": run.n_lead, "launches": counts,
+           "dormant_clients": dormant_ids, "dormant_rows_bitwise": True,
+           "loss": losses, "round_ms": ms, "mu_sum": mu_sum,
+           "gather_note": "the induced table of 2 rows has k 3 >= 2: the "
+                          "mix densifies (as the reference's), no gather"
+                          if want_gather == 0 else ""}
+    del run, st
+    torch.cuda.empty_cache()
+    return out
+
+
+def _wide_times(torch, kernel, plain, library, bound_ms: float) -> dict:
+    """Times of a kernel that moves gigabytes a call, its plain version
+    and its library call, by CUDA events around back-to-back calls (at
+    milliseconds a call the host's share is hidden); cold: each call
+    after a 256 MB copy, events around the call alone.  The profiler's
+    device time is kept beside them: in one run on the card it read
+    both wide kernels a third under their byte bound, which no kernel
+    can do, so it had lost events."""
+    src = torch.empty(FLUSH_BYTES // 4, device="cuda")
+    dst = torch.empty_like(src)
+    cold = []
+    for _ in range(5):
+        dst.copy_(src)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        kernel()
+        end.record()
+        end.synchronize()
+        cold.append(start.elapsed_time(end))
+    prof = device_ms(torch, kernel, iters=10)
+    return {"ms": time_ms(torch, kernel, iters=5, reps=5),
+            "cold_ms": statistics.median(cold),
+            "plain_ms": time_ms(torch, plain, iters=2, reps=3),
+            "library_ms": time_ms(torch, library, iters=5, reps=5),
+            "timer": "CUDA events", "profiler_ms": prof,
+            "profiler_below_bound": prof < bound_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes"}
+
+
+def _regime_b_kernels(ctx) -> dict:
+    """gossip_gather at (4, 3, d 494,031,872) and gossip_scatter_many
+    with 2 rows and 2 f32 pairs at that width, each bitwise against its
+    plain version on the card, timed warm and cold (`_wide_times`) beside
+    its byte bound and its library call (torch.sparse.mm over the table
+    in CSR; index_copy_ per buffer)."""
+    torch = ctx["torch"]
+    from repro_torch.core import topology
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.gossip_scatter import plan as scatter_plan
+    bw = ctx["peak_bw"]
+    m, d = 4, REGIME_B_D
+    torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda").manual_seed(23)
+    P = topology.get_schedule("random", m, 2, 0).at(0).to("cuda")
+    k = P.idx.shape[1]
+    U = torch.randn((m, d), generator=g, device="cuda")
+    ops.reset_launch_counts()
+    got = ops.gossip_gather(P.idx, P.w, U, force="cuda")
+    want = ops.gossip_gather(P.idx, P.w, U, force="ref")
+    check(torch.equal(got, want), f"gossip_gather at (4, {k}, {d}): "
+                                  f"err {max_abs(got, want)}")
+    check(_only(ops.launch_counts(), gossip_gather=1), "gather launches")
+    del got, want
+    rows = torch.arange(m, device="cuda")[:, None].expand(m, k)
+    csr = torch.sparse_coo_tensor(
+        torch.stack([rows.reshape(-1), P.idx.long().reshape(-1)]),
+        P.w.reshape(-1), (m, m), check_invariants=True
+    ).coalesce().to_sparse_csr()
+
+    def gather():
+        return ops.gossip_gather(P.idx, P.w, U, force="cuda")
+
+    def gather_lib():
+        return torch.sparse.mm(csr, U)
+
+    pl = _gather_plan(m, k, d, U)
+    bytes_g = 2 * m * d * 4 + m * k * 8
+    out = {"gossip_gather": dict(
+        _wide_times(torch, gather, lambda: ops.gossip_gather(
+            P.idx, P.w, U, force="ref"), gather_lib, bytes_g / bw * 1e3),
+        shape=[m, k, d], check="bitwise == ref",
+        library="torch.sparse.mm (CSR)", bytes=bytes_g, plan=pl._asdict())}
+    del U
+    torch.cuda.empty_cache()
+    n, pairs = 2, 2
+    rows_s = torch.tensor([0, 2], dtype=torch.int32, device="cuda")
+    Xs = [torch.randn((n, d), generator=g, device="cuda")
+          for _ in range(pairs)]
+    Us = [torch.randn((m, d), generator=g, device="cuda")
+          for _ in range(pairs)]
+    wants = [u.clone() for u in Us]
+    ops.reset_launch_counts()
+    ops.gossip_scatter_many(rows_s, Xs, Us, force="cuda")
+    ops.gossip_scatter_many(rows_s, Xs, wants, force="ref")
+    check(all(torch.equal(a, b) for a, b in zip(Us, wants)),
+          f"gossip_scatter_many at (4, 2, {d}) x2 disagrees")
+    check(_only(ops.launch_counts(), gossip_scatter=1), "scatter launches")
+    del wants
+    rl = rows_s.long()
+
+    def scatter():
+        return ops.gossip_scatter_many(rows_s, Xs, Us, force="cuda")
+
+    def scatter_lib():
+        for X, V in zip(Xs, Us):
+            V.index_copy_(0, rl, X)
+
+    bytes_s = pairs * 2 * n * d * 4 + n * 4
+    out["gossip_scatter"] = dict(
+        _wide_times(torch, scatter, lambda: ops.gossip_scatter_many(
+            rows_s, Xs, Us, force="ref"), scatter_lib, bytes_s / bw * 1e3),
+        shape=[m, n, d], pairs=pairs, check="bitwise == ref",
+        library="index_copy_ per buffer (2 calls)", bytes=bytes_s,
+        plan=scatter_plan(n, d, _build.sm_count("cuda"), pairs)._asdict())
+    del Xs, Us
+    torch.cuda.empty_cache()
+    return out
+
+
+def _regime_b_parity(ctx) -> dict:
+    """reduced() qwen2-0.5b, f32: 3 resident rounds and 2 sampled rounds
+    on the card and on the CPU from one init (the CPU run's), one set of
+    batches (the CPU run's) and the schedule's tables; every state leaf at
+    rtol 1e-4, atol 2e-5 (the port-vs-reference tolerance of
+    tests/test_torch_regime_b.py), mu exact."""
+    torch = ctx["torch"]
+    from repro_torch import tree
+    base = ["--arch", "qwen2-0.5b", "--reduced", "--clients", "4",
+            "--batch", "2", "--seq", "32", "--neighbors", "2"]
+
+    def leaves(state):
+        out = {}
+        for field, val in state._asdict().items():
+            val = val._asdict()["momentum"] if hasattr(val, "_asdict") \
+                else val
+            if isinstance(val, dict):
+                out.update({f"{field}/{'/'.join(p)}": x
+                            for p, x in tree.paths(val)})
+            elif isinstance(val, torch.Tensor):
+                out[field] = val
+        return out
+
+    def to_card(obj):
+        if isinstance(obj, torch.Tensor):
+            return obj.to("cuda", copy=True)
+        if isinstance(obj, dict):
+            return {k: to_card(v) for k, v in obj.items()}
+        if hasattr(obj, "_fields"):
+            return type(obj)(*(to_card(v) for v in obj))
+        return obj
+
+    out = {}
+    for name, extra, rounds in (("resident", ["--resident"], 3),
+                                ("sampled", ["--resident", "--sample",
+                                             "0.5"], 2)):
+        cpu = _trainer(base + extra + ["--device", "cpu"])
+        gpu = _trainer(base + extra + ["--device", "cuda"])
+        gpu.state = to_card(cpu.state)
+        for r in range(rounds):
+            b = cpu.batches(r)
+            cpu.step(r, b)
+            gpu.step(r, to_card(b))
+        want, got = leaves(cpu.state), leaves(gpu.state)
+        check(set(want) == set(got), f"{name}: leaves {set(want) ^ set(got)}")
+        errs = {}
+        for key in want:
+            a, b = got[key].cpu(), want[key]
+            errs[key] = max_abs(a, b)
+            check(torch.allclose(a.double(), b.double(), **REGIME_B_TOL),
+                  f"regime_b parity {name} {key}: err {errs[key]}")
+        check(torch.equal(got["mu"].cpu(), want["mu"]), f"{name}: mu")
+        out[name] = {"rounds": rounds, "max_abs_err": max(errs.values()),
+                     "worst_leaf": max(errs, key=errs.get),
+                     "mu_exact": True, **REGIME_B_TOL}
+    return out
+
+
+def _regime_b_prefill(ctx) -> dict:
+    """One build_prefill_step call at full width: m 4, B 1, S 4,096, the
+    clients looped (the ctypes flash launch cannot run under vmap): 24
+    flash_attention launches per client, finite logits."""
+    torch = ctx["torch"]
+    from repro_torch import configs
+    from repro_torch.configs import InputShape
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh, steps, train
+    cfg = configs.get_config("qwen2-0.5b")
+    m, (B, S) = 4, REGIME_B_PREFILL
+    torch.cuda.empty_cache()
+    layout = mesh.one_device_layout(m, B)
+    shape = InputShape("prefill", S, m * B, "prefill")
+    fn, ins, outs, args = steps.build_prefill_step(cfg, None, layout, shape)
+    params = train.init_stacked(cfg, m, torch.device("cuda"))
+    tokens = torch.randint(0, cfg.vocab, tuple(args[1]["tokens"].shape),
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(4), device="cuda")
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = fn(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = ops.launch_counts()
+    check(_only(counts, flash_attention=m * cfg.n_layers),
+          f"prefill step launched {counts}; want {m * cfg.n_layers} "
+          f"flash_attention")
+    check(logits.shape == (m, B, 1, cfg.vocab)
+          and bool(torch.isfinite(logits).all()), "prefill step logits")
+    del params, logits
+    torch.cuda.empty_cache()
+    return {"clients": m, "batch": B, "seq": S, "launches": counts,
+            "ms_first_call": ms, "logits_shape": [m, B, 1, cfg.vocab]}
+
+
+def phase_regime_b(ctx):
+    """Regime B on the card: qwen2-0.5b at full width (24 layers, d 896,
+    vocab 151,936) with m 4 clients through `python -m
+    repro_torch.launch.train`'s main: 3 resident rounds (3 gossip_gather),
+    3 sampled rounds of 2 clients (3 gossip_scatter, dormant rows bit for
+    bit), 2 tree-form rounds (2 gossip_gather), 2 telemetry rounds whose
+    JSONL passes report --check; a profiled resident round; both kernels
+    at d 494,031,872 against their plain versions; reduced() card vs
+    CPU; one full-width prefill step."""
+    torch = ctx["torch"]
+    resident = _train_main(ctx, REGIME_B_ARGS + ["--rounds", "3",
+                                                 "--resident"])
+    check(_only(resident["launches"], gossip_gather=3),
+          f"3 resident rounds launched {resident['launches']}")
+    st = resident["state"]
+    check(tuple(st.flat.shape) == (4, REGIME_B_D),
+          f"resident buffer {tuple(st.flat.shape)}")
+    full = {"resident": _round_summary(resident, 3)}
+    del resident, st
+    prof_run = _trainer(REGIME_B_ARGS + ["--resident"])
+    prof_run.step(0)
+    torch.cuda.synchronize()
+    full["resident"]["profile"] = _round_profile(ctx, prof_run, 1)
+    del prof_run
+    full["sampled"] = _regime_b_sampled(ctx)
+    tree_run = _train_main(ctx, REGIME_B_ARGS + ["--rounds", "2"])
+    check(_only(tree_run["launches"], gossip_gather=2),
+          f"2 tree-form rounds launched {tree_run['launches']}")
+    full["tree"] = _round_summary(tree_run, 2)
+    del tree_run
+    tele = _train_main(ctx, REGIME_B_ARGS + ["--rounds", "2", "--resident",
+                                             "--telemetry"])
+    check(tele["report_check_rc"] == 0,
+          f"report --check exited {tele['report_check_rc']}")
+    check(_only(tele["launches"], gossip_gather=2),
+          f"2 telemetry rounds launched {tele['launches']}")
+    check(all(abs(r["mass_total"] - 4) <= 1e-5 * 4
+              for r in tele["records"]), "mass_total != 4")
+    full["telemetry"] = dict(_round_summary(tele, 2),
+                             report_check_rc=tele["report_check_rc"])
+    del tele
+    torch.cuda.empty_cache()
+    kernels = _regime_b_kernels(ctx)
+    parity = _regime_b_parity(ctx)
+    prefill = _regime_b_prefill(ctx)
+    ctx["regime_b_launches"] = {
+        "gossip_gather": sum(full[k]["launches"]["gossip_gather"]
+                             for k in ("resident", "sampled", "tree",
+                                       "telemetry")),
+        "gossip_scatter": full["sampled"]["launches"]["gossip_scatter"],
+        "flash_attention": prefill["launches"]["flash_attention"]}
+    ctx["regime_b_kernels"] = kernels
+    emit("regime_b", card=ctx["smi"], arch="qwen2-0.5b", clients=4,
+         batch=2, seq=128, d_flat=REGIME_B_D, full_width=full,
+         kernels=kernels, parity=parity, prefill_step=prefill,
+         launches=ctx["regime_b_launches"])
+
+
 def phase_timings(ctx):
     torch = ctx["torch"]
     from repro_torch.core import gossip, topology
@@ -3879,7 +4314,9 @@ def phase_timings(ctx):
         "async_codec_launches":
             ctx["async_codec_launches"]["gossip_gather"],
         "obs_launches": ctx["obs_launches"]["gossip_gather"],
-        "checkpoint_launches": ctx["checkpoint_launches"]["gossip_gather"]})
+        "checkpoint_launches": ctx["checkpoint_launches"]["gossip_gather"],
+        "regime_b_launches": ctx["regime_b_launches"]["gossip_gather"],
+        "regime_b": ctx["regime_b_kernels"]["gossip_gather"]})
 
     # head_gather_matmul at the serve path's shapes (m=100, d=64, n=10):
     # H read once, each distinct user's slab and bias read once, uid read
@@ -4022,7 +4459,9 @@ def phase_timings(ctx):
         "writeback_library": "index_copy_ per buffer (2 calls)",
         "shape": [100, 25, 13328], "dtype": "float32",
         "baseline_launches": ctx["baseline_launches"]["gossip_scatter"],
-        "obs_launches": ctx["obs_launches"]["gossip_scatter"]})
+        "obs_launches": ctx["obs_launches"]["gossip_scatter"],
+        "regime_b_launches": ctx["regime_b_launches"]["gossip_scatter"],
+        "regime_b": ctx["regime_b_kernels"]["gossip_scatter"]})
 
     # pushsum_mix at the kernel-mix path's shape (m=100, d=13,328, f32)
     # and at m = 1024: P and U read once, the output written once;
@@ -4195,6 +4634,8 @@ def phase_timings(ctx):
         "launches": ctx["lm_launches"]["flash_attention"],
         "dense_launches": ctx["dense_launches"]["flash_attention"],
         "dense_by_config": ctx["dense_flash"],
+        "regime_b_prefill_launches":
+            ctx["regime_b_launches"]["flash_attention"],
         "max_abs_err": ctx["flash_err"][0], "ms": fl["ms"],
         "plain_ms": fl["plain_ms"], "bound_ms": fb_ms,
         "bound_by": "bytes" if fbytes / bw * 1e3 >= t_ops else "operations",
@@ -4360,7 +4801,8 @@ def main(argv=None) -> int:
     needs = {"serve": {"train"}, "compress": {"train"},
              "timings": {"kernels", "train", "sampled", "kernel_mix",
                          "compress", "baselines", "async", "obs",
-                         "checkpoint", "serve", "lm", "dense"}}
+                         "checkpoint", "serve", "lm", "dense",
+                         "regime_b"}}
     for phase in only:
         missing = needs.get(phase, set()) - wanted
         if missing:
@@ -4372,7 +4814,7 @@ def main(argv=None) -> int:
            "baselines": phase_baselines, "async": phase_async,
            "obs": phase_obs, "checkpoint": phase_checkpoint,
            "serve": phase_serve, "lm": phase_lm, "dense": phase_dense,
-           "timings": phase_timings}
+           "regime_b": phase_regime_b, "timings": phase_timings}
     t0 = time.perf_counter()
     for phase in PHASES:
         if phase in wanted:

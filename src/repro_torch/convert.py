@@ -6,7 +6,9 @@ copy of each array.  Where the reference keeps None placeholders at the
 other partition side's leaves, the port's pruned trees drop them.  Inputs
 are numpy arrays (or anything `numpy.asarray` accepts): the reference's
 tree-form and resident DFedPGP states, its baselines' states and its hetero
-`ClientProfile`.
+`ClientProfile`.  Regime B's states are DFedPGP states of stacked LM trees
+(nested layer dicts, QKV biases, personal `lm_head` / `final_norm`): the
+same two state functions carry them (tests/test_torch_regime_b.py).
 """
 from __future__ import annotations
 

@@ -78,9 +78,6 @@ class FlatDFedPGPState(NamedTuple):
     ref: Optional[torch.Tensor] = None
 
 
-# knobs of the reference DFedPGP that later slices port: field -> ROADMAP
-# queue 1 item that ports it
-_UNPORTED = {"grad_hook": 14, "grad_hook_flat": 14}
 # stream of `device.seeded_generator` the codec draws come from
 CODEC_STREAM = 3
 
@@ -99,7 +96,13 @@ class DFedPGP:
     # resident mix override (flat, mu, round, P) -> (flat, mu), e.g. the
     # dense pushsum_mix kernel of kernel_mix.make_kernel_mix_flat
     mix_fn_flat: Optional[Callable] = None
+    # applied to one client's shared-part gradients before the optimizer
+    # (e.g. Regime B's bf16 cast, `launch.steps.build_train_algo`): the
+    # tree form's grads tree (personal leaves are scalar zeros there)
     grad_hook: Optional[Callable] = None
+    # the resident twin, applied to one client's (d_flat,) gradient row.
+    # Tree hooks expect per-leaf trees, so the resident rounds refuse a
+    # tree hook without this one
     grad_hook_flat: Optional[Callable] = None
     # gossip payload dtype (e.g. torch.bfloat16 halves the wire bytes)
     gossip_dtype: Optional[torch.dtype] = None
@@ -122,11 +125,6 @@ class DFedPGP:
     telemetry: bool = False
 
     def __post_init__(self):
-        for name, item in _UNPORTED.items():
-            if getattr(self, name) not in (None, False):
-                raise NotImplementedError(
-                    f"DFedPGP({name}=...) is not ported yet (ROADMAP queue "
-                    f"1 item {item})")
         if self.gossip not in gossip.MODES:
             raise ValueError(f"gossip mode {self.gossip!r}; known: "
                              f"{gossip.MODES}")
@@ -171,16 +169,25 @@ class DFedPGP:
         def debias_leaf(p, shared):
             return (p / mu_i).to(p.dtype) if shared else p
 
-        # ---- v-steps at the pinned z^{t,0} (personal gradient only) ----
-        z = tree.tree_map(debias_leaf, params, mask)
+        # ---- v-steps at the pinned z^{t,0} (personal gradient only).
+        # The reference steps the whole tree with the shared gradients
+        # zeroed, which leaves the shared leaves and their scalar momentum
+        # placeholders as they were; stepping the personal subtree alone
+        # gives the same values without a gradient of every shared leaf ----
+        z_u, _ = partition.split(tree.tree_map(debias_leaf, params, mask),
+                                 mask)
+        params_u, params_v = partition.split(params, mask)
+        mom_u, mom_v = partition.split(opt_v.momentum, mask)
 
-        def v_loss(p, batch):
-            return self.loss_fn(partition.where(mask, z, p), batch)
+        def v_loss(pv, batch):
+            return self.loss_fn(partition.merge(z_u, pv), batch)
 
-        params_v, opt_v, loss_v = local.sgd_steps(
-            v_loss, self.opt_v, params, opt_v, batches_v, lr_scale,
-            grad_filter=lambda g, p: local.masked_grads(g, mask, False))
-        params = partition.where(mask, params, params_v)   # new v only
+        params_v, sv, loss_v = local.sgd_steps(
+            v_loss, self.opt_v, params_v, SGDState(mom_v), batches_v,
+            lr_scale)
+        del z_u
+        params = partition.merge(params_u, params_v)       # new v only
+        opt_v = SGDState(partition.merge(mom_u, sv.momentum))
 
         # ---- u-steps: gradient at z^{t,k} = u^{t,k}/mu, applied to the
         # biased u (not differentiated through the de-bias) ----
@@ -190,14 +197,18 @@ class DFedPGP:
             z_k = tree.tree_map(debias_leaf, params, mask)
             g, loss = value_and_grad(z_k, {n: a[k] for n, a in
                                            batches_u.items()})
+            del z_k
             g = local.masked_grads(g, mask, True)
+            if self.grad_hook is not None:
+                g = self.grad_hook(g)
             p2, s2 = self.opt_u.update(g, opt_u, params, lr_scale)
+            del g
             if step_gate_u is not None:
                 gate = step_gate_u[k]
 
                 def blend(new, old):
-                    return tree.tree_map(lambda a, b: (
-                        gate * a + (1.0 - gate) * b).to(a.dtype), new, old)
+                    return tree.tree_map(
+                        lambda a, b: local.blend_(gate, a, b), new, old)
                 p2 = blend(p2, params)
                 s2 = SGDState(blend(s2.momentum, opt_u.momentum))
             # personal leaves must not move in the u-phase
@@ -365,11 +376,30 @@ class DFedPGP:
             local.flat_view_loss(self.loss_fn, layout)))
         z = (flat / mu[:, None]).to(flat.dtype)
         g, loss = value_and_grad_u(z, personal, batch)
+        del z
+        if self.grad_hook_flat is not None or self.grad_hook is not None:
+            g = vmap(self._apply_flat_grad_hook)(g)
         flat2, s2 = self.opt_u.update(g, opt_u, flat, lr_scale[:, None])
         if grad_norm:
             return flat2, s2, loss, torch.linalg.vector_norm(
                 g.to(torch.float32), dim=1)
         return flat2, s2, loss
+
+    def _apply_flat_grad_hook(self, g):
+        """The hook of one client's (d_flat,) gradient row: grad_hook_flat,
+        else the tree hook for callers that drive the steps directly with a
+        row-shaped hook (the resident rounds refuse a lone tree hook,
+        `_check_flat_hooks`)."""
+        if self.grad_hook_flat is not None:
+            return self.grad_hook_flat(g)
+        return self.grad_hook(g)
+
+    def _check_flat_hooks(self) -> None:
+        if self.grad_hook is not None and self.grad_hook_flat is None:
+            raise ValueError("grad_hook expects tree-form shared-part "
+                             "gradients; provide grad_hook_flat (the "
+                             "(d_flat,) row form) or use the tree-form "
+                             "round_fn")
 
     def local_update_flat(self, flat, personal, mu, opt_u, opt_v,
                           batches_v, batches_u, lr_scale, step_gate_u,
@@ -402,9 +432,10 @@ class DFedPGP:
                 flat, personal, mu, opt_u, local.step_batch(batches_u, k),
                 lr_scale, layout, grad_norm=self.telemetry)
             gate = step_gate_u[:, k:k + 1]
-            flat = (gate * flat2 + (1.0 - gate) * flat).to(flat2.dtype)
-            opt_u = SGDState((gate * s2.momentum + (1.0 - gate)
-                              * opt_u.momentum).to(s2.momentum.dtype))
+            flat = local.blend_(gate, flat2, flat)
+            opt_u = SGDState(local.blend_(gate, s2.momentum,
+                                          opt_u.momentum))
+            del flat2, s2
             losses.append(loss)
             norms += norm
         loss_u = torch.stack(losses, dim=1).mean(dim=1)
@@ -459,6 +490,7 @@ class DFedPGP:
                              "buffer directly — provide mix_fn_flat "
                              "(kernel_mix.make_kernel_mix_flat) or use the "
                              "tree-form round_fn")
+        self._check_flat_hooks()
         lr_scale = self._lr_scale(state.round)
         if step_gate_u is None:
             m, k_u = next(iter(batches["u"].values())).shape[:2]
@@ -538,6 +570,7 @@ class DFedPGP:
                 "mix overrides operate on the full resident buffer; the "
                 "sampled round mixes the compact working set — drop the "
                 "override or use round_fn_flat")
+        self._check_flat_hooks()
         dev = state.flat.device
         lr_scale = self._lr_scale(state.round)
         active = torch.as_tensor(active, device=dev).to(torch.int32)

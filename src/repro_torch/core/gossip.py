@@ -161,12 +161,14 @@ class FlatLayout:
 
     def unravel_row(self, row: torch.Tensor) -> dict:
         """One client's (d_flat,) row -> shared subtree of views (cast to
-        each leaf's dtype) — the loss_fn leaf boundary."""
+        each leaf's dtype) — the loss_fn leaf boundary.  One `split`: its
+        backward writes the leaves' gradients into one (d_flat,) row, where
+        a slice per leaf would zero-fill a full row for each."""
         return tree.from_paths(
-            (p, row[off:off + n].reshape(shape).to(dt))
-            for p, shape, dt, n, off in zip(self.paths, self.shapes,
-                                            self.dtypes, self.sizes,
-                                            self.offsets))
+            (p, piece.reshape(shape).to(dt))
+            for p, shape, dt, piece in zip(self.paths, self.shapes,
+                                           self.dtypes,
+                                           torch.split(row, self.sizes)))
 
     def unravel(self, flat: torch.Tensor) -> dict:
         """(m, d_flat) buffer -> stacked shared subtree."""

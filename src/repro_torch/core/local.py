@@ -40,6 +40,22 @@ def flat_view_loss(loss_fn: Callable, layout) -> Callable:
     return wrapped
 
 
+def blend_(gate, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """gate * new + (1 - gate) * old in new's dtype: a step gate of 1
+    takes the step, 0 keeps `old`.  Rounded as the reference's expression
+    (each product, then the sum); where all three are f32 and `new` is
+    not `old` the result is written into `new`'s storage, which must be a
+    fresh tensor of the step (an optimizer output; SGD without momentum
+    hands the old momentum back as the new one, hence the identity test),
+    so a step over an LM's parameters holds no second and third copy of
+    them."""
+    f32 = torch.float32
+    if new is not old and new.dtype == old.dtype == f32 \
+            and torch.as_tensor(gate).dtype == f32:
+        return new.mul_(gate).add_((1.0 - gate) * old)
+    return (gate * new + (1.0 - gate) * old).to(new.dtype)
+
+
 def masked_grads(grads: dict, mask: dict, keep_shared: bool) -> dict:
     """One client's gradients with the other part's leaves zeroed: inactive
     leaves become SCALAR zeros, so SGD leaves the parameter unchanged, adds

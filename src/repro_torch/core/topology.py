@@ -5,7 +5,8 @@ need: the neighbor-indexed `SparseTopology`, the directed kinds (random,
 exponential, ring, full), the undirected kind of the DFedAvgM / Dis-PFL
 baselines, the dense-degree ceiling, the `TopologySchedule` registry,
 for partial participation the `induced_subgraph` of the round's active
-clients, and for the async runtime the lazy push form `to_push_sparse`
+clients, for Regime B the schedule's `permutation_offsets`, and for the
+async runtime the lazy push form `to_push_sparse`
 with its `staleness_self_weight`.  Pull form: every row is
 row-stochastic (the undirected tables are doubly stochastic); the push
 form is column-stochastic.
@@ -355,6 +356,33 @@ class TopologySchedule:
         """The round-t pattern restricted to the `active` subset (CPU
         tables, compact ids)."""
         return induced_subgraph(self.at(t), active, renorm)
+
+    def permutation_offsets(self) -> tuple:
+        """For one-peer schedules: the per-round pull offsets, read off the
+        neighbor tables themselves.  Round t uses offsets[t % len(offsets)]:
+        every client pulls from the peer at (i - offset) mod m with weights
+        (1/2, 1/2), the doubly-stochastic permutation mix of Regime B.
+        Raises ValueError for schedules that are not permutation mixes."""
+        if self.period == 0:
+            raise ValueError(f"{self.kind!r} schedule is not periodic")
+        rows = torch.arange(self.m)
+        offs = []
+        for t in range(self.period):
+            topo = self.at(t)
+            idx, w = topo.idx.long(), topo.w
+            if idx.shape[1] != 2 or not torch.allclose(
+                    w, torch.full_like(w, 0.5)):
+                raise ValueError(
+                    f"{self.kind!r} round {t} is not a one-peer "
+                    f"(1/2, 1/2) permutation mix")
+            off = int((rows[0] - idx[0, 1]) % self.m)
+            if not torch.equal(idx[:, 1], (rows - off) % self.m) \
+                    or not torch.equal(idx[:, 0], rows):
+                raise ValueError(
+                    f"{self.kind!r} round {t} is not a uniform-offset "
+                    f"permutation")
+            offs.append(off)
+        return tuple(offs)
 
 
 def get_schedule(kind: str, m: int, n: int = 0,

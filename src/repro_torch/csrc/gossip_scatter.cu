@@ -21,9 +21,14 @@
 // 109 MB, 32.6 us.  There are no operations to speak of.
 //
 // Design:
-// - one block per (compact row p, chunk of block_d = 4 T V columns) moves
-//   that chunk for every pair: grid (n, chunks), T threads, each with V
-//   slots of 4 columns per pair.  The pair count P and V are template
+// - a block of the grid (n, grid_y) moves chunks of block_d = 4 T V
+//   columns of its compact row p for every pair, T threads, each with V
+//   slots of 4 columns per pair: chunk blockIdx.y where grid_y = chunks
+//   (every Regime-A shape), else chunk blockIdx.y and every grid_y-th
+//   after it (the STRIDE instance), grid_y = 65,535, the grid's y
+//   extent, so a row of any width fits (an LM's shared row of
+//   494,031,872 columns takes 120,614 chunks of 4,096, two a block).
+//   The pair count P and V are template
 //   arguments (P V <= kMaxSlots), so each pair's pointers are read from
 //   the argument at constant offsets and the slots stay in registers;
 // - the row id is needed only by the store: every thread issues its P V
@@ -47,6 +52,7 @@ constexpr int kCols = 4;       // columns per slot
 constexpr int kMaxSlots = 8;   // slots per thread: pairs x slots per pair
 constexpr int kMaxPairs = 4;
 constexpr int kMaxThreads = 256;
+constexpr int kMaxGridY = 65535;   // the grid's y extent
 
 }  // namespace
 
@@ -129,13 +135,14 @@ __device__ __forceinline__ int64_t column(int64_t c0, int s, int j) {
   return VEC ? c0 + (s * T + t) * kCols : c0 + (s * kCols + j) * T + t;
 }
 
+// One chunk [c0, c0 + block_d) of compact row p, for every pair.  Returns
+// false when the row's destination lies outside [0, m): nothing written.
 template <typename TU, typename TX, bool VEC, int P, int V>
-__global__ void __launch_bounds__(kMaxThreads)
-gossip_scatter_kernel(const int32_t* __restrict__ rows, ScatterPairs pairs,
-                      int m, int64_t d, bool accumulate) {
+__device__ __forceinline__ bool move_chunk(const int32_t* __restrict__ rows,
+                                           const ScatterPairs& pairs, int m,
+                                           int64_t d, int64_t p, int64_t c0,
+                                           bool accumulate) {
   constexpr int J = VEC ? 1 : kCols;   // accesses per slot
-  const int64_t p = blockIdx.x;
-  const int64_t c0 = static_cast<int64_t>(blockIdx.y) * blockDim.x * kCols * V;
   TX xv[P][V][kCols];
 #pragma unroll
   for (int q = 0; q < P; ++q) {
@@ -151,7 +158,7 @@ gossip_scatter_kernel(const int32_t* __restrict__ rows, ScatterPairs pairs,
     }
   }
   const int32_t r = __ldg(rows + p);
-  if (static_cast<uint32_t>(r) >= static_cast<uint32_t>(m)) return;
+  if (static_cast<uint32_t>(r) >= static_cast<uint32_t>(m)) return false;
 #pragma unroll
   for (int q = 0; q < P; ++q) {
     TU* dst = static_cast<TU*>(pairs.U[q]) + static_cast<int64_t>(r) * d;
@@ -182,17 +189,42 @@ gossip_scatter_kernel(const int32_t* __restrict__ rows, ScatterPairs pairs,
       }
     }
   }
+  return true;
+}
+
+// STRIDE false: the block moves chunk blockIdx.y alone (grid_y = chunks),
+// straight-line code whose X loads go out before the row id's.  STRIDE
+// true: chunks blockIdx.y, + grid_y, ... in a loop, for rows wider than
+// the grid's y extent holds; there the compiler may hoist the row id's
+// load and test out of the loop, ahead of the X loads, which costs one
+// L2 round trip per block and nothing per chunk.
+template <typename TU, typename TX, bool VEC, int P, int V, bool STRIDE>
+__global__ void __launch_bounds__(kMaxThreads)
+gossip_scatter_kernel(const int32_t* __restrict__ rows, ScatterPairs pairs,
+                      int m, int64_t d, int chunks, bool accumulate) {
+  const int64_t p = blockIdx.x;
+  const int64_t block_d = static_cast<int64_t>(blockDim.x) * kCols * V;
+  if (!STRIDE) {
+    move_chunk<TU, TX, VEC, P, V>(rows, pairs, m, d, p, blockIdx.y * block_d,
+                                  accumulate);
+    return;
+  }
+  for (int ch = blockIdx.y; ch < chunks; ch += gridDim.y) {
+    if (!move_chunk<TU, TX, VEC, P, V>(rows, pairs, m, d, p, ch * block_d,
+                                       accumulate))
+      return;
+  }
 }
 
 // (P, V) -> the kernel of P pairs and V slots per pair, P V <= kMaxSlots.
-template <typename TU, typename TX, bool VEC>
+template <typename TU, typename TX, bool VEC, bool STRIDE>
 int launch_tiles(const int32_t* rows, ScatterPairs pairs, int np, int v,
-                 dim3 grid, int threads, int m, int64_t d, bool accumulate,
-                 cudaStream_t s) {
+                 dim3 grid, int threads, int m, int64_t d, int chunks,
+                 bool accumulate, cudaStream_t s) {
 #define REPRO_SCATTER_TILE(P, V)                                            \
   if (np == P && v == V) {                                                  \
-    gossip_scatter_kernel<TU, TX, VEC, P, V><<<grid, threads, 0, s>>>(      \
-        rows, pairs, m, d, accumulate);                                     \
+    gossip_scatter_kernel<TU, TX, VEC, P, V, STRIDE>                        \
+        <<<grid, threads, 0, s>>>(rows, pairs, m, d, chunks, accumulate);   \
     return 0;                                                               \
   }
   REPRO_SCATTER_TILE(1, 1) REPRO_SCATTER_TILE(1, 2) REPRO_SCATTER_TILE(1, 4)
@@ -205,18 +237,30 @@ int launch_tiles(const int32_t* rows, ScatterPairs pairs, int np, int v,
 
 template <typename TU, typename TX>
 int launch(const void* rows, ScatterPairs pairs, int np, int n, int m,
-           long long d, int accumulate, int vec, int chunks, int v,
-           int threads, void* stream) {
+           long long d, int accumulate, int vec, int chunks, int grid_y,
+           int v, int threads, void* stream) {
   if (n == 0 || d == 0) return 0;
-  const dim3 grid(static_cast<unsigned>(n), static_cast<unsigned>(chunks));
+  if (grid_y < 1 || grid_y > kMaxGridY || grid_y > chunks)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(n), static_cast<unsigned>(grid_y));
   const auto r = static_cast<const int32_t*>(rows);
   const auto s = static_cast<cudaStream_t>(stream);
-  const int rc = vec ? launch_tiles<TU, TX, true>(r, pairs, np, v, grid,
-                                                  threads, m, d,
-                                                  accumulate != 0, s)
-                     : launch_tiles<TU, TX, false>(r, pairs, np, v, grid,
-                                                   threads, m, d,
-                                                   accumulate != 0, s);
+  const bool acc = accumulate != 0, stride = grid_y < chunks;
+  int rc;
+  if (vec)
+    rc = stride ? launch_tiles<TU, TX, true, true>(r, pairs, np, v, grid,
+                                                   threads, m, d, chunks,
+                                                   acc, s)
+                : launch_tiles<TU, TX, true, false>(r, pairs, np, v, grid,
+                                                    threads, m, d, chunks,
+                                                    acc, s);
+  else
+    rc = stride ? launch_tiles<TU, TX, false, true>(r, pairs, np, v, grid,
+                                                    threads, m, d, chunks,
+                                                    acc, s)
+                : launch_tiles<TU, TX, false, false>(r, pairs, np, v, grid,
+                                                     threads, m, d, chunks,
+                                                     acc, s);
   return rc ? rc : static_cast<int>(cudaGetLastError());
 }
 
@@ -226,10 +270,10 @@ extern "C" {
 
 #define REPRO_SCATTER_ENTRY(NAME, TU, TX)                                  \
   int NAME(const void* rows, ScatterPairs pairs, int np, int n, int m,     \
-           long long d, int accumulate, int vec, int chunks, int v,        \
-           int threads, void* stream) {                                    \
+           long long d, int accumulate, int vec, int chunks, int grid_y,   \
+           int v, int threads, void* stream) {                             \
     return launch<TU, TX>(rows, pairs, np, n, m, d, accumulate, vec,       \
-                          chunks, v, threads, stream);                     \
+                          chunks, grid_y, v, threads, stream);             \
   }
 
 // named gossip_scatter_x<X's type>_u<U's type>
@@ -242,6 +286,7 @@ REPRO_SCATTER_ENTRY(gossip_scatter_xbf16_ubf16, __nv_bfloat16, __nv_bfloat16)
 int gossip_scatter_max_pairs() { return kMaxPairs; }
 int gossip_scatter_max_slots() { return kMaxSlots; }
 int gossip_scatter_max_threads() { return kMaxThreads; }
+int gossip_scatter_max_grid_y() { return kMaxGridY; }
 
 const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

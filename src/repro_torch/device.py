@@ -7,15 +7,17 @@ import torch
 def resolve_device(device="cuda") -> torch.device:
     """-> torch.device.  The port's entry points default to "cuda" and never
     continue on the CPU silently: without a GPU a CUDA request raises, and
-    the caller must pass device="cpu" to run the plain path."""
+    the caller must pass device="cpu" to run the plain path.  "meta"
+    builds shapes and dtypes without data (the input structs of Regime
+    B's `launch.steps`); nothing runs there."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device={str(device)!r} but torch.cuda.is_available() is False; "
             f"pass device='cpu' to run the plain PyTorch path on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"device {str(device)!r}: the port runs on 'cuda' "
-                         f"or 'cpu'")
+                         f"or 'cpu' ('meta' for shapes only)")
     return dev
 
 

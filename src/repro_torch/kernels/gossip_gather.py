@@ -16,8 +16,10 @@ Two routes, chosen by shape alone in `plan` (never on a failure):
     of it there, so U is read once.  Taken whenever a panel of 16 columns
     of all m rows fits in a block's shared memory (m <= 3,632 in f32,
     7,264 in bf16).  block_d: a multiple of 16 bytes of U's dtype (4 f32
-    or 8 bf16 columns) whose panel fits; the default spreads the panels
-    evenly over the SMs.
+    or 8 bf16 columns) whose panel fits, at most TN x PANEL_THREADS =
+    4,096 (a thread owns TN columns of a panel); the default spreads the
+    panels evenly over the SMs (at few rows and a wide buffer, as Regime
+    B's (4, d 494,031,872), the widest: 4,096).
   - "row": one block per (output row, chunk of `block_d` columns) gathers
     its k neighbor rows from L2 (the first port's kernel).  block_d: a
     multiple of 128 in [128, 4096]; default 1024.
@@ -82,7 +84,9 @@ def plan(m: int, k: int, d: int, elem_bytes: int, sms: int,
         return Plan("row", bd, blocks, bd // 4, False, 8 * k,
                     -(-blocks // sms), 1.0)
     align = 16 // elem_bytes
-    max_bd = MAX_SMEM // (m * elem_bytes) // align * align
+    # the panel fits shared memory, and its column groups the block
+    max_bd = min(MAX_SMEM // (m * elem_bytes) // align * align,
+                 TN * PANEL_THREADS)
     if block_d is None:
         best = None
         for bn in range(align, min(max_bd, -(-d // align) * align) + 1,
@@ -97,7 +101,9 @@ def plan(m: int, k: int, d: int, elem_bytes: int, sms: int,
             raise ValueError(f"block_d={bn} on the panel route (m={m}, "
                              f"{elem_bytes}-byte U): a multiple of {align} "
                              f"in [{align}, {max_bd}], so that m x block_d "
-                             f"fits {MAX_SMEM} B of shared memory")
+                             f"fits {MAX_SMEM} B of shared memory and "
+                             f"block_d / {TN} column groups {PANEL_THREADS} "
+                             f"threads")
     threads = min(PANEL_THREADS, -(-(bn // TN * m) // 32) * 32)
     panel = _panel_bytes(m, bn, elem_bytes)
     table = panel + 8 * m * k <= MAX_SMEM

@@ -13,9 +13,12 @@ read or written.  X is rounded to U's dtype first, as in the reference.
 The plain version is `kernels.ref.gossip_scatter_ref` (one pair) and
 `kernels.ref.gossip_scatter_many_ref` (the pairs in turn).
 
-Memory-bound, and launch-bound at the main path's n = 25 rows.  One block
-per (row, chunk of `block_d` columns) moves the chunk for every pair;
-each thread loads its X slots before the row id and moves `vecs` slots
+Memory-bound, and launch-bound at the main path's n = 25 rows.  A block
+of the (n, grid_y) grid moves chunks of `block_d` columns of its row for
+every pair: chunk blockIdx.y, then every grid_y-th after it, so a row of
+any width fits the grid's y extent (grid_y = min(chunks, MAX_GRID_Y); one
+chunk a block wherever that covers the row, as at every Regime-A shape).
+Each thread loads its X slots before the row id and moves `vecs` slots
 of 4 columns per pair.  `plan` picks route and tiling by shape alone
 (never on a failure):
   - "vector": a slot is one 16-byte access of f32 X (8 bytes of bf16);
@@ -39,18 +42,20 @@ from . import _build
 MAX_PAIRS = 4                   # (X, U) pairs per launch
 MAX_SLOTS = 8                   # slots of 4 columns per thread, all pairs
 THREADS = 256                   # most threads of a block
-MAX_CHUNKS = 65535              # the grid's y extent
+MAX_GRID_Y = 65535              # the grid's y extent: blocks per row
+MAX_ROWS = 2 ** 31 - 1          # the grid's x extent: rows per launch
 RESIDENT_BLOCKS = 2048 // THREADS   # full blocks an SM holds at once
 _TYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 class Plan(NamedTuple):
     route: str           # "vector" or "scalar"
-    block_d: int         # columns per block: 4 * threads * vecs
-    chunks: int          # blocks per row
+    block_d: int         # columns per chunk: 4 * threads * vecs
+    chunks: int          # chunks per row: ceil(d / block_d)
     threads: int
     vecs: int            # 4-column slots per thread and pair: 1, 2, 4, 8
-    blocks: int          # n * chunks
+    blocks: int          # n * grid_y
+    grid_y: int          # blocks per row, each striding over the chunks
 
 
 def max_vecs(pairs: int) -> int:
@@ -68,11 +73,14 @@ def plan(n: int, d: int, sms: int, pairs: int = 1,
     """Route and tiling for `pairs` pairs of X (n, d) into U (m, d) on a
     card of `sms` SMs.  aligned: every base pointer is 16-byte aligned.
     By default one slot a thread where the blocks fit one wave of the
-    card (the main path), else the most slots.  Raises ValueError, naming
-    the valid values, for a block_d the kernel cannot take."""
+    card (the main path), else the most slots.  Raises ValueError,
+    naming the valid values, for a block_d or n the kernel cannot take."""
     if n < 1 or d < 1 or sms < 1 or not 1 <= pairs <= MAX_PAIRS:
         raise ValueError(f"plan needs n, d, sms >= 1 and 1 <= pairs <= "
                          f"{MAX_PAIRS}; got {n}, {d}, {sms}, {pairs}")
+    if n > MAX_ROWS:
+        raise ValueError(f"n={n} rows: one launch takes 1 to {MAX_ROWS} "
+                         f"(the grid's x extent)")
     route = "vector" if aligned and d % 4 == 0 else "scalar"
     top = 4 * THREADS * max_vecs(pairs)
     if block_d is None:
@@ -90,10 +98,9 @@ def plan(n: int, d: int, sms: int, pairs: int = 1,
     while 4 * THREADS * vecs < bd:
         vecs *= 2
     chunks = -(-d // bd)
-    if chunks > MAX_CHUNKS:
-        raise ValueError(f"d={d} needs more than {MAX_CHUNKS} chunks of "
-                         f"block_d={bd}")
-    return Plan(route, bd, chunks, bd // (4 * vecs), vecs, n * chunks)
+    grid_y = min(chunks, MAX_GRID_Y)
+    return Plan(route, bd, chunks, bd // (4 * vecs), vecs, n * grid_y,
+                grid_y)
 
 
 class _Pairs(ctypes.Structure):
@@ -113,10 +120,10 @@ def _lib() -> ctypes.CDLL:
                 fn = getattr(lib, _name(xt, ut))
                 fn.argtypes = [ctypes.c_void_p, _Pairs] + [
                     ctypes.c_int] * 3 + [ctypes.c_longlong] + [
-                    ctypes.c_int] * 5 + [ctypes.c_void_p]
+                    ctypes.c_int] * 6 + [ctypes.c_void_p]
                 fn.restype = ctypes.c_int
         consts = {"max_pairs": MAX_PAIRS, "max_slots": MAX_SLOTS,
-                  "max_threads": THREADS}
+                  "max_threads": THREADS, "max_grid_y": MAX_GRID_Y}
         for key, want in consts.items():
             got = getattr(lib, f"gossip_scatter_{key}")()
             if got != want:
@@ -191,7 +198,7 @@ def gossip_scatter_many_cuda(rows: torch.Tensor, Xs, Us,
         stream = torch.cuda.current_stream(Us[0].device).cuda_stream
         rc = fn(rows.data_ptr(), ptrs, len(Xs), n, m, d,
                 int(bool(accumulate)), int(p.route == "vector"), p.chunks,
-                p.vecs, p.threads, stream)
+                p.grid_y, p.vecs, p.threads, stream)
     _build.check(lib, rc, f"gossip_scatter launch ({p.route} route)")
     gossip_scatter_cuda.launches += 1
     return Us

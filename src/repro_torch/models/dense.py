@@ -9,9 +9,12 @@ Layout: pre-RMSNorm blocks, SwiGLU MLP, RoPE; the layer weights are
 stacked on a leading (n_layers, ...) dim as in the reference, and the
 layers run as a Python loop over that dim (the reference's `lax.scan`;
 `remat` and `scan_unroll` leave the forward's values unchanged and are not
-read).  Attention in the forward goes through `ops.flash_attention` (the
-CUDA kernel on the card, its plain version on the CPU) where the
-reference takes `gqa_attend` / `block_attention`; decode attends over the
+read).  The forward's attention takes one of two routes, named by the
+caller (`layers.ROUTES`): "kernel", `ops.flash_attention` (the CUDA
+kernel on the card, its plain version on the CPU; prefill), or "plain",
+the reference's own `gqa_attend` / `block_attention` under autograd
+(`loss_fn`, the training route: the kernel has no backward, and the
+reference trains through neither Pallas kernel).  Decode attends over the
 cache with `gqa_attend`, as the reference does.  `lm_head` is its own
 leaf, as the reference draws it, although qwen2-0.5b and granite-3-2b
 say `tie_embeddings=True`.
@@ -69,40 +72,44 @@ def _layer(params: dict, i: int) -> dict:
 # forward
 # ---------------------------------------------------------------------------
 def _block(lp: dict, x: torch.Tensor, positions: torch.Tensor,
-           cfg: ModelConfig) -> torch.Tensor:
+           cfg: ModelConfig, route: str) -> torch.Tensor:
     h = L.rms_norm(x, lp["ln1"].to(x.dtype), cfg.norm_eps)
     x = x + L.attention_train(lp["attn"], h, positions, cfg,
-                              window=cfg.window)
+                              window=cfg.window, route=route)
     h = L.rms_norm(x, lp["ln2"].to(x.dtype), cfg.norm_eps)
     return x + L.swiglu(lp["mlp"], h)
 
 
 def backbone(params: dict, x: torch.Tensor, positions: torch.Tensor,
-             cfg: ModelConfig) -> torch.Tensor:
+             cfg: ModelConfig, route: str = "kernel") -> torch.Tensor:
     """x: (B, S, D) embeddings -> (B, S, D) features."""
-    for i in range(cfg.n_layers):
-        x = _block(_layer(params, i), x, positions, cfg)
+    for lp in L.unstack(params["layers"]):
+        x = _block(lp, x, positions, cfg, route)
     return L.rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
 
 
 def forward_train(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-                  positions=None, last_only: bool = False) -> torch.Tensor:
+                  positions=None, last_only: bool = False,
+                  route: str = "kernel") -> torch.Tensor:
     """Logits (B, S, vocab), or (B, 1, vocab) with last_only (prefill: the
-    next-token sample point only), in the compute dtype."""
+    next-token sample point only), in the compute dtype.  route: the
+    attention's (`layers.ROUTES`); "plain" is the training route."""
     # gather, then cast: the reference's cast-then-gather without a
     # (vocab, d_model) temporary
     x = params["embed"][tokens].to(cfg.cdtype)
     if positions is None:
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)[None, :]
-    x = backbone(params, x, positions, cfg)
+    x = backbone(params, x, positions, cfg, route)
     if last_only:
         x = x[:, -1:]
     return x @ params["lm_head"].to(x.dtype)
 
 
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
-    logits = forward_train(params, batch["tokens"], cfg)
+    """Mean next-token cross-entropy on the training route (plain
+    attention under autograd)."""
+    logits = forward_train(params, batch["tokens"], cfg, route="plain")
     return L.softmax_xent(logits, batch["labels"])
 
 

@@ -1,11 +1,14 @@
 """Hybrid recurrent/attention family — RecurrentGemma / Griffin.
 
 Port of `repro/models/hybrid.py`.  recurrentgemma-9b [arXiv:2402.19427]:
-38 layers, pattern (RG-LRU, RG-LRU, local-attn) repeating; the RG-LRU's
-linear recurrence runs through `ops.rglru` (the CUDA kernel on the card)
-where the reference takes `jax.lax.associative_scan`, and local attention
-(MQA with a sliding window) through `ops.flash_attention` where the
-reference takes `gqa_attend` / `block_attention`.
+38 layers, pattern (RG-LRU, RG-LRU, local-attn) repeating.  The forward
+takes one of two routes, named by the caller (`layers.ROUTES`): "kernel"
+runs the RG-LRU's linear recurrence through `ops.rglru` and local
+attention (MQA with a sliding window) through `ops.flash_attention` (the
+CUDA kernels on the card; prefill), "plain" through `associative_scan`,
+the reference's `jax.lax.associative_scan` order ported, and the
+reference's `gqa_attend` / `block_attention`, under autograd (`loss_fn`,
+the training route: neither kernel has a backward).
 
 Parameters keep the reference's layout: periods of (2 recurrent + 1
 attention) layers stacked on leading dims (`period_lru` (P, 2, ...),
@@ -83,13 +86,66 @@ def _rglru_gates(p: dict, xi: torch.Tensor):
     return a, gated_x
 
 
-def rglru_scan(p: dict, xi: torch.Tensor, h0=None) -> torch.Tensor:
-    """xi: (B, S, W).  h_t = a_t h_{t-1} + b_t through `ops.rglru`; an
-    initial state h0 folds into b_0 as a_0 * h0."""
+def _interleave(a: torch.Tensor, b: torch.Tensor, dim: int) -> torch.Tensor:
+    """out[0::2] = a, out[1::2] = b along `dim` (len a = len b or +1)."""
+    n = b.shape[dim]
+    pairs = torch.stack([a.narrow(dim, 0, n), b], dim=dim + 1).flatten(
+        dim, dim + 1)
+    if a.shape[dim] == n:
+        return pairs
+    return torch.cat([pairs, a.narrow(dim, n, 1)], dim=dim)
+
+
+def _every_other(x: torch.Tensor, dim: int, start: int,
+                 stop=None) -> torch.Tensor:
+    sl = [slice(None)] * x.dim()
+    sl[dim] = slice(start, stop, 2)
+    return x[tuple(sl)]
+
+
+def associative_scan(combine, elems: list, dim: int) -> list:
+    """Inclusive scan of `elems` (tensors sharing their `dim` extent)
+    under the associative `combine`, in `jax.lax.associative_scan`'s order
+    (the odd/even recursion of Blelloch 1990): adjacent pairs combined,
+    the half-size scan recursed, the even outputs combined from the odd
+    ones, interleaved.  The same combines in the same order as the
+    reference's: its f32 results differ only where XLA fuses a multiply
+    and an add into one rounding (tests/test_torch_regime_b.py bounds
+    it).  log2(S) levels of whole-tensor ops, differentiable."""
+    n = elems[0].shape[dim]
+    if n < 2:
+        return elems
+    reduced = combine([_every_other(e, dim, 0, n - 1) for e in elems],
+                      [_every_other(e, dim, 1) for e in elems])
+    odd = associative_scan(combine, reduced, dim)
+    if n % 2 == 0:
+        even = combine([e.narrow(dim, 0, e.shape[dim] - 1) for e in odd],
+                       [_every_other(e, dim, 2) for e in elems])
+    else:
+        even = combine(odd, [_every_other(e, dim, 2) for e in elems])
+    even = [torch.cat([e.narrow(dim, 0, 1), r], dim=dim)
+            for e, r in zip(elems, even)]
+    return [_interleave(e, o, dim) for e, o in zip(even, odd)]
+
+
+def _linear_combine(c1, c2):
+    (a1, b1), (a2, b2) = c1, c2
+    return [a1 * a2, a2 * b1 + b2]
+
+
+def rglru_scan(p: dict, xi: torch.Tensor, h0=None,
+               route: str = "kernel") -> torch.Tensor:
+    """xi: (B, S, W).  h_t = a_t h_{t-1} + b_t in f32, through
+    `ops.rglru` (route "kernel") or `associative_scan` (route "plain",
+    differentiable); an initial state h0 folds into b_0 as a_0 * h0."""
+    if route not in L.ROUTES:
+        raise ValueError(f"route={route!r}; known: {L.ROUTES}")
     a, b = _rglru_gates(p, xi)                       # (B, S, W) f32 each
     if h0 is not None:
         b = b.clone()
         b[:, 0] += a[:, 0] * h0.to(torch.float32)
+    if route == "plain":
+        return associative_scan(_linear_combine, [a, b], 1)[1].to(xi.dtype)
     return ops.rglru(a, b).to(xi.dtype)
 
 
@@ -100,13 +156,15 @@ def rglru_step(p: dict, xi: torch.Tensor, h: torch.Tensor):
     return hn.to(xi.dtype)[:, None, :], hn.to(h.dtype)
 
 
-def recurrent_block(p: dict, x: torch.Tensor, cfg: ModelConfig, state=None):
-    """Griffin recurrent temporal block.  state: None | (h, conv_state)."""
+def recurrent_block(p: dict, x: torch.Tensor, cfg: ModelConfig, state=None,
+                    route: str = "kernel"):
+    """Griffin recurrent temporal block.  state: None | (h, conv_state);
+    route: the full-sequence recurrence's (`rglru_scan`)."""
     y = F.gelu(x @ p["w_in_y"].to(x.dtype), approximate="tanh")
     xi = x @ p["w_in_x"].to(x.dtype)
     if state is None:
         xi, _ = _causal_conv1d(xi, p["conv_w"])
-        h = rglru_scan(p, xi)
+        h = rglru_scan(p, xi, route=route)
         return (h * y) @ p["w_out"].to(x.dtype), None
     h0, conv_state = state
     xi, conv_state = _causal_conv1d(xi, p["conv_w"], conv_state)
@@ -172,27 +230,30 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
-def _lru_layer_fwd(lp: dict, x: torch.Tensor, cfg: ModelConfig, state=None):
+def _lru_layer_fwd(lp: dict, x: torch.Tensor, cfg: ModelConfig, state=None,
+                   route: str = "kernel"):
     h = L.rms_norm(x, lp["ln1"].to(x.dtype), cfg.norm_eps)
-    r, state = recurrent_block(lp["rec"], h, cfg, state)
+    r, state = recurrent_block(lp["rec"], h, cfg, state, route)
     x = x + r
     h = L.rms_norm(x, lp["ln2"].to(x.dtype), cfg.norm_eps)
     return x + L.swiglu(lp["mlp"], h), state
 
 
 def _attn_layer_fwd(lp: dict, x: torch.Tensor, positions: torch.Tensor,
-                    cfg: ModelConfig) -> torch.Tensor:
+                    cfg: ModelConfig, route: str) -> torch.Tensor:
     h = L.rms_norm(x, lp["ln1"].to(x.dtype), cfg.norm_eps)
     x = x + L.attention_train(lp["attn"], h, positions, cfg,
-                              window=cfg.local_window)
+                              window=cfg.local_window, route=route)
     h = L.rms_norm(x, lp["ln2"].to(x.dtype), cfg.norm_eps)
     return x + L.swiglu(lp["mlp"], h)
 
 
 def forward_train(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-                  positions=None, last_only: bool = False) -> torch.Tensor:
+                  positions=None, last_only: bool = False,
+                  route: str = "kernel") -> torch.Tensor:
     """Logits (B, S, vocab), or (B, 1, vocab) with last_only, in the
-    compute dtype."""
+    compute dtype.  route: the recurrence's and the attention's
+    (`layers.ROUTES`); "plain" is the training route."""
     # gather, then cast: the reference's cast-then-gather without a
     # (vocab, d_model) temporary
     x = params["embed"][tokens].to(cfg.cdtype)
@@ -200,15 +261,15 @@ def forward_train(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)[None, :]
     P, tail = _layout(cfg)
-    for pi in range(P):
-        for j in range(2):
-            lj = tree_map(lambda a: a[pi, j], params["period_lru"])
-            x, _ = _lru_layer_fwd(lj, x, cfg)
-        attn = tree_map(lambda a: a[pi], params["period_attn"])
-        x = _attn_layer_fwd(attn, x, positions, cfg)
-    for ti in range(tail):
-        x, _ = _lru_layer_fwd(tree_map(lambda a: a[ti], params["tail_lru"]),
-                              x, cfg)
+    if P:
+        for lru, attn in zip(L.unstack(params["period_lru"]),
+                             L.unstack(params["period_attn"])):
+            for lj in L.unstack(lru):
+                x, _ = _lru_layer_fwd(lj, x, cfg, route=route)
+            x = _attn_layer_fwd(attn, x, positions, cfg, route)
+    if tail:
+        for lt in L.unstack(params["tail_lru"]):
+            x, _ = _lru_layer_fwd(lt, x, cfg, route=route)
     x = L.rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
     if last_only:
         x = x[:, -1:]
@@ -216,7 +277,8 @@ def forward_train(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
 
 
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
-    logits = forward_train(params, batch["tokens"], cfg)
+    """Mean next-token cross-entropy on the training route."""
+    logits = forward_train(params, batch["tokens"], cfg, route="plain")
     return L.softmax_xent(logits, batch["labels"])
 
 

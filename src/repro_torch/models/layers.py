@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..tree import from_paths, paths
 from .config import ModelConfig
 
 
@@ -38,6 +39,18 @@ def embed_init(generator: torch.Generator, shape, dtype=torch.float32,
     x = torch.randn(tuple(shape), generator=generator,
                     device=generator.device).mul_(0.02)
     return x.to(dtype=dtype, device=device)
+
+
+def unstack(stacked: dict) -> list:
+    """The per-layer trees of weights stacked on a leading (n, ...) dim:
+    one `unbind` per leaf, whose backward stacks the layers' gradients
+    into one tensor.  Indexing each layer out instead costs, in the
+    backward, a zero-filled copy of the whole stack per layer and the sum
+    of them (the same values: each element gets one layer's gradient)."""
+    per_leaf = [(p, a.unbind(0)) for p, a in paths(stacked)]
+    n = len(per_leaf[0][1])
+    return [from_paths((p, views[i]) for p, views in per_leaf)
+            for i in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -140,26 +153,76 @@ def causal_mask(sq: int, sk: int, window: int = 0, offset: int = 0,
     return m
 
 
+def block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: int = 0, scale: Optional[float] = None,
+                    q_block: int = 1024) -> torch.Tensor:
+    """Memory-bounded causal (optionally sliding-window) GQA attention:
+    a Python loop over query blocks, each attending through `gqa_attend`
+    to the key slice it can see ([0, q_hi) causal, the trailing `window +
+    block` band windowed), so no (S, S) mask or score tensor exists.
+    q: (B, S, H, hd); k/v: (B, S, Hkv, hd) -> (B, S, H, hd)."""
+    S = q.shape[1]
+    qb = min(q_block, S)
+    outs = []
+    for q0 in range(0, S, qb):
+        q1 = min(q0 + qb, S)
+        k0 = max(0, q1 - window - (q1 - q0)) if window else 0
+        mask = causal_mask(q1 - q0, q1 - k0, window=window, offset=q0 - k0,
+                           device=q.device)
+        outs.append(gqa_attend(q[:, q0:q1], k[:, k0:q1], v[:, k0:q1], mask,
+                               scale=scale))
+    return torch.cat(outs, dim=1)
+
+
+# sequences at or above this length take the blocked path in training
+BLOCK_ATTN_MIN_SEQ = 2048
+# the two routes of attention_train: "kernel" = ops.flash_attention (the
+# CUDA kernel on the card; prefill), "plain" = the reference's own
+# branches under autograd (training)
+ROUTES = ("kernel", "plain")
+
+
+def attend_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 window: int = 0, scale: Optional[float] = None):
+    """The training route: the reference's `attend_auto` branch for
+    branch, plain torch under autograd.  Below BLOCK_ATTN_MIN_SEQ
+    `gqa_attend` under `causal_mask`, at or above it `block_attention`;
+    both round scores and probabilities to the compute dtype as the
+    reference does (the kernel's f32 softmax is another function)."""
+    if q.shape[1] >= BLOCK_ATTN_MIN_SEQ:
+        return block_attention(q, k, v, window=window, scale=scale)
+    mask = causal_mask(q.shape[1], k.shape[1], window=window,
+                       device=q.device)
+    return gqa_attend(q, k, v, mask, scale=scale)
+
+
 def attend_auto(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 window: int = 0, scale: Optional[float] = None):
-    """Causal (sliding-window) attention through `ops.flash_attention` at
-    every length: the CUDA kernel on the card, its plain version on the
-    CPU.  Both of the reference's branches (`gqa_attend` under a mask,
-    `block_attention`) compute this function; the kernel keeps scores,
-    softmax and P V in f32 where `gqa_attend` rounds scores and
-    probabilities to the compute dtype."""
+    """The kernel route: causal (sliding-window) attention through
+    `ops.flash_attention` at every length, the CUDA kernel on the card,
+    its plain version on the CPU.  Forward only: the kernel keeps scores,
+    softmax and P V in f32 and has no backward (training takes
+    `attend_plain`)."""
     return ops.flash_attention(q, k, v, window=window, scale=scale)
 
 
 def attention_train(p: dict, x: torch.Tensor, positions: torch.Tensor,
                     cfg: ModelConfig, window: int = 0,
-                    theta: Optional[float] = None) -> torch.Tensor:
+                    theta: Optional[float] = None,
+                    route: str = "kernel") -> torch.Tensor:
+    """Full-sequence attention block; `route` picks the attention
+    (`ROUTES`): the caller states it, nothing falls back."""
+    if route not in ROUTES:
+        raise ValueError(f"route={route!r}; known: {ROUTES}")
     q, k, v = _qkv(p, x, cfg)
     th = theta if theta is not None else cfg.rope_theta
     if th > 0:
         q = apply_rope(q, positions, th)
         k = apply_rope(k, positions, th)
-    out = attend_auto(q, k, v, window=window)
+    if route == "plain":
+        out = attend_plain(q, k, v, window=window)
+    else:
+        out = attend_auto(q, k, v, window=window)
     return out.reshape(*x.shape[:2], -1) @ p["wo"].to(x.dtype)
 
 

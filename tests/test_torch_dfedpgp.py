@@ -258,10 +258,15 @@ def test_unported_algorithms_and_dfedpgp_knobs_raise():
         tsim.run_experiment("dispfl", tsim.SimConfig(**ASYNC_TINY),
                             device="cpu")
     mask = {"a": True}
-    for kw, item in ((dict(grad_hook_flat=print), "item 14"),
-                     (dict(grad_hook=print), "item 14")):
-        with pytest.raises(NotImplementedError, match=item):
-            tdfedpgp.DFedPGP(loss_fn=print, mask=mask, **kw)
+    # the grad hooks are ported (Regime B): both are taken, and the
+    # resident rounds refuse a tree hook without its row twin, as the
+    # reference's do
+    for kw in (dict(grad_hook_flat=print), dict(grad_hook=print)):
+        algo = tdfedpgp.DFedPGP(loss_fn=print, mask=mask, **kw)
+        assert all(getattr(algo, k) is print for k in kw)
+    with pytest.raises(ValueError, match="grad_hook_flat"):
+        tdfedpgp.DFedPGP(loss_fn=print, mask=mask,
+                         grad_hook=print)._check_flat_hooks()
     # telemetry is ported
     assert tdfedpgp.DFedPGP(loss_fn=print, mask=mask,
                             telemetry=True).telemetry

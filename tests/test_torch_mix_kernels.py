@@ -148,6 +148,44 @@ def test_gather_plan_takes_the_panel_route_evenly_at_the_main_shapes(
         assert p.smem == 100 * 104 * 4 + 100 * 11 * 8
 
 
+# Regime B's shared row: qwen2-0.5b's 630,167,424 leaves less lm_head and
+# final_norm, mixed over m 4 clients (k 3 at 2 neighbors; 2 rows on the
+# sampled round's compact set)
+D_LM = 494_031_872
+
+
+@pytest.mark.parametrize("m,k", [(4, 3), (2, 2), (4, 2)])
+@pytest.mark.parametrize("elem_bytes", [4, 2])
+def test_gather_plan_at_an_lm_shared_row(m, k, elem_bytes):
+    # the panel route (m x 16 columns fit shared memory), U read once, a
+    # 1-D grid far under 2^31 blocks.  The launch refuses a panel whose
+    # block_d / TN column groups exceed its threads; before the cap at
+    # TN x PANEL_THREADS the plan chose 14,340 columns here (3,585 groups
+    # for 1,024 threads), which the kernel would have refused
+    p = gg.plan(m, k, D_LM, elem_bytes, SMS)
+    assert p.route == "panel" and p.table
+    assert p.block_d <= gg.TN * gg.PANEL_THREADS
+    assert p.threads >= p.block_d // gg.TN and p.threads <= 1024
+    assert p.blocks == -(-D_LM // p.block_d) < 2 ** 31
+    assert p.smem <= SMEM and p.balance >= 0.999
+    if (m, k, elem_bytes) == (4, 3, 4):
+        assert (p.block_d, p.blocks, p.threads) == (3948, 125_135, 1024)
+
+
+@pytest.mark.parametrize("m", [1, 2, 4, 17, 100, 1024, 3632])
+@pytest.mark.parametrize("d", [4, 13328, 10 ** 6, D_LM])
+@pytest.mark.parametrize("elem_bytes", [4, 2])
+def test_gather_plan_panel_fits_its_threads(m, d, elem_bytes):
+    # what the launch checks (csrc/gossip_gather.cu launch_panel): every
+    # column group of a panel has a thread
+    p = gg.plan(m, 3, d, elem_bytes, SMS)
+    assert p.route == "panel"
+    assert p.block_d // gg.TN <= p.threads <= gg.PANEL_THREADS
+    assert p.block_d % (16 // elem_bytes) == 0
+    with pytest.raises(ValueError, match="column groups"):
+        gg.plan(m, 3, d, elem_bytes, SMS, gg.TN * gg.PANEL_THREADS + 16)
+
+
 @pytest.mark.parametrize("elem_bytes,m_max", [(4, 3632), (2, 7264)])
 def test_gather_plan_takes_the_row_route_above_the_smem_limit(elem_bytes,
                                                              m_max):

@@ -30,11 +30,13 @@ D_MAIN = 13328                   # the CNN's d_flat
 # the kernel's walk, as csrc/gossip_scatter.cu computes it
 # ---------------------------------------------------------------------------
 def blocks(plan, n):
-    """(row, first column) of every block of the (n, chunks) grid; each
-    block moves its chunk of every pair."""
-    for c in range(plan.chunks):
+    """(row, first column) of every chunk a block of the (n, grid_y) grid
+    moves, in the kernel's order: block (p, y) moves chunks y, y + grid_y,
+    ... of row p, each of every pair."""
+    for y in range(plan.grid_y):
         for p in range(n):
-            yield p, c * plan.block_d
+            for c in range(y, plan.chunks, plan.grid_y):
+                yield p, c * plan.block_d
 
 
 def block_columns(plan, d, c0):
@@ -111,8 +113,9 @@ def test_plan_invariants(n, d, pairs, sms, aligned):
     # the fewest slots for the threads: half as many would need more
     # threads than a block has
     assert p.vecs == 1 or p.threads * 2 > gs.THREADS
-    assert p.chunks == -(-d // p.block_d) <= gs.MAX_CHUNKS
-    assert p.blocks == n * p.chunks < 2 ** 31
+    assert p.chunks == -(-d // p.block_d)
+    assert p.grid_y == min(p.chunks, gs.MAX_GRID_Y)
+    assert p.blocks == n * p.grid_y < 2 ** 31
     # one slot where the blocks fit one wave of the card, else the most
     one_wave = n * -(-d // min(1024, -(-d // 128) * 128)) \
         <= sms * gs.RESIDENT_BLOCKS
@@ -160,9 +163,16 @@ def test_plan_holds_the_slots_of_all_pairs_to_max_slots(pairs, top):
 
 
 def test_plan_refuses_more_chunks_than_the_grid_holds():
-    gs.plan(1, 128 * gs.MAX_CHUNKS, SMS, 1, 128)
-    with pytest.raises(ValueError, match="65535 chunks"):
-        gs.plan(1, 128 * gs.MAX_CHUNKS + 1, SMS, 1, 128)
+    # the grid holds 65,535 blocks a row: up to that a block moves one
+    # chunk, beyond it the blocks stride over the chunks (no width is
+    # refused).  What is refused is a row count beyond the grid's x extent
+    # and a cap outside its y extent, naming the valid values
+    one = gs.plan(1, 128 * gs.MAX_GRID_Y, SMS, 1, 128)
+    assert one.chunks == one.grid_y == gs.MAX_GRID_Y
+    more = gs.plan(1, 128 * gs.MAX_GRID_Y + 1, SMS, 1, 128)
+    assert (more.chunks, more.grid_y) == (gs.MAX_GRID_Y + 1, gs.MAX_GRID_Y)
+    with pytest.raises(ValueError, match=r"1 to 2147483647"):
+        gs.plan(2 ** 31, 128, SMS, 1)
 
 
 @pytest.mark.parametrize("block_d,vecs,threads", [
@@ -172,6 +182,32 @@ def test_plan_takes_valid_block_d(block_d, vecs, threads):
     p = gs.plan(25, D_MAIN, SMS, 1, block_d)
     assert (p.block_d, p.vecs, p.threads) == (block_d, vecs, threads)
     assert p.chunks == -(-D_MAIN // block_d)
+
+
+# an LM's shared row: qwen2-0.5b's 630,167,424 leaves less lm_head (896 x
+# 151,936) and final_norm (896), the width of Regime B's write-back
+D_LM = 494_031_872
+
+
+@pytest.mark.parametrize("pairs,vecs", [(1, 8), (2, 4), (4, 2)])
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_plan_at_an_lm_shared_row(pairs, vecs, n):
+    # the sampled Regime-B round writes back 2 pairs (buffer, momentum) of
+    # 2 rows; a codec round 4.  Far more blocks than one wave, so the most
+    # slots the pairs leave: 1 pair takes 60,307 chunks of 8,192, within
+    # the grid's y extent; 2 pairs 120,614 of 4,096 and 4 pairs 241,227 of
+    # 2,048, beyond it, so each block strides over up to 2 and 4 of them
+    # (the plan refused both before: more than 65,535 chunks)
+    p = gs.plan(n, D_LM, SMS, pairs)
+    assert (p.route, p.vecs, p.threads) == ("vector", vecs, 256)
+    assert p.block_d == 1024 * vecs and p.chunks == -(-D_LM // p.block_d)
+    assert p.chunks == {1: 60_307, 2: 120_614, 4: 241_227}[pairs]
+    assert p.grid_y == min(p.chunks, gs.MAX_GRID_Y)
+    assert p.blocks == n * p.grid_y
+    # block y moves chunks y, y + grid_y, ...: every chunk once
+    per_block = [len(range(y, p.chunks, p.grid_y)) for y in range(p.grid_y)]
+    assert sum(per_block) == p.chunks
+    assert max(per_block) == {1: 1, 2: 2, 4: 4}[pairs]
 
 
 @pytest.mark.parametrize("args", [(0, 5, SMS, 1), (5, 0, SMS, 1),
@@ -245,6 +281,38 @@ def test_emulation_of_many_pairs_equals_reference_scatter_per_pair(
                       [torch.tensor(U) for U in Us], accumulate)
         for g, want in zip(got, wants):
             np.testing.assert_array_equal(g.numpy(), want, err_msg=str(p))
+
+
+@pytest.mark.parametrize("n", [5])
+@pytest.mark.parametrize("d", [513, 4097])
+@pytest.mark.parametrize("cap", [1, 3])
+@pytest.mark.parametrize("udt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("accumulate", [False, True])
+def test_strided_emulation_equals_reference_kernel(n, d, cap, udt,
+                                                   accumulate):
+    # the striding instance's block indexing: a grid of `cap` blocks a
+    # row (the plan's tiling with grid_y cut to cap, as a row of more
+    # than 65,535 chunks gets it) strides over every chunk of its row, at
+    # one to eight slots and on both routes; bit for bit against the
+    # reference's interpreted Pallas kernel, every element written once
+    rng = np.random.default_rng(d * 3 + n + cap)
+    U = rng.standard_normal((M, d)).astype(np.float32)
+    X = rng.standard_normal((n, d)).astype(np.float32)
+    rows = rng.permutation(M)[:n].astype(np.int32)
+    tdt, jdt = {"float32": (torch.float32, jnp.float32),
+                "bfloat16": (torch.bfloat16, jnp.bfloat16)}[udt]
+    want = np.asarray(jops.gossip_scatter(
+        jnp.asarray(rows), jnp.asarray(X), jnp.asarray(U).astype(jdt),
+        accumulate=accumulate, force="pallas").astype(jnp.float32))
+    for bd, aligned in ((128, True), (1152, False), (8192, True)):
+        p = gs.plan(n, d, SMS, 1, bd, aligned=aligned)
+        p = p._replace(grid_y=min(cap, p.chunks), blocks=n * min(cap,
+                                                                 p.chunks))
+        assert (coverage(p, n, d) == 1).all(), p
+        got = emulate(p, torch.as_tensor(rows), [torch.as_tensor(X)],
+                      [torch.tensor(U).to(tdt)], accumulate)[0]
+        np.testing.assert_array_equal(got.float().numpy(), want,
+                                      err_msg=str(p))
 
 
 # ---------------------------------------------------------------------------

@@ -111,7 +111,26 @@ line is never printed):
                 against their plain versions, timed warm and cold;
                 reduced() card vs CPU (3 resident, 2 sampled rounds); one
                 full-width prefill step (24 x 4 flash_attention);
-17. timings   — each kernel at its path's shape: kernel, plain and
+17. moe       — the moe family: the flash kernel at deepseek-moe-16b's
+                prefill (1, 8,192, 16, 16, 128) against its plain version,
+                timed beside SDPA and its bound; deepseek-moe-16b at full
+                width and 28 layers (65.5 GB of f32 params drawn on the
+                card, bf16 compute): prefill_logits at B 1, S 8,192 (two
+                moe_seq_chunk chunks) with exactly 28 flash_attention
+                launches, its rerun bitwise, the kernel route against the
+                plain route (LM bf16 bound, route flips counted), 16
+                greedy decode steps at B 4 from a 4,096 cache, peak
+                memory; deepseek-moe-16b and deepseek-v2-236b (MLA, the
+                plain attention) at reduced() card vs CPU in f32 and bf16
+                (forward, prefill, 8 decode steps, caches) and through 2
+                Regime-B resident rounds of launch.train (1 gossip_gather
+                a round), card vs CPU;
+18. vlm       — qwen2-vl-7b (M-RoPE) the same way: the flash kernel at
+                (1, 8,192, 28, 4, 128) (hd 128, a group of 7) held before
+                anything is timed; full width (30.5 GB): 1,024 vision
+                embeddings + 7,168 tokens, 28 flash_attention launches a
+                prefill, decode; reduced() card vs CPU and 2 rounds;
+19. timings   — each kernel at its path's shape: kernel, plain and
                 library-call ms (CUDA events), the card's bound, launches;
                 gossip_gather, pushsum_mix and topk_gather also at m = 1024,
                 gossip_gather also at the baselines' full-model widths,
@@ -142,7 +161,8 @@ from pathlib import Path
 
 PHASES = ("device", "build", "kernels", "train", "parity", "sampled",
           "kernel_mix", "compress", "baselines", "async", "obs",
-          "checkpoint", "serve", "lm", "dense", "regime_b", "timings")
+          "checkpoint", "serve", "lm", "dense", "regime_b", "moe", "vlm",
+          "timings")
 # the paper's comparison rows (the port's simulator.ALGOS but dfedpgp)
 BASELINES = ("local", "fedavg", "fedper", "fedrep", "fedbabu", "ditto",
              "dfedavgm", "dfedavgm-p", "osgp", "dispfl")
@@ -215,7 +235,8 @@ def _dev_us(e) -> float:
                    getattr(e, "self_cuda_time_total", 0.0))
 
 
-# Profiler windows that came back without a single device event.  On the
+# Profiler windows that came back without a single device event, or
+# (`device_ms`, `_lm_profile`) that lost some of them.  On the
 # H100 a short CUDA-only window now and then loses all of its kernels,
 # and once three windows in a row; a quiet margin at each end of the
 # window keeps them, and a window that is still empty is run again, at
@@ -228,10 +249,11 @@ PROFILE_ATTEMPTS = 5
 PROFILER_MISSES = []
 
 
-def profiled(torch, run, cpu: bool = False):
+def profiled(torch, run, cpu: bool = False, fatal: bool = True):
     """torch.profiler over `run()`, with a quiet margin on each side of
     it: (profiler, its device events, wall ms of run).  An empty window
-    is run again; PROFILE_ATTEMPTS empty ones fail."""
+    is run again; PROFILE_ATTEMPTS empty ones fail, or give None where
+    not `fatal`."""
     from torch.profiler import ProfilerActivity, profile
     for attempt in range(PROFILE_ATTEMPTS):
         acts = [ProfilerActivity.CUDA] + (
@@ -251,21 +273,87 @@ def profiled(torch, run, cpu: bool = False):
             return prof, events, wall
         PROFILER_MISSES.append(
             f"{getattr(run, '__qualname__', '?')} (window {attempt + 1})")
-    check(False, f"torch.profiler saw no device time in "
-                 f"{PROFILE_ATTEMPTS} windows: {PROFILER_MISSES}")
+    check(not fatal, f"torch.profiler saw no device time in "
+                     f"{PROFILE_ATTEMPTS} windows: {PROFILER_MISSES}")
+    return None
+
+
+# `device_ms` calls whose profiler windows kept losing events: their
+# time is `queued_ms`'s, printed with the timings
+DEVICE_MS_FALLBACKS = []
+DEVICE_MS_ATTEMPTS = 3
+SPIN_HZ = 2.0e9              # cycles a second of torch.cuda._sleep, at most
+
+
+def queued_ms(torch, fn, iters: int = 20, reps: int = 3) -> float:
+    """Device time per call by CUDA events alone: `iters` calls queued
+    behind a spin kernel (torch.cuda._sleep) that outlasts the host's
+    enqueueing, so the events time the card running them back to back,
+    without the host's launch gaps (the card's own gaps between kernels
+    are in); the median over `reps` windows, after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(1.5 * host_s * SPIN_HZ) + 4_000_000)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
 
 
 def device_ms(torch, fn, iters: int = 50) -> float:
     """Device time per call: the summed time of every kernel `fn` puts on
-    the card (torch.profiler), over `iters` calls, after a warm-up call."""
+    the card (torch.profiler), over `iters` calls, after a warm-up call,
+    where the window holds up.  Each call launches the same kernels, so a
+    window in which some kernel's count is not a whole multiple of the
+    calls lost events, and one whose kernels add up to more than the CUDA
+    events recorded around the same calls miscounted; either is run again
+    with half as many calls and listed in PROFILER_MISSES.  The H100's
+    profiler fails both ways: it drops one or two kernel events of a
+    window, whatever its length, and in one window read cuDNN's attention
+    6% over the events around it.  After DEVICE_MS_ATTEMPTS failed windows
+    the time is `queued_ms`'s, and the call is listed in
+    DEVICE_MS_FALLBACKS.  Surviving events are never scaled up."""
+    name = getattr(fn, "__qualname__", "?")
     fn()
+    n = iters
+    for _ in range(DEVICE_MS_ATTEMPTS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
 
-    def calls():
-        for _ in range(iters):
-            fn()
+        def calls(n=n, start=start, end=end):
+            start.record()
+            for _ in range(n):
+                fn()
+            end.record()
 
-    _, events, _ = profiled(torch, calls)
-    return sum(_dev_us(e) for e in events) / 1e3 / iters
+        window = profiled(torch, calls, fatal=False)
+        if window is None:
+            break
+        events = window[1]
+        short = sorted((e.key[:60], e.count) for e in events if e.count % n)
+        total = sum(_dev_us(e) for e in events) / 1e3
+        span = start.elapsed_time(end)
+        if not short and total <= span * 1.001 + 1e-3:  # events: ~0.5 us
+            return total / n
+        PROFILER_MISSES.append(f"{name}: {n} calls, (kernel, events) "
+                               f"{short[:3]}, kernels {total} ms in "
+                               f"{span} ms of events")
+        n = max(1, n // 2)
+    call = queued_ms(torch, fn, iters=min(iters, 20))
+    DEVICE_MS_FALLBACKS.append(f"{name}: {call} ms")
+    return call
 
 
 FLUSH_BYTES = 256 << 20      # written between calls for a cold L2 (50 MB)
@@ -3079,28 +3167,43 @@ LM_KERNEL_SYMBOLS = {
     "rglru": ("rglru_kernel",)}
 
 
-def _lm_profile(torch, fn, calls: int = 1):
+def _lm_profile(torch, fn, calls: int = 1, expect=None):
     """`calls` calls of fn under torch.profiler: wall and device ms per
     call, the device's busy share, the device ms of each of the two LM
     kernels and their share of the device time, and the ten kernels that
-    take the most."""
+    take the most.  `expect`, the launch counts of one call
+    (`ops.launch_counts()`), checks the window: one whose LM kernel events
+    fall short of them lost events and is run again, at most
+    PROFILE_ATTEMPTS times; `profile_verified` says whether a window kept
+    them all (other kernels' events cannot be checked so)."""
     def run():
         for _ in range(calls):
             fn()
 
-    _, events, wall = profiled(torch, run, cpu=True)
+    want = {n: calls * (expect or {}).get(n, 0) for n in LM_KERNEL_SYMBOLS}
+    for _ in range(PROFILE_ATTEMPTS):
+        _, events, wall = profiled(torch, run, cpu=True)
+        hits = {name: [e for e in events if any(k in e.key for k in keys)]
+                for name, keys in LM_KERNEL_SYMBOLS.items()}
+        seen = {n: sum(e.count for e in h) for n, h in hits.items()}
+        lost = {n: (seen[n], want[n]) for n in want if seen[n] < want[n]}
+        if not lost:
+            break
+        PROFILER_MISSES.append(f"{getattr(fn, '__qualname__', '?')}: LM "
+                               f"kernel events (seen, launched) {lost}")
     wall /= calls
     total = sum(_dev_us(e) for e in events) / 1e3 / calls
-    by, names = {}, {}
-    for name, keys in LM_KERNEL_SYMBOLS.items():
-        hit = [e for e in events if any(key in e.key for key in keys)]
-        by[name] = sum(_dev_us(e) for e in hit) / 1e3 / calls
-        names[name] = sorted({e.key[:120] for e in hit})
+    by = {n: sum(_dev_us(e) for e in h) / 1e3 / calls
+          for n, h in hits.items()}
+    names = {n: sorted({e.key[:120] for e in h}) for n, h in hits.items()}
     top = sorted(events, key=_dev_us, reverse=True)[:10]
     return {"calls": calls, "wall_ms": wall, "device_ms": total,
             "device_busy_share": total / wall,
             "device_events_per_call": sum(e.count for e in events) / calls,
             "kernel_ms": by, "kernel_names": names,
+            "kernel_events": seen,
+            "profile_verified": expect is not None and not lost,
+            "events_lost": lost,
             "kernel_share": {n: v / total for n, v in by.items()},
             "top_device_kernels": [{"name": e.key[:90],
                                     "ms": _dev_us(e) / 1e3 / calls,
@@ -3158,7 +3261,7 @@ def phase_lm(ctx):
             prefill()
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t) * 1e3)
-        share = _lm_profile(torch, prefill)
+        share = _lm_profile(torch, prefill, expect=counts)
         check(share["kernel_ms"]["flash_attention"] > 0 and any(
             "flash_attention_wgmma_kernel" in n
             for n in share["kernel_names"]["flash_attention"]),
@@ -3191,7 +3294,8 @@ def phase_lm(ctx):
             state["tok"] = out.argmax(-1)
             state["pos"] += 1
 
-        decode_profile = _lm_profile(torch, one_step, calls=3)
+        decode_profile = _lm_profile(torch, one_step, calls=3,
+                                     expect=decode_counts)
     peak = torch.cuda.max_memory_allocated()
     del params, batch, cache, logits, out, state
     torch.cuda.empty_cache()
@@ -3392,7 +3496,7 @@ def _dense_full(ctx, arch: str) -> dict:
             prefill()
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t) * 1e3)
-        prof = _lm_profile(torch, prefill)
+        prof = _lm_profile(torch, prefill, expect=counts)
         check(any("flash_attention_wgmma_kernel" in n
                   for n in prof["kernel_names"]["flash_attention"]),
               f"{arch}: the prefill profile names no bf16 flash kernel: "
@@ -3404,6 +3508,8 @@ def _dense_full(ctx, arch: str) -> dict:
             "batch": pb, "seq": ps, "launches": counts, "ms": ms,
             "ms_median": statistics.median(ms),
             "device_busy_share": prof["device_busy_share"],
+            "profile_verified": prof["profile_verified"],
+            "events_lost": prof["events_lost"],
             "flash_ms_per_layer": kernel_ms,
             "flash_share": prof["kernel_share"]["flash_attention"],
             "flash_bound_ms_per_layer": bound["bound_ms"],
@@ -3484,9 +3590,10 @@ def flash_plain_chunked(torch, q, k, v, window: int = 0,
     return out
 
 
-def _dense_flash_timing(ctx, arch: str) -> dict:
+def _dense_flash_timing(ctx, arch: str, prefill=None) -> dict:
     """The attention kernel at one config's prefill (DENSE_PREFILL's B
-    and S, the config's heads and window, bf16, random inputs): held
+    and S, or `prefill`'s, the config's heads and window, bf16, random
+    inputs): held
     against the plain version (flash_attention_ref where its f32 score
     matrix fits in FLASH_REF_SCORE_BYTES, else flash_plain_chunked, which
     is itself held against flash_attention_ref where both run) at the
@@ -3498,7 +3605,7 @@ def _dense_flash_timing(ctx, arch: str) -> dict:
     from repro_torch import configs
     from repro_torch.kernels import ops
     cfg = configs.get_config(arch)
-    B, S = DENSE_PREFILL[arch]
+    B, S = prefill or DENSE_PREFILL[arch]
     win = cfg.window
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     g = torch.Generator(device="cuda").manual_seed(41)
@@ -4074,61 +4181,60 @@ def _regime_b_kernels(ctx) -> dict:
     return out
 
 
+def _to_card(torch, obj):
+    """A copy of tensors, dicts and NamedTuples of them on the card."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to("cuda", copy=True)
+    if isinstance(obj, dict):
+        return {k: _to_card(torch, v) for k, v in obj.items()}
+    if hasattr(obj, "_fields"):
+        return type(obj)(*(_to_card(torch, v) for v in obj))
+    return obj
+
+
+def _rounds_card_vs_cpu(ctx, argv, rounds: int, tol_of) -> dict:
+    """`rounds` Trainer rounds on the card and on the CPU from one init
+    (the CPU run's), one set of batches (the CPU run's) and the schedule's
+    tables; every state leaf held at `tol_of(name, cpu_leaf)` -> (rtol,
+    atol), mu exact."""
+    torch = ctx["torch"]
+    cpu = _trainer(argv + ["--device", "cpu"])
+    gpu = _trainer(argv + ["--device", "cuda"])
+    gpu.state = _to_card(torch, cpu.state)
+    for r in range(rounds):
+        b = cpu.batches(r)
+        cpu.step(r, b)
+        gpu.step(r, _to_card(torch, b))
+    want, got = (dict(_state_leaves(run.state)) for run in (cpu, gpu))
+    check(set(want) == set(got), f"leaves {set(want) ^ set(got)}")
+    errs = {}
+    for key in want:
+        a, b = got[key].cpu(), want[key]
+        errs[key] = max_abs(a, b)
+        rtol, atol = tol_of(key, b)
+        check(torch.allclose(a.double(), b.double(), rtol=rtol, atol=atol),
+              f"{argv[:2]} rounds card vs CPU {key}: err {errs[key]}")
+    check(torch.equal(got["mu"].cpu(), want["mu"]), f"{argv[:2]}: mu")
+    return {"rounds": rounds, "max_abs_err": max(errs.values()),
+            "worst_leaf": max(errs, key=errs.get), "mu_exact": True}
+
+
 def _regime_b_parity(ctx) -> dict:
     """reduced() qwen2-0.5b, f32: 3 resident rounds and 2 sampled rounds
     on the card and on the CPU from one init (the CPU run's), one set of
     batches (the CPU run's) and the schedule's tables; every state leaf at
     rtol 1e-4, atol 2e-5 (the port-vs-reference tolerance of
     tests/test_torch_regime_b.py), mu exact."""
-    torch = ctx["torch"]
-    from repro_torch import tree
     base = ["--arch", "qwen2-0.5b", "--reduced", "--clients", "4",
             "--batch", "2", "--seq", "32", "--neighbors", "2"]
-
-    def leaves(state):
-        out = {}
-        for field, val in state._asdict().items():
-            val = val._asdict()["momentum"] if hasattr(val, "_asdict") \
-                else val
-            if isinstance(val, dict):
-                out.update({f"{field}/{'/'.join(p)}": x
-                            for p, x in tree.paths(val)})
-            elif isinstance(val, torch.Tensor):
-                out[field] = val
-        return out
-
-    def to_card(obj):
-        if isinstance(obj, torch.Tensor):
-            return obj.to("cuda", copy=True)
-        if isinstance(obj, dict):
-            return {k: to_card(v) for k, v in obj.items()}
-        if hasattr(obj, "_fields"):
-            return type(obj)(*(to_card(v) for v in obj))
-        return obj
-
     out = {}
     for name, extra, rounds in (("resident", ["--resident"], 3),
                                 ("sampled", ["--resident", "--sample",
                                              "0.5"], 2)):
-        cpu = _trainer(base + extra + ["--device", "cpu"])
-        gpu = _trainer(base + extra + ["--device", "cuda"])
-        gpu.state = to_card(cpu.state)
-        for r in range(rounds):
-            b = cpu.batches(r)
-            cpu.step(r, b)
-            gpu.step(r, to_card(b))
-        want, got = leaves(cpu.state), leaves(gpu.state)
-        check(set(want) == set(got), f"{name}: leaves {set(want) ^ set(got)}")
-        errs = {}
-        for key in want:
-            a, b = got[key].cpu(), want[key]
-            errs[key] = max_abs(a, b)
-            check(torch.allclose(a.double(), b.double(), **REGIME_B_TOL),
-                  f"regime_b parity {name} {key}: err {errs[key]}")
-        check(torch.equal(got["mu"].cpu(), want["mu"]), f"{name}: mu")
-        out[name] = {"rounds": rounds, "max_abs_err": max(errs.values()),
-                     "worst_leaf": max(errs, key=errs.get),
-                     "mu_exact": True, **REGIME_B_TOL}
+        out[name] = dict(_rounds_card_vs_cpu(
+            ctx, base + extra, rounds,
+            lambda key, leaf: (REGIME_B_TOL["rtol"], REGIME_B_TOL["atol"])),
+            **REGIME_B_TOL)
     return out
 
 
@@ -4228,6 +4334,431 @@ def phase_regime_b(ctx):
          launches=ctx["regime_b_launches"])
 
 
+# ---------------------------------------------------------------------------
+# the moe and vlm families (models/moe.py, models/vlm.py)
+# ---------------------------------------------------------------------------
+# leaves of the reference's full-width init (jax.eval_shape of
+# repro.models.moe.init_params / repro.models.vlm.init_params)
+FAMILY_LEAVES = {"deepseek-moe-16b": 16_377_694_208,
+                 "qwen2-vl-7b": 7_615_616_512}
+# each full-width prefill's (B, S), cut from prefill_32k (B 32, S 32,768)
+# to one card beside its weights: S 8,192, for deepseek-moe-16b two
+# moe_seq_chunk chunks of 4,096 (the chunk loop runs), for qwen2-vl-7b its
+# 1,024 vision embeddings and 7,168 text tokens
+FAMILY_PREFILL = {"deepseek-moe-16b": (1, 8_192), "qwen2-vl-7b": (1, 8_192)}
+# decode cut from decode_32k (B 128, a 32,768 cache): (B, cache, steps)
+FAMILY_DECODE = (4, 4_096, 16)
+MOE_ARCHS = ("deepseek-moe-16b", "deepseek-v2-236b")
+# the repo's LM bf16 bound (tests/test_torch_dense.py): max |diff| and
+# relative L2 per tensor
+LM_BF16 = {"max_abs": 0.25, "rel_l2": 0.06}
+def _family_batch(torch, cfg, B: int, S: int, generator) -> dict:
+    """A prefill batch of S positions on the generator's device: Markov
+    tokens (lm_synthetic_batch); for the vlm family the first
+    n_vision_tokens positions are stub vision embeddings drawn from the
+    same generator and the tokens fill the rest."""
+    from repro_torch.data import lm_synthetic_batch
+    nv = cfg.n_vision_tokens if cfg.family == "vlm" else 0
+    batch = lm_synthetic_batch(generator, cfg.vocab, B, S - nv)
+    if nv:
+        batch["vision"] = torch.randn((B, nv, cfg.d_model),
+                                      generator=generator,
+                                      device=generator.device)
+    return batch
+
+
+def route_flips(a: list, b: list) -> list:
+    """For each dispatch, the tokens whose set of experts differs between
+    two runs' (T, K) routes."""
+    return [int((x.sort(-1).values.cpu() != y.sort(-1).values.cpu())
+                .any(-1).sum()) for x, y in zip(a, b)]
+
+
+def _bf16_gap(torch, a, b) -> tuple:
+    x, y = a.float().cpu(), b.float().cpu()
+    return (float((x - y).abs().max()),
+            float((x - y).norm() / y.norm().clamp_min(1e-30)))
+
+
+def _family_forward(cfg, params, batch, route="kernel", routes=None,
+                    given=None, last_only=True):
+    """The forward on a named attention route, by default at the last
+    position only (the prefill's); the moe forward also hands back its
+    routes (`routes`) or takes another run's (`given`)."""
+    from repro_torch.models import moe, vlm
+    if cfg.family == "moe":
+        return moe.forward_train(params, batch["tokens"], cfg,
+                                 last_only=last_only, route=route,
+                                 routes=routes, given=given)[0]
+    return vlm.forward_train(params, batch, cfg, last_only=last_only,
+                             route=route)
+
+
+def _family_full(ctx, arch: str) -> dict:
+    """One config at full width: f32 parameters drawn on the card, bf16
+    compute.  prefill_logits at FAMILY_PREFILL (exactly n_layers
+    flash_attention launches and nothing else, the wgmma kernel named,
+    median of 3 after the first), its rerun bitwise, the kernel route
+    against the plain route for the whole prefill (the LM bf16 bound on
+    the logits; the moe routes that flip counted, by dispatch: top-k
+    routing is discontinuous, so bf16 noise flips near-ties and a flip
+    moves the residual stream of every later layer), 16 greedy decode steps
+    at B 4 from a 4,096 cache (no launch), peak memory."""
+    torch = ctx["torch"]
+    from repro_torch import configs, models, tree
+    from repro_torch.data import lm_synthetic_batch
+    from repro_torch.kernels import ops
+    cfg = configs.get_config(arch)
+    api = models.get_model(cfg)
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(torch.Generator(device="cuda").manual_seed(0),
+                             cfg, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    check(n_params == FAMILY_LEAVES[arch],
+          f"{arch}: {n_params} parameters, the reference initializes "
+          f"{FAMILY_LEAVES[arch]}")
+    pb, ps = FAMILY_PREFILL[arch]
+    batch = _family_batch(torch, cfg, pb, ps,
+                          torch.Generator(device="cuda").manual_seed(1))
+
+    def prefill():
+        return models.prefill_logits(params, batch, cfg)
+
+    out = {"layers": cfg.n_layers, "params": n_params, "init_s": init_s,
+           "held_before_bytes": held,
+           "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.hd]}
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        logits = prefill()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        check(counts["flash_attention"] == cfg.n_layers
+              and sum(counts.values()) == cfg.n_layers,
+              f"{arch}: one prefill launched {counts}; want "
+              f"{cfg.n_layers} flash_attention and nothing else")
+        check(logits.shape == (pb, 1, cfg.vocab) and logits.dtype
+              == torch.bfloat16 and bool(torch.isfinite(logits).all()),
+              f"{arch}: prefill logits")
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            again = prefill()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            check(torch.equal(again, logits),
+                  f"{arch}: a rerun of the prefill differs by "
+                  f"{max_abs(again, logits)}")
+        prof = _lm_profile(torch, prefill, expect=counts)
+        check(any("flash_attention_wgmma_kernel" in n
+                  for n in prof["kernel_names"]["flash_attention"]),
+              f"{arch}: the prefill profile names no bf16 flash kernel: "
+              f"{prof['kernel_names']}")
+        kernel_ms = prof["kernel_ms"]["flash_attention"] / cfg.n_layers
+        bound = _flash_bound(ctx, pb, ps, cfg.n_heads, cfg.n_kv_heads,
+                             cfg.hd, cfg.window)
+        rk, rp = [], []
+        kern = _family_forward(cfg, params, batch, "kernel", rk)
+        check(torch.equal(kern, logits), f"{arch}: the forward's kernel "
+                                         f"route is not the prefill")
+        plain = _family_forward(cfg, params, batch, "plain", rp)
+        err, rel = _bf16_gap(torch, kern, plain)
+        flips = route_flips(rk, rp)
+        n_routes = sum(r.shape[0] for r in rk)
+        dropped = []
+        if rk:
+            from repro_torch.models import moe
+            C = moe._capacity(rk[0].shape[0], cfg)
+            dropped = [int((torch.bincount(r.reshape(-1), minlength=
+                                           cfg.n_experts) - C).clamp(
+                min=0).sum()) for r in rk]
+            # the dispatch whose routes drop the most pairs, for the
+            # dispatch's timing
+            ctx["moe_prefill_routes"] = rk[max(range(len(rk)),
+                                               key=dropped.__getitem__)]
+        check(err <= LM_BF16["max_abs"] and rel <= LM_BF16["rel_l2"],
+              f"{arch}: kernel route vs plain route: err {err} rel {rel} "
+              f"({sum(flips)} route flips of {n_routes})")
+        del kern, plain, again
+        out["prefill"] = {
+            "batch": pb, "seq": ps, "launches": counts, "ms": ms,
+            "ms_median": statistics.median(ms), "rerun_bitwise": True,
+            "device_busy_share": prof["device_busy_share"],
+            "profile_verified": prof["profile_verified"],
+            "events_lost": prof["events_lost"],
+            "flash_ms_per_layer": kernel_ms,
+            "flash_share": prof["kernel_share"]["flash_attention"],
+            "flash_bound_ms_per_layer": bound["bound_ms"],
+            "flash_bound_share": bound["bound_ms"] / kernel_ms,
+            "kernel_vs_plain_route": {
+                "max_abs_err": err, "rel_l2_err": rel, **LM_BF16,
+                "route_flips": sum(flips), "routes": n_routes,
+                "route_flips_by_dispatch": flips,
+                "dropped_pairs_by_dispatch": dropped},
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "top_device_kernels": prof["top_device_kernels"][:6]}
+        del logits
+
+        B, C, steps = FAMILY_DECODE
+        tok = lm_synthetic_batch(torch.Generator(device="cuda").manual_seed(
+            2), cfg.vocab, B, 1)["tokens"]
+        cache = api.init_cache(cfg, B, C, device="cuda")
+        ops.reset_launch_counts()
+        step_ms, generated = [], []
+        for pos in range(steps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            lg, cache = api.decode_step(params, cache, tok, pos, cfg)
+            tok = lg.argmax(-1)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            check(lg.shape == (B, 1, cfg.vocab)
+                  and bool(torch.isfinite(lg).all()),
+                  f"{arch}: decode step {pos} logits")
+            generated.append(tok[:, 0].tolist())
+        dcounts = ops.launch_counts()
+        check(sum(dcounts.values()) == 0, f"{arch}: decode launched "
+                                          f"{dcounts}")
+        out["decode"] = {
+            "batch": B, "steps": steps, "cache_len": C,
+            "cache_bytes": sum(t.numel() * t.element_size()
+                               for t in tree.leaves(cache)),
+            "launches": dcounts, "step_ms": step_ms,
+            "ms_per_token_median_after_first": statistics.median(step_ms[1:]),
+            "tokens": generated[-1]}
+        del cache
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del params, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dispatch_timing(ctx, cfg, topi) -> dict:
+    """The moe dispatch's buffer write at one prefill chunk of `cfg` with
+    the (T, K) routes `topi` and random bf16 tokens: `moe.dispatch` (the
+    kept tokens written, the dropped ones into a spare row) bitwise
+    against the reference's form, an accumulating `index_put_` of every
+    pair's token times keep into slot min(pos, C-1), and both timed.  The
+    accumulating form adds the dropped pairs of an expert one after
+    another into its last slot."""
+    torch = ctx["torch"]
+    from repro_torch.models import moe
+    (T, K), E, D = topi.shape, cfg.n_experts, cfg.d_model
+    g = torch.Generator(device="cuda").manual_seed(17)
+    xt = torch.randn((T, D), generator=g, device="cuda").bfloat16()
+    flat_e = topi.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    se = flat_e[order]
+    st = torch.arange(T, device="cuda").repeat_interleave(K)[order]
+    pos = torch.arange(T * K, device="cuda") - torch.searchsorted(
+        se, torch.arange(E, device="cuda"))[se]
+    C = moe._capacity(T, cfg)
+    keep = (pos < C).to(xt.dtype)
+    slot = torch.clamp(pos, max=C - 1)
+
+    def written():
+        return moe.dispatch(xt, se, st, pos, E, C)
+
+    def accumulated():
+        return torch.zeros((E, C, D), dtype=xt.dtype,
+                           device="cuda").index_put_(
+            (se, slot), xt[st] * keep[:, None], accumulate=True)
+
+    check(torch.equal(written(), accumulated()),
+          "moe.dispatch differs from the accumulating scatter")
+    return {"tokens": T, "experts": E, "top_k": K, "capacity": C,
+            "dropped": int((pos >= C).sum()), "bitwise": True,
+            "timer": "CUDA events around back-to-back calls",
+            "dispatch_ms": time_ms(torch, written, iters=20, reps=5),
+            "index_put_accumulate_ms": time_ms(torch, accumulated, iters=20,
+                                               reps=5)}
+
+
+def _family_parity(ctx, arch: str, cdtype: str) -> dict:
+    """reduced() of one config from one init, the card (the flash kernel
+    on the GQA layers, cuBLAS with TF32 off) against the CPU (the plain
+    versions): logits at B 2, S 64 (vlm: 16 vision embeddings and 48
+    tokens), prefill logits, 8 teacher-forced decode steps, every cache
+    leaf at the end.  f32: rtol = atol = 1e-4 and every route equal;
+    bf16: the LM bound, the card's own routes' flips counted and the
+    outputs compared on a card run given the CPU's routes, so that a flip
+    does not move them."""
+    torch = ctx["torch"]
+    from repro_torch import configs, models, tree
+    from repro_torch.kernels import ops
+    cfg = configs.get_reduced(arch).replace(compute_dtype=cdtype)
+    api = models.get_model(cfg)
+    bf16 = cdtype == "bfloat16"
+    moe = cfg.family == "moe"
+    cpu = api.init_params(torch.Generator().manual_seed(5), cfg,
+                          device="cpu")
+    gpu = tree.tree_map(lambda t: t.cuda(), cpu)
+    batch = _family_batch(torch, cfg, 2, 64, torch.Generator().manual_seed(6))
+    gbatch = {k: t.cuda() for k, t in batch.items()}
+    errs, rels = {}, {}
+    flips, n_routes = [], [0]
+
+    def hold(name, a, b):
+        a = a.cpu()
+        ok = a.dtype == b.dtype and a.shape == b.shape
+        err, rel = _bf16_gap(torch, a, b)
+        errs[name], rels[name] = max(errs.get(name, 0.0), err), max(
+            rels.get(name, 0.0), rel)
+        if bf16:
+            ok = ok and err <= LM_BF16["max_abs"] and rel <= LM_BF16["rel_l2"]
+        else:
+            ok = ok and torch.allclose(a, b, rtol=1e-4, atol=1e-4)
+        check(ok, f"{arch} {cdtype} card vs CPU {name}: err {err} rel {rel}")
+
+    def given(run, rc):
+        """run(routes, given) on the card: its own routes' flips against
+        the CPU's rc counted (none in f32); in bf16 run again on rc."""
+        rg = []
+        out = run(rg, None)
+        flips.extend(route_flips(rg, rc))
+        n_routes[0] += sum(r.shape[0] for r in rc)
+        if not (bf16 and moe):
+            return out
+        return run(None, iter([r.cuda() for r in rc]))
+
+    n_gqa = 0 if cfg.kv_lora else cfg.n_layers
+    with torch.inference_mode():
+        rc = []
+        want = _family_forward(cfg, cpu, batch, routes=rc, last_only=False)
+        ops.reset_launch_counts()
+        _family_forward(cfg, gpu, gbatch, last_only=False)
+        counts = ops.launch_counts()
+        check(counts["flash_attention"] == n_gqa
+              and sum(counts.values()) == n_gqa,
+              f"reduced {arch} forward launched {counts}; want {n_gqa} "
+              f"flash_attention")
+        hold("logits", given(lambda r, g: _family_forward(
+            cfg, gpu, gbatch, routes=r, given=g, last_only=False), rc), want)
+        if bf16 and moe:
+            hold("prefill_logits", given(lambda r, g: _family_forward(
+                cfg, gpu, gbatch, routes=r, given=g), rc),
+                models.prefill_logits(cpu, batch, cfg))
+        else:
+            hold("prefill_logits", models.prefill_logits(gpu, gbatch, cfg),
+                 models.prefill_logits(cpu, batch, cfg))
+        cg = api.init_cache(cfg, 2, 64, device="cuda")
+        cc = api.init_cache(cfg, 2, 64, device="cpu")
+
+        def step(params, cache, tok, pos, r, g):
+            extra = {"routes": r, "given": g} if moe else {}
+            return api.decode_step(params, cache, tok, pos, cfg, **extra)
+
+        ops.reset_launch_counts()
+        for pos in range(8):
+            tok = batch["tokens"][:, pos:pos + 1]
+            rc = []
+            lc, cc = step(cpu, cc, tok, pos, rc, None)
+            lg, cg = given(lambda r, g: step(gpu, cg, tok.cuda(), pos, r, g),
+                           rc)
+            hold("decode_logits", lg, lc)
+        dcounts = ops.launch_counts()
+        check(sum(dcounts.values()) == 0, f"reduced {arch} decode launched "
+                                          f"{dcounts}")
+        for p, leaf in tree.paths(cc):
+            hold("cache/" + "/".join(p), tree.get(cg, p), leaf)
+    check(bf16 or sum(flips) == 0, f"{arch} f32: {sum(flips)} route flips "
+                                   f"of {n_routes[0]}")
+    out = {"config": "reduced", "compute_dtype": cdtype, "seq": 64,
+           "decode_steps": 8, "launches": counts, "max_abs_err": errs,
+           "route_flips": sum(flips), "routes": n_routes[0]}
+    if bf16:
+        out.update(rel_l2_err=rels, tolerance=LM_BF16)
+        if moe:
+            out["compared_on"] = "the card given the CPU's routes"
+    else:
+        out["tolerance"] = 1e-4
+    return out
+
+
+def _family_rounds(ctx, arch: str) -> dict:
+    """reduced(): 2 Regime-B resident rounds of `python -m
+    repro_torch.launch.train` with 4 clients on the card (one
+    gossip_gather a round and nothing else: training takes the plain
+    route), then 2 rounds card vs CPU from one init and one set of
+    batches at the Regime-B tolerance (rtol 1e-4, atol 2e-5), but the
+    momentum: after a round it is that round's gradient, held at this
+    family's f32 card-vs-CPU tolerance (rtol = atol = 1e-4)."""
+    base = ["--arch", arch, "--reduced", "--clients", "4", "--batch", "2",
+            "--seq", "32", "--neighbors", "2", "--resident"]
+    run = _train_main(ctx, base + ["--rounds", "2", "--device", "cuda"])
+    check(_only(run["launches"], gossip_gather=2),
+          f"{arch}: 2 resident rounds launched {run['launches']}")
+    out = _round_summary(run, 2)
+    del run
+
+    def tol_of(key, leaf):
+        if key.startswith("opt_u"):
+            return 1e-4, 1e-4
+        return REGIME_B_TOL["rtol"], REGIME_B_TOL["atol"]
+
+    out["card_vs_cpu"] = _rounds_card_vs_cpu(ctx, base, 2, tol_of)
+    return out
+
+
+def phase_moe(ctx):
+    """The moe family: the flash kernel at deepseek-moe-16b's prefill (hd
+    128, a group of 1) held against its plain version and timed, then
+    deepseek-moe-16b at full width (`_family_full`), deepseek-moe-16b and
+    deepseek-v2-236b (MLA) at reduced() card vs CPU in f32 and bf16
+    (`_family_parity`) and through 2 Regime-B rounds (`_family_rounds`);
+    the dispatch's buffer write against an accumulating scatter, at the
+    prefill's routes that drop the most pairs and at uniform random
+    routes."""
+    torch = ctx["torch"]
+    from repro_torch import configs
+    arch = "deepseek-moe-16b"
+    flash = _dense_flash_timing(ctx, arch, FAMILY_PREFILL[arch])
+    full = _family_full(ctx, arch)
+    cfg = configs.get_config(arch)
+    T, K = ctx["moe_prefill_routes"].shape
+    uniform = torch.argsort(torch.rand(
+        (T, cfg.n_experts), device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(18)), dim=1)[:, :K]
+    full["dispatch"] = {
+        "prefill_routes": _dispatch_timing(ctx, cfg,
+                                           ctx.pop("moe_prefill_routes")),
+        "uniform_routes": _dispatch_timing(ctx, cfg, uniform)}
+    parity = {a: {dt: _family_parity(ctx, a, dt)
+                  for dt in ("float32", "bfloat16")} for a in MOE_ARCHS}
+    rounds = {a: _family_rounds(ctx, a) for a in MOE_ARCHS}
+    ctx["moe_launches"] = {
+        "flash_attention": full["prefill"]["launches"]["flash_attention"],
+        "gossip_gather": sum(r["launches"]["gossip_gather"]
+                             for r in rounds.values())}
+    ctx["moe_flash"] = flash
+    emit("moe", card=ctx["smi"], arch=arch, flash=flash, full_width=full,
+         parity=parity, regime_b=rounds, launches=ctx["moe_launches"])
+
+
+def phase_vlm(ctx):
+    """The vlm family (qwen2-vl-7b, M-RoPE): the flash kernel at its
+    prefill (hd 128, a group of 7) held against its plain version before
+    anything else is timed, then full width (`_family_full`), reduced()
+    card vs CPU in f32 and bf16 and 2 Regime-B rounds."""
+    arch = "qwen2-vl-7b"
+    flash = _dense_flash_timing(ctx, arch, FAMILY_PREFILL[arch])
+    full = _family_full(ctx, arch)
+    parity = {dt: _family_parity(ctx, arch, dt)
+              for dt in ("float32", "bfloat16")}
+    rounds = _family_rounds(ctx, arch)
+    ctx["vlm_launches"] = {
+        "flash_attention": full["prefill"]["launches"]["flash_attention"],
+        "gossip_gather": rounds["launches"]["gossip_gather"]}
+    ctx["vlm_flash"] = flash
+    emit("vlm", card=ctx["smi"], arch=arch, flash=flash, full_width=full,
+         parity=parity, regime_b=rounds, launches=ctx["vlm_launches"])
+
+
 def phase_timings(ctx):
     torch = ctx["torch"]
     from repro_torch.core import gossip, topology
@@ -4316,7 +4847,9 @@ def phase_timings(ctx):
         "obs_launches": ctx["obs_launches"]["gossip_gather"],
         "checkpoint_launches": ctx["checkpoint_launches"]["gossip_gather"],
         "regime_b_launches": ctx["regime_b_launches"]["gossip_gather"],
-        "regime_b": ctx["regime_b_kernels"]["gossip_gather"]})
+        "regime_b": ctx["regime_b_kernels"]["gossip_gather"],
+        "moe_launches": ctx["moe_launches"]["gossip_gather"],
+        "vlm_launches": ctx["vlm_launches"]["gossip_gather"]})
 
     # head_gather_matmul at the serve path's shapes (m=100, d=64, n=10):
     # H read once, each distinct user's slab and bias read once, uid read
@@ -4332,6 +4865,9 @@ def phase_timings(ctx):
     bias = torch.randn((m, n), device="cuda")
     one = torch.zeros(1, device="cuda")
     floor_ms = device_ms(torch, lambda: one.add_(1.0))
+    # the same kernel by `queued_ms`, device_ms's fallback timer: what
+    # it adds to a launch (the card's gap between queued kernels)
+    queued_floor_ms = queued_ms(torch, lambda: one.add_(1.0))
     for B in (1, 64, 1024):
         uid = torch.randint(0, m, (B,), device="cuda", dtype=torch.int32)
         H = torch.randn((B, d), device="cuda")
@@ -4636,6 +5172,10 @@ def phase_timings(ctx):
         "dense_by_config": ctx["dense_flash"],
         "regime_b_prefill_launches":
             ctx["regime_b_launches"]["flash_attention"],
+        "moe_launches": ctx["moe_launches"]["flash_attention"],
+        "vlm_launches": ctx["vlm_launches"]["flash_attention"],
+        "family_by_config": {"deepseek-moe-16b": ctx["moe_flash"],
+                             "qwen2-vl-7b": ctx["vlm_flash"]},
         "max_abs_err": ctx["flash_err"][0], "ms": fl["ms"],
         "plain_ms": fl["plain_ms"], "bound_ms": fb_ms,
         "bound_by": "bytes" if fbytes / bw * 1e3 >= t_ops else "operations",
@@ -4695,11 +5235,16 @@ def phase_timings(ctx):
               "index_put_, then torch.sparse.mm); "
               "ms/plain_ms/library_ms: device time per call summed over "
               "the kernels each puts on the card (torch.profiler, 50 "
-              "calls); *call_ms: median of CUDA-event windows of "
+              "calls; where its windows kept losing events, CUDA events "
+              "around calls queued behind a spin kernel, listed in "
+              "profiler.device_ms_by_cuda_events); *call_ms: median of CUDA-event windows of "
               "back-to-back calls, host time included; inputs warm in L2; "
               "bound_ms from the published peaks of the named card",
          profiler={"pad_s": PROFILE_PAD_S, "attempts": PROFILE_ATTEMPTS,
-                   "empty_windows": list(PROFILER_MISSES)})
+                   "empty_windows": list(PROFILER_MISSES),
+                   "device_ms_by_cuda_events": list(DEVICE_MS_FALLBACKS),
+                   "launch_floor_ms": floor_ms,
+                   "launch_floor_queued_ms": queued_floor_ms})
     ctx["kernels"] = kernels
 
 
@@ -4802,7 +5347,7 @@ def main(argv=None) -> int:
              "timings": {"kernels", "train", "sampled", "kernel_mix",
                          "compress", "baselines", "async", "obs",
                          "checkpoint", "serve", "lm", "dense",
-                         "regime_b"}}
+                         "regime_b", "moe", "vlm"}}
     for phase in only:
         missing = needs.get(phase, set()) - wanted
         if missing:
@@ -4814,7 +5359,8 @@ def main(argv=None) -> int:
            "baselines": phase_baselines, "async": phase_async,
            "obs": phase_obs, "checkpoint": phase_checkpoint,
            "serve": phase_serve, "lm": phase_lm, "dense": phase_dense,
-           "regime_b": phase_regime_b, "timings": phase_timings}
+           "regime_b": phase_regime_b, "moe": phase_moe, "vlm": phase_vlm,
+           "timings": phase_timings}
     t0 = time.perf_counter()
     for phase in PHASES:
         if phase in wanted:
@@ -4826,6 +5372,9 @@ def main(argv=None) -> int:
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "the run imported jax or the JAX package")
     print(f"# total {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    print(f"# profiler: {len(PROFILER_MISSES)} windows empty or short of "
+          f"events; {len(DEVICE_MS_FALLBACKS)} device_ms timings by CUDA "
+          f"events", file=sys.stderr)
     if set(PHASES) - wanted:
         print("# partial run (--only): no final line", file=sys.stderr)
         return 0

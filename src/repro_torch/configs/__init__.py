@@ -1,7 +1,8 @@
 """Architecture config registry: arch id -> ModelConfig, for the archs the
-port runs so far (the hybrid recurrentgemma-9b and the four dense archs).
-The reference's other archs (moe, ssm, encdec, vlm) raise a KeyError
-naming ROADMAP item 15 (the LM architectures still to port)."""
+port runs so far (the hybrid recurrentgemma-9b, the four dense archs, the
+moe deepseek-moe-16b and deepseek-v2-236b, and the vlm qwen2-vl-7b).
+The reference's other archs (ssm, encdec) raise a KeyError naming ROADMAP
+item 15 (the LM architectures still to port)."""
 from __future__ import annotations
 
 import importlib
@@ -16,10 +17,12 @@ _MODULES = {
     "h2o-danube-1.8b": "h2o_danube_1_8b",
     "qwen2-0.5b": "qwen2_0_5b",
     "granite-3-2b": "granite_3_2b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
+    "qwen2-vl-7b": "qwen2_vl_7b",
 }
 # the reference's archs whose family the port does not run yet
-_UNPORTED = ("deepseek-moe-16b", "xlstm-125m", "whisper-large-v3",
-             "deepseek-v2-236b", "qwen2-vl-7b")
+_UNPORTED = ("xlstm-125m", "whisper-large-v3")
 
 # every arch of the reference, in its registry's order
 ARCH_IDS = ("deepseek-moe-16b", "recurrentgemma-9b", "xlstm-125m",

@@ -90,12 +90,20 @@ def _meta(shape, dtype) -> torch.Tensor:
 def batch_struct(cfg: ModelConfig, shape: InputShape,
                  lead: Tuple[int, ...]) -> dict:
     """One model-input batch with leading dims `lead` (e.g. (m, K, B)):
-    tokens and labels (B, seq_len) int64 for the families the port runs
-    (the reference's int32; torch indexes an embedding with int64)."""
+    tokens and labels (..., seq_len) int64 (the reference's int32; torch
+    indexes an embedding with int64).  seq_len is the TOTAL context: for
+    the vlm family the vision embeddings (..., n_vision_tokens, d_model)
+    f32 take its first n_vision_tokens positions and the text the rest."""
     get_model(cfg)        # raises for the families still to port
+    lead = tuple(lead)
     S = shape.seq_len
-    return {"tokens": _meta(tuple(lead) + (S,), torch.int64),
-            "labels": _meta(tuple(lead) + (S,), torch.int64)}
+    if cfg.family == "vlm":
+        nv = cfg.n_vision_tokens
+        return {"tokens": _meta(lead + (S - nv,), torch.int64),
+                "vision": _meta(lead + (nv, cfg.d_model), torch.float32),
+                "labels": _meta(lead + (S - nv,), torch.int64)}
+    return {"tokens": _meta(lead + (S,), torch.int64),
+            "labels": _meta(lead + (S,), torch.int64)}
 
 
 def stacked_param_struct(cfg: ModelConfig, m: int) -> dict:
@@ -358,7 +366,8 @@ def build_prefill_step(cfg: ModelConfig, mesh, layout: Layout,
     """-> (prefill_step, in_shardings, out_sharding, arg_structs).
 
     prefill_step(params, batch) -> (m, B, 1, vocab) logits: each client's
-    `prefill_logits` on the kernel route.  The reference vmaps the
+    `prefill_logits` on the kernel route over its slice of every batch
+    entry (tokens; a vlm's vision embeddings too).  The reference vmaps the
     clients; the flash kernel is a ctypes launch that cannot run under
     `torch.func.vmap`, so the clients run in a loop: n_layers
     `flash_attention` launches per client (24 x m for qwen2-0.5b)."""

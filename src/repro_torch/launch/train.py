@@ -51,10 +51,17 @@ DATA_STREAM = 22
 def synth_lm_batch(generator: torch.Generator, cfg, lead, seq: int) -> dict:
     """Synthetic next-token data with learnable structure (the labels are
     the tokens shifted by one), drawn from `generator` on its device:
-    tokens and labels (*lead, seq) int64."""
+    tokens and labels (*lead, seq) int64, and for the vlm family the
+    stub vision embeddings (*lead, n_vision_tokens, d_model) f32 drawn
+    after them."""
     toks = torch.randint(0, cfg.vocab, tuple(lead) + (seq,),
                          generator=generator, device=generator.device)
-    return {"tokens": toks, "labels": torch.roll(toks, -1, dims=-1)}
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=-1)}
+    if cfg.family == "vlm":
+        batch["vision"] = torch.randn(
+            tuple(lead) + (cfg.n_vision_tokens, cfg.d_model),
+            generator=generator, device=generator.device)
+    return batch
 
 
 def init_stacked(cfg, m: int, device) -> dict:

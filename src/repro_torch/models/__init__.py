@@ -1,16 +1,18 @@
 """Models of the port: the FL simulation CNN (`cnn`), the hybrid LM family
 (`hybrid`, Griffin / RecurrentGemma), the dense decoder-only LM family
-(`dense`: qwen2, granite, codeqwen, h2o-danube) and their layers.
+(`dense`: qwen2, granite, codeqwen, h2o-danube), the mixture-of-experts
+family (`moe`: deepseek-moe, deepseek-v2's MLA), the Qwen2-VL backbone
+(`vlm`, M-RoPE) and their layers.
 
 Registry counterpart of `repro/models/__init__.py`: one `ModelApi` per
-family the port runs.  The reference's other LM families (moe, ssm,
-encdec, vlm) are still to port (ROADMAP item 15) and raise.
+family the port runs.  The reference's other LM families (ssm, encdec)
+are still to port (ROADMAP item 15) and raise.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple
 
-from . import dense, hybrid
+from . import dense, hybrid, moe, vlm
 from .config import ModelConfig
 
 
@@ -26,8 +28,12 @@ _FAMILIES = {
                       dense.decode_step),
     "hybrid": ModelApi(hybrid.init_params, hybrid.loss_fn, hybrid.init_cache,
                        hybrid.decode_step),
+    "moe": ModelApi(moe.init_params, moe.loss_fn, moe.init_cache,
+                    moe.decode_step),
+    "vlm": ModelApi(vlm.init_params, vlm.loss_fn, vlm.init_cache,
+                    vlm.decode_step),
 }
-_UNPORTED = ("moe", "ssm", "encdec", "vlm")
+_UNPORTED = ("ssm", "encdec")
 
 
 def _check_family(fam: str) -> None:
@@ -46,11 +52,19 @@ def get_model(cfg: ModelConfig) -> ModelApi:
 
 def prefill_logits(params: dict, batch: dict, cfg: ModelConfig):
     """Inference prefill: the full forward, lm_head on the LAST position
-    only (the next-token sample point)."""
+    only (the next-token sample point).  The moe forward's logits without
+    its aux loss; the vlm forward takes the whole batch (tokens and
+    vision embeddings)."""
     _check_family(cfg.family)
-    fam = dense if cfg.family == "dense" else hybrid
-    return fam.forward_train(params, batch["tokens"], cfg, last_only=True)
+    fam = cfg.family
+    if fam == "moe":
+        return moe.forward_train(params, batch["tokens"], cfg,
+                                 last_only=True)[0]
+    if fam == "vlm":
+        return vlm.forward_train(params, batch, cfg, last_only=True)
+    mod = dense if fam == "dense" else hybrid
+    return mod.forward_train(params, batch["tokens"], cfg, last_only=True)
 
 
 __all__ = ["ModelConfig", "ModelApi", "get_model", "prefill_logits", "dense",
-           "hybrid"]
+           "hybrid", "moe", "vlm"]

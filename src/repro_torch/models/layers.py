@@ -1,5 +1,6 @@
 """Shared building blocks of `repro/models/layers.py`: the CNN's helpers
-and what the hybrid (Griffin / RecurrentGemma) and dense families use.
+and what the hybrid (Griffin / RecurrentGemma), dense, moe and vlm
+families use.
 
 Parameters are plain nested dicts of tensors, weights (in, out) as the
 reference keeps them.  Every block casts its weights to the activation's
@@ -84,6 +85,35 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def mrope_streams(hd: int, sections, device=None) -> torch.Tensor:
+    """(hd/2,) stream (0 t, 1 h, 2 w) of each frequency slot: stream i
+    repeated sections[i] times, truncated to hd/2 or padded with the last
+    stream (`jnp.repeat`'s total_repeat_length)."""
+    sec = torch.repeat_interleave(torch.arange(3, device=device),
+                                  torch.as_tensor(sections, device=device))
+    n = hd // 2
+    if sec.numel() < n:
+        sec = torch.cat([sec, sec[-1:].expand(n - sec.numel())])
+    return sec[:n]
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, sections,
+                theta: float) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL, arXiv:2409.12191): each of the hd/2
+    frequency slots takes its position from the stream `sections` assigns
+    it.  x: (..., S, H, hd); positions3: (3, ..., S) int for the (t, h, w)
+    streams."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                  # (hd/2,)
+    sec = mrope_streams(hd, sections, x.device)
+    pos = torch.movedim(positions3, 0, -1).to(torch.float32)  # (..., S, 3)
+    ang = pos[..., sec] * freqs                               # (..., S, hd/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------
@@ -127,7 +157,8 @@ def gqa_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Grouped-query attention without materialising repeated KV.  Scores
     in the compute dtype, softmax in f32, probabilities cast back before
     P V (the reference's rounding points).  q: (B, Sq, H, hd), k/v:
-    (B, Sk, Hkv, hd), mask broadcastable to (B, Hkv, g, Sq, Sk)."""
+    (B, Sk, Hkv, hd), mask broadcastable to (B, Hkv, g, Sq, Sk).  Returns
+    (B, Sq, H, vh), vh = v.shape[-1] (MLA's V head dim differs)."""
     B, Sq, H, hd = q.shape
     Hkv = k.shape[2]
     g = H // Hkv
@@ -160,7 +191,8 @@ def block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     a Python loop over query blocks, each attending through `gqa_attend`
     to the key slice it can see ([0, q_hi) causal, the trailing `window +
     block` band windowed), so no (S, S) mask or score tensor exists.
-    q: (B, S, H, hd); k/v: (B, S, Hkv, hd) -> (B, S, H, hd)."""
+    q, k: (B, S, H, hd) / (B, S, Hkv, hd); v: (B, S, Hkv, vh) -> (B, S,
+    H, vh): the V head dim may differ from the QK one (MLA)."""
     S = q.shape[1]
     qb = min(q_block, S)
     outs = []
@@ -188,7 +220,8 @@ def attend_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     branch, plain torch under autograd.  Below BLOCK_ATTN_MIN_SEQ
     `gqa_attend` under `causal_mask`, at or above it `block_attention`;
     both round scores and probabilities to the compute dtype as the
-    reference does (the kernel's f32 softmax is another function)."""
+    reference does (the kernel's f32 softmax is another function).  v's
+    head dim may differ from q's and k's (MLA): the output takes v's."""
     if q.shape[1] >= BLOCK_ATTN_MIN_SEQ:
         return block_attention(q, k, v, window=window, scale=scale)
     mask = causal_mask(q.shape[1], k.shape[1], window=window,

@@ -105,7 +105,7 @@ def test_arch_registry_matches_reference():
             assert configs.shape_applicable(arch, shape) == \
                 jconfigs.shape_applicable(arch, shape), (arch, shape)
         family = jconfigs.get_config(arch).family
-        if family in ("dense", "hybrid"):
+        if family in ("dense", "hybrid", "moe", "vlm"):
             assert configs.get_config(arch).family == family
         else:
             with pytest.raises(KeyError, match="item 15"):

@@ -255,16 +255,16 @@ def test_config_equals_reference_field_by_field(which):
 
 def test_unported_archs_and_families_raise():
     with pytest.raises(KeyError, match="item 15"):
-        configs.get_config("deepseek-moe-16b")
+        configs.get_config("whisper-large-v3")
     with pytest.raises(KeyError, match="item 15"):
         configs.get_reduced("xlstm-125m")
     with pytest.raises(KeyError, match="unknown arch"):
         configs.get_config("gpt-5")
-    moe = configs.get_reduced(ARCH).replace(family="moe")
+    ssm = configs.get_reduced(ARCH).replace(family="ssm")
     with pytest.raises(NotImplementedError, match="item 15"):
-        models.get_model(moe)
+        models.get_model(ssm)
     with pytest.raises(NotImplementedError, match="item 15"):
-        models.prefill_logits({}, {"tokens": None}, moe)
+        models.prefill_logits({}, {"tokens": None}, ssm)
     api = models.get_model(configs.get_reduced(ARCH))
     assert api.decode_step is thybrid.decode_step
     assert configs.SHAPES["prefill_32k"].seq_len == 32_768

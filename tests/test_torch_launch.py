@@ -129,7 +129,9 @@ def test_meshes_over_devices_wait_for_14b():
 # ---------------------------------------------------------------------------
 # input structs and build_train_step
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "recurrentgemma-9b",
+                                  "deepseek-moe-16b", "deepseek-v2-236b",
+                                  "qwen2-vl-7b"])
 def test_stacked_param_struct_matches_reference(arch):
     # the full-width configs: shapes only on both sides (eval_shape, meta)
     got = tsteps.stacked_param_struct(configs.get_config(arch), 4)

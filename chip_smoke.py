@@ -130,7 +130,26 @@ line is never printed):
                 anything is timed; full width (30.5 GB): 1,024 vision
                 embeddings + 7,168 tokens, 28 flash_attention launches a
                 prefill, decode; reduced() card vs CPU and 2 rounds;
-19. timings   — each kernel at its path's shape: kernel, plain and
+19. ssm       — xlstm-125m (sLSTM + chunkwise mLSTM, a list of 12 layer
+                dicts) at full width: prefill_logits at B 1, S 4,096 with
+                no kernel launch (16 mLSTM chunks and 4,096 sLSTM steps a
+                layer), its rerun bitwise, the busy share over its first
+                512 tokens (a device-only profile), the sLSTM layers'
+                share, 16 decode steps at B 4 (one profiled), peak memory; 2 resident Regime-B
+                rounds at full width (1 gossip_gather a round at (4, 3,
+                160,350,800)), a profiled round; reduced() card vs CPU
+                in f32 and bf16 and 2 reduced rounds;
+20. encdec    — whisper-large-v3: the flash kernel at its decoder prefill
+                (1, 8,192, 20, 20, 64), hd 64 at a group of 1, held
+                against its plain version, timed beside SDPA and its
+                bound; full width (32 encoder + 32 decoder layers, 6.4 GB
+                of f32 params): 1,500 stub frames and 8,192 decoder
+                tokens, 32 flash_attention launches a prefill (none in the
+                encoder or cross-attention), its rerun bitwise, the
+                kernel route against the plain route, encoder / decoder
+                split, prefill_cross then 16 decode steps at B 4 from a
+                4,096 cache; reduced() card vs CPU and 2 rounds;
+21. timings   — each kernel at its path's shape: kernel, plain and
                 library-call ms (CUDA events), the card's bound, launches;
                 gossip_gather, pushsum_mix and topk_gather also at m = 1024,
                 gossip_gather also at the baselines' full-model widths,
@@ -162,7 +181,7 @@ from pathlib import Path
 PHASES = ("device", "build", "kernels", "train", "parity", "sampled",
           "kernel_mix", "compress", "baselines", "async", "obs",
           "checkpoint", "serve", "lm", "dense", "regime_b", "moe", "vlm",
-          "timings")
+          "ssm", "encdec", "timings")
 # the paper's comparison rows (the port's simulator.ALGOS but dfedpgp)
 BASELINES = ("local", "fedavg", "fedper", "fedrep", "fedbabu", "ditto",
              "dfedavgm", "dfedavgm-p", "osgp", "dispfl")
@@ -3167,7 +3186,7 @@ LM_KERNEL_SYMBOLS = {
     "rglru": ("rglru_kernel",)}
 
 
-def _lm_profile(torch, fn, calls: int = 1, expect=None):
+def _lm_profile(torch, fn, calls: int = 1, expect=None, cpu: bool = True):
     """`calls` calls of fn under torch.profiler: wall and device ms per
     call, the device's busy share, the device ms of each of the two LM
     kernels and their share of the device time, and the ten kernels that
@@ -3175,14 +3194,15 @@ def _lm_profile(torch, fn, calls: int = 1, expect=None):
     (`ops.launch_counts()`), checks the window: one whose LM kernel events
     fall short of them lost events and is run again, at most
     PROFILE_ATTEMPTS times; `profile_verified` says whether a window kept
-    them all (other kernels' events cannot be checked so)."""
+    them all (other kernels' events cannot be checked so).  cpu=False
+    traces the device alone (a window of ~10^5 launches)."""
     def run():
         for _ in range(calls):
             fn()
 
     want = {n: calls * (expect or {}).get(n, 0) for n in LM_KERNEL_SYMBOLS}
     for _ in range(PROFILE_ATTEMPTS):
-        _, events, wall = profiled(torch, run, cpu=True)
+        _, events, wall = profiled(torch, run, cpu=cpu)
         hits = {name: [e for e in events if any(k in e.key for k in keys)]
                 for name, keys in LM_KERNEL_SYMBOLS.items()}
         seen = {n: sum(e.count for e in h) for n, h in hits.items()}
@@ -3994,12 +4014,12 @@ def _only(counts: dict, **want) -> bool:
     return all(counts[k] == want.get(k, 0) for k in counts)
 
 
-def _round_profile(ctx, run, r: int) -> dict:
+def _round_profile(ctx, run, r: int, cpu: bool = True) -> dict:
     """torch.profiler over round r of a Trainer: wall and device ms, the
     device's busy share, the gossip_gather kernel's device ms and the
-    kernels that take the most."""
+    kernels that take the most.  cpu=False traces the device alone."""
     torch = ctx["torch"]
-    _, events, wall = profiled(torch, lambda: run.step(r), cpu=True)
+    _, events, wall = profiled(torch, lambda: run.step(r), cpu=cpu)
     total = sum(_dev_us(e) for e in events) / 1e3
     gather = sum(_dev_us(e) for e in events
                  if "gossip_gather" in e.key) / 1e3
@@ -4340,12 +4360,25 @@ def phase_regime_b(ctx):
 # leaves of the reference's full-width init (jax.eval_shape of
 # repro.models.moe.init_params / repro.models.vlm.init_params)
 FAMILY_LEAVES = {"deepseek-moe-16b": 16_377_694_208,
-                 "qwen2-vl-7b": 7_615_616_512}
+                 "qwen2-vl-7b": 7_615_616_512,
+                 "xlstm-125m": 198_985_040,
+                 "whisper-large-v3": 1_601_607_680}
 # each full-width prefill's (B, S), cut from prefill_32k (B 32, S 32,768)
 # to one card beside its weights: S 8,192, for deepseek-moe-16b two
 # moe_seq_chunk chunks of 4,096 (the chunk loop runs), for qwen2-vl-7b its
-# 1,024 vision embeddings and 7,168 text tokens
-FAMILY_PREFILL = {"deepseek-moe-16b": (1, 8_192), "qwen2-vl-7b": (1, 8_192)}
+# 1,024 vision embeddings and 7,168 text tokens; for whisper-large-v3
+# 8,192 decoder tokens beside the stub's 1,500 frame embeddings.
+# xlstm-125m: S 4,096 (16 mLSTM chunks of 256, 4,096 sLSTM steps a layer),
+# cut for the script's time, not the card's memory: its sLSTM loop is
+# host-bound (~0.23 ms a step on an H100 host), and at S 8,192 the phase
+# took 122 s there
+FAMILY_PREFILL = {"deepseek-moe-16b": (1, 8_192), "qwen2-vl-7b": (1, 8_192),
+                  "xlstm-125m": (1, 4_096), "whisper-large-v3": (1, 8_192)}
+# flash_attention launches of one full-width prefill: one per GQA layer;
+# none for xLSTM (no attention), Whisper's 32 decoder layers only (its
+# encoder and cross-attention take the plain attention)
+FAMILY_FLASH = {"deepseek-moe-16b": 28, "qwen2-vl-7b": 28, "xlstm-125m": 0,
+                "whisper-large-v3": 32}
 # decode cut from decode_32k (B 128, a 32,768 cache): (B, cache, steps)
 FAMILY_DECODE = (4, 4_096, 16)
 MOE_ARCHS = ("deepseek-moe-16b", "deepseek-v2-236b")
@@ -4356,7 +4389,9 @@ def _family_batch(torch, cfg, B: int, S: int, generator) -> dict:
     """A prefill batch of S positions on the generator's device: Markov
     tokens (lm_synthetic_batch); for the vlm family the first
     n_vision_tokens positions are stub vision embeddings drawn from the
-    same generator and the tokens fill the rest."""
+    same generator and the tokens fill the rest; for the encdec family the
+    S tokens are the decoder's, beside the stub frame embeddings drawn
+    after them."""
     from repro_torch.data import lm_synthetic_batch
     nv = cfg.n_vision_tokens if cfg.family == "vlm" else 0
     batch = lm_synthetic_batch(generator, cfg.vocab, B, S - nv)
@@ -4364,7 +4399,16 @@ def _family_batch(torch, cfg, B: int, S: int, generator) -> dict:
         batch["vision"] = torch.randn((B, nv, cfg.d_model),
                                       generator=generator,
                                       device=generator.device)
+    if cfg.family == "encdec":
+        batch["frames"] = _frames(torch, cfg, B, generator)
     return batch
+
+
+def _frames(torch, cfg, B: int, generator):
+    """The encdec family's stub frame embeddings (B, n_frames, d_model)
+    f32 on the generator's device."""
+    return torch.randn((B, cfg.n_frames, cfg.d_model), generator=generator,
+                       device=generator.device)
 
 
 def route_flips(a: list, b: list) -> list:
@@ -4385,31 +4429,42 @@ def _family_forward(cfg, params, batch, route="kernel", routes=None,
     """The forward on a named attention route, by default at the last
     position only (the prefill's); the moe forward also hands back its
     routes (`routes`) or takes another run's (`given`)."""
-    from repro_torch.models import moe, vlm
+    from repro_torch.models import encdec, moe, ssm, vlm
     if cfg.family == "moe":
         return moe.forward_train(params, batch["tokens"], cfg,
                                  last_only=last_only, route=route,
                                  routes=routes, given=given)[0]
-    return vlm.forward_train(params, batch, cfg, last_only=last_only,
+    if cfg.family == "ssm":
+        return ssm.forward_train(params, batch["tokens"], cfg,
+                                 last_only=last_only, route=route)
+    mod = encdec if cfg.family == "encdec" else vlm
+    return mod.forward_train(params, batch, cfg, last_only=last_only,
                              route=route)
 
 
 def _family_full(ctx, arch: str) -> dict:
     """One config at full width: f32 parameters drawn on the card, bf16
-    compute.  prefill_logits at FAMILY_PREFILL (exactly n_layers
-    flash_attention launches and nothing else, the wgmma kernel named,
-    median of 3 after the first), its rerun bitwise, the kernel route
-    against the plain route for the whole prefill (the LM bf16 bound on
-    the logits; the moe routes that flip counted, by dispatch: top-k
-    routing is discontinuous, so bf16 noise flips near-ties and a flip
-    moves the residual stream of every later layer), 16 greedy decode steps
-    at B 4 from a 4,096 cache (no launch), peak memory."""
+    compute.  prefill_logits at FAMILY_PREFILL (exactly FAMILY_FLASH
+    flash_attention launches and nothing else, the wgmma kernel named where
+    there are any, median of 3 after the first), its rerun bitwise, the
+    kernel route against the plain route for the whole prefill (the LM
+    bf16 bound on the logits; the moe routes that flip counted, by
+    dispatch: top-k routing is discontinuous, so bf16 noise flips
+    near-ties and a flip moves the residual stream of every later layer),
+    16 greedy decode steps at B 4 from a 4,096 cache (no launch; the
+    encdec family's encoder run once before them by `prefill_cross`),
+    peak memory.  The ssm family's prefill is ~180,000 host launches (the
+    sLSTM loop): its profile is a short window, the device alone; its
+    prefill is split by layer kind on the host clock (`_prefill_split`),
+    the encdec one into encoder and decoder, and one decode step of each
+    is profiled."""
     torch = ctx["torch"]
     from repro_torch import configs, models, tree
     from repro_torch.data import lm_synthetic_batch
     from repro_torch.kernels import ops
     cfg = configs.get_config(arch)
     api = models.get_model(cfg)
+    n_flash = FAMILY_FLASH[arch]
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -4437,10 +4492,10 @@ def _family_full(ctx, arch: str) -> dict:
         logits = prefill()
         torch.cuda.synchronize()
         counts = ops.launch_counts()
-        check(counts["flash_attention"] == cfg.n_layers
-              and sum(counts.values()) == cfg.n_layers,
+        check(counts["flash_attention"] == n_flash
+              and sum(counts.values()) == n_flash,
               f"{arch}: one prefill launched {counts}; want "
-              f"{cfg.n_layers} flash_attention and nothing else")
+              f"{n_flash} flash_attention and nothing else")
         check(logits.shape == (pb, 1, cfg.vocab) and logits.dtype
               == torch.bfloat16 and bool(torch.isfinite(logits).all()),
               f"{arch}: prefill logits")
@@ -4454,14 +4509,54 @@ def _family_full(ctx, arch: str) -> dict:
             check(torch.equal(again, logits),
                   f"{arch}: a rerun of the prefill differs by "
                   f"{max_abs(again, logits)}")
-        prof = _lm_profile(torch, prefill, expect=counts)
-        check(any("flash_attention_wgmma_kernel" in n
-                  for n in prof["kernel_names"]["flash_attention"]),
-              f"{arch}: the prefill profile names no bf16 flash kernel: "
-              f"{prof['kernel_names']}")
-        kernel_ms = prof["kernel_ms"]["flash_attention"] / cfg.n_layers
-        bound = _flash_bound(ctx, pb, ps, cfg.n_heads, cfg.n_kv_heads,
-                             cfg.hd, cfg.window)
+        pre = {"batch": pb, "seq": ps, "launches": counts, "ms": ms,
+               "ms_median": statistics.median(ms), "rerun_bitwise": True}
+        if cfg.family == "ssm":
+            # a prefill is ~180,000 launches, which the profiler took ~50 s
+            # to parse on an H100 host: profile a short steady window, the
+            # first SSM_PROFILE_SEQ tokens (the sLSTM loop's steps are
+            # alike), the device alone; busy share = profiled device time
+            # over that prefill's unprofiled wall time
+            short = {"tokens": batch["tokens"][:, :SSM_PROFILE_SEQ]}
+
+            def short_prefill():
+                return models.prefill_logits(params, short, cfg)
+
+            short_prefill()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            short_prefill()
+            torch.cuda.synchronize()
+            short_ms = (time.perf_counter() - t) * 1e3
+            prof = _lm_profile(torch, short_prefill, expect=counts,
+                               cpu=False)
+            pre["short_window"] = {
+                "seq": SSM_PROFILE_SEQ, "ms": short_ms,
+                "device_ms": prof["device_ms"],
+                "device_events": prof["device_events_per_call"],
+                "profiled_wall_ms": prof["wall_ms"],
+                "device_busy_share": prof["device_ms"] / short_ms,
+                "top_device_kernels": prof["top_device_kernels"][:6]}
+        else:
+            prof = _lm_profile(torch, prefill, expect=counts)
+            check(any("flash_attention_wgmma_kernel" in n
+                      for n in prof["kernel_names"]["flash_attention"]),
+                  f"{arch}: the prefill profile names no bf16 flash "
+                  f"kernel: {prof['kernel_names']}")
+            kernel_ms = prof["kernel_ms"]["flash_attention"] / n_flash
+            bound = _flash_bound(ctx, pb, ps, cfg.n_heads, cfg.n_kv_heads,
+                                 cfg.hd, cfg.window)
+            pre.update({
+                "device_busy_share": prof["device_busy_share"],
+                "profile_verified": prof["profile_verified"],
+                "events_lost": prof["events_lost"],
+                "flash_ms_per_layer": kernel_ms,
+                "flash_share": prof["kernel_share"]["flash_attention"],
+                "flash_bound_ms_per_layer": bound["bound_ms"],
+                "flash_bound_share": bound["bound_ms"] / kernel_ms,
+                "top_device_kernels": prof["top_device_kernels"][:6]})
+        if cfg.family in ("ssm", "encdec"):
+            pre["split_ms"] = _prefill_split(torch, cfg, params, batch)
         rk, rp = [], []
         kern = _family_forward(cfg, params, batch, "kernel", rk)
         check(torch.equal(kern, logits), f"{arch}: the forward's kernel "
@@ -4484,31 +4579,32 @@ def _family_full(ctx, arch: str) -> dict:
         check(err <= LM_BF16["max_abs"] and rel <= LM_BF16["rel_l2"],
               f"{arch}: kernel route vs plain route: err {err} rel {rel} "
               f"({sum(flips)} route flips of {n_routes})")
+        check(n_flash or torch.equal(kern, plain),
+              f"{arch}: no kernel on the path, yet the routes differ")
         del kern, plain, again
-        out["prefill"] = {
-            "batch": pb, "seq": ps, "launches": counts, "ms": ms,
-            "ms_median": statistics.median(ms), "rerun_bitwise": True,
-            "device_busy_share": prof["device_busy_share"],
-            "profile_verified": prof["profile_verified"],
-            "events_lost": prof["events_lost"],
-            "flash_ms_per_layer": kernel_ms,
-            "flash_share": prof["kernel_share"]["flash_attention"],
-            "flash_bound_ms_per_layer": bound["bound_ms"],
-            "flash_bound_share": bound["bound_ms"] / kernel_ms,
+        pre.update({
             "kernel_vs_plain_route": {
                 "max_abs_err": err, "rel_l2_err": rel, **LM_BF16,
                 "route_flips": sum(flips), "routes": n_routes,
                 "route_flips_by_dispatch": flips,
                 "dropped_pairs_by_dispatch": dropped},
-            "peak_bytes": torch.cuda.max_memory_allocated(),
-            "top_device_kernels": prof["top_device_kernels"][:6]}
+            "peak_bytes": torch.cuda.max_memory_allocated()})
+        out["prefill"] = pre
         del logits
 
         B, C, steps = FAMILY_DECODE
-        tok = lm_synthetic_batch(torch.Generator(device="cuda").manual_seed(
-            2), cfg.vocab, B, 1)["tokens"]
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        tok = lm_synthetic_batch(gen, cfg.vocab, B, 1)["tokens"]
         cache = api.init_cache(cfg, B, C, device="cuda")
         ops.reset_launch_counts()
+        if cfg.family == "encdec":
+            from repro_torch.models import encdec
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            cache = encdec.prefill_cross(params, _frames(torch, cfg, B, gen),
+                                         cfg, cache)
+            torch.cuda.synchronize()
+            out["prefill_cross_ms"] = (time.perf_counter() - t) * 1e3
         step_ms, generated = [], []
         for pos in range(steps):
             torch.cuda.synchronize()
@@ -4524,7 +4620,17 @@ def _family_full(ctx, arch: str) -> dict:
         dcounts = ops.launch_counts()
         check(sum(dcounts.values()) == 0, f"{arch}: decode launched "
                                           f"{dcounts}")
-        out["decode"] = {
+        dprof = {}
+        if cfg.family in ("ssm", "encdec"):
+            prof = _lm_profile(torch, lambda: api.decode_step(
+                params, cache, tok, steps, cfg), expect=dcounts)
+            dprof = {"profile": {
+                k: prof[k] for k in ("wall_ms", "device_ms",
+                                     "device_busy_share",
+                                     "device_events_per_call")}}
+            dprof["profile"]["top_device_kernels"] = \
+                prof["top_device_kernels"][:4]
+        out["decode"] = {**dprof,
             "batch": B, "steps": steps, "cache_len": C,
             "cache_bytes": sum(t.numel() * t.element_size()
                                for t in tree.leaves(cache)),
@@ -4536,6 +4642,43 @@ def _family_full(ctx, arch: str) -> dict:
     del params, batch
     torch.cuda.empty_cache()
     return out
+
+
+def _prefill_split(torch, cfg, params, batch) -> dict:
+    """Host-clock ms of the prefill's parts, each ended by a device sync:
+    for the ssm family the mLSTM and the sLSTM layers (summed by kind) and
+    the head; for the encdec family the encoder (its full-mask attention
+    plain) and the decoder with the head."""
+    from repro_torch.models import encdec, layers, ssm
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        y = fn()
+        torch.cuda.synchronize()
+        return y, (time.perf_counter() - t) * 1e3
+
+    if cfg.family == "encdec":
+        _, enc = timed(lambda: encdec.encode(params, batch["frames"], cfg))
+        _, whole = timed(lambda: encdec.forward_train(params, batch, cfg,
+                                                      last_only=True))
+        return {"encoder_ms": enc, "decoder_and_head_ms": whole - enc,
+                "whole_ms": whole}
+    x, emb = timed(lambda: params["embed"][batch["tokens"]].to(cfg.cdtype))
+    by = {"mlstm": 0.0, "slstm": 0.0}
+    for i, lp in enumerate(params["layers"]):
+        kind = ssm._kind(i, cfg)
+        fn = ssm.mlstm_block if kind == "mlstm" else ssm.slstm_block
+        (x, _), t = timed(lambda fn=fn, lp=lp, x=x: fn(lp, x, cfg))
+        by[kind] += t
+    _, head = timed(lambda: layers.rms_norm(
+        x, params["final_norm"].to(x.dtype), cfg.norm_eps)[:, -1:]
+        @ params["lm_head"].to(x.dtype))
+    total = emb + by["mlstm"] + by["slstm"] + head
+    return {"mlstm_layers_ms": by["mlstm"], "slstm_layers_ms": by["slstm"],
+            "embed_and_head_ms": emb + head, "whole_ms": total,
+            "slstm_share": by["slstm"] / total,
+            "slstm_layers": list(cfg.slstm_layers)}
 
 
 def _dispatch_timing(ctx, cfg, topi) -> dict:
@@ -4583,8 +4726,9 @@ def _family_parity(ctx, arch: str, cdtype: str) -> dict:
     """reduced() of one config from one init, the card (the flash kernel
     on the GQA layers, cuBLAS with TF32 off) against the CPU (the plain
     versions): logits at B 2, S 64 (vlm: 16 vision embeddings and 48
-    tokens), prefill logits, 8 teacher-forced decode steps, every cache
-    leaf at the end.  f32: rtol = atol = 1e-4 and every route equal;
+    tokens; encdec: 64 decoder tokens beside 24 frames; ssm: 4 mLSTM
+    chunks of 16), prefill logits, 8 teacher-forced decode steps (encdec:
+    after `prefill_cross` on each side), every cache leaf at the end.  f32: rtol = atol = 1e-4 and every route equal;
     bf16: the LM bound, the card's own routes' flips counted and the
     outputs compared on a card run given the CPU's routes, so that a flip
     does not move them."""
@@ -4626,7 +4770,9 @@ def _family_parity(ctx, arch: str, cdtype: str) -> dict:
             return out
         return run(None, iter([r.cuda() for r in rc]))
 
-    n_gqa = 0 if cfg.kv_lora else cfg.n_layers
+    # flash launches of the forward: one per GQA layer (none for MLA),
+    # none for xLSTM, Whisper's decoder layers
+    n_gqa = 0 if (cfg.kv_lora or cfg.family == "ssm") else cfg.n_layers
     with torch.inference_mode():
         rc = []
         want = _family_forward(cfg, cpu, batch, routes=rc, last_only=False)
@@ -4648,6 +4794,10 @@ def _family_parity(ctx, arch: str, cdtype: str) -> dict:
                  models.prefill_logits(cpu, batch, cfg))
         cg = api.init_cache(cfg, 2, 64, device="cuda")
         cc = api.init_cache(cfg, 2, 64, device="cpu")
+        if cfg.family == "encdec":
+            from repro_torch.models import encdec
+            cc = encdec.prefill_cross(cpu, batch["frames"], cfg, cc)
+            cg = encdec.prefill_cross(gpu, gbatch["frames"], cfg, cg)
 
         def step(params, cache, tok, pos, r, g):
             extra = {"routes": r, "given": g} if moe else {}
@@ -4665,7 +4815,7 @@ def _family_parity(ctx, arch: str, cdtype: str) -> dict:
         check(sum(dcounts.values()) == 0, f"reduced {arch} decode launched "
                                           f"{dcounts}")
         for p, leaf in tree.paths(cc):
-            hold("cache/" + "/".join(p), tree.get(cg, p), leaf)
+            hold("cache/" + "/".join(map(str, p)), tree.get(cg, p), leaf)
     check(bf16 or sum(flips) == 0, f"{arch} f32: {sum(flips)} route flips "
                                    f"of {n_routes[0]}")
     out = {"config": "reduced", "compute_dtype": cdtype, "seq": 64,
@@ -4759,6 +4909,100 @@ def phase_vlm(ctx):
          parity=parity, regime_b=rounds, launches=ctx["vlm_launches"])
 
 
+# ---------------------------------------------------------------------------
+# the ssm and encdec families (models/ssm.py, models/encdec.py)
+# ---------------------------------------------------------------------------
+SSM_REGIME_B_ARGS = ["--arch", "xlstm-125m", "--clients", "4", "--batch",
+                     "2", "--seq", "128", "--neighbors", "2", "--device",
+                     "cuda", "--resident"]
+# xlstm-125m's shared row: its 198,985,040 leaves less lm_head (768 x
+# 50,304) and final_norm (768), which stay personal
+SSM_REGIME_B_D = 160_350_800
+# tokens of the ssm prefill's profiled window (2 mLSTM chunks, 512 sLSTM
+# steps a layer: ~24,000 launches)
+SSM_PROFILE_SEQ = 512
+
+
+def _ssm_regime_b(ctx) -> dict:
+    """xlstm-125m at full width (its list of 12 layer dicts packed into
+    the flat row) through 2 resident rounds of `python -m
+    repro_torch.launch.train` with the trainer's defaults (m 4, B 2, S
+    128, 2 neighbors): exactly one gossip_gather a round over the (4,
+    160,350,800) buffer with 3 in-neighbors a row, finite losses, sum(mu)
+    = 4, ms per round; then a profiled round of a Trainer (busy share; the
+    profile's wall time is the profiled round's own)."""
+    torch = ctx["torch"]
+    run = _train_main(ctx, SSM_REGIME_B_ARGS + ["--rounds", "2"])
+    check(_only(run["launches"], gossip_gather=2),
+          f"xlstm-125m: 2 resident rounds launched {run['launches']}")
+    shape = tuple(run["state"].flat.shape)
+    check(shape == (4, SSM_REGIME_B_D), f"xlstm-125m: resident buffer "
+                                        f"{shape}")
+    out = _round_summary(run, 2)
+    del run
+    prof_run = _trainer(SSM_REGIME_B_ARGS)
+    k = prof_run.schedule.at(0).idx.shape[1]
+    check(k == 3, f"xlstm-125m: {k} in-neighbors a row, want 3")
+    prof_run.step(0)
+    torch.cuda.synchronize()
+    # the device alone: with the host's ops traced too (~10^6 events of
+    # the vmapped autograd) the profile took 44 s to parse on an H100 host
+    out["profile"] = _round_profile(ctx, prof_run, 1, cpu=False)
+    out["gather_shape"] = [4, k, SSM_REGIME_B_D]
+    del prof_run
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_ssm(ctx):
+    """The ssm family (xlstm-125m, sLSTM at layers 3 and 9, chunkwise
+    mLSTM elsewhere): full width and all 12 layers (`_family_full`: no
+    kernel launch, the sLSTM loop's share of the prefill), 2 full-width
+    Regime-B resident rounds (`_ssm_regime_b`), reduced() card vs CPU in
+    f32 and bf16 (`_family_parity`) and 2 reduced rounds card vs CPU
+    (`_family_rounds`)."""
+    arch = "xlstm-125m"
+    full = _family_full(ctx, arch)
+    regime_b = _ssm_regime_b(ctx)
+    parity = {dt: _family_parity(ctx, arch, dt)
+              for dt in ("float32", "bfloat16")}
+    rounds = _family_rounds(ctx, arch)
+    ctx["ssm_launches"] = {
+        "flash_attention": full["prefill"]["launches"]["flash_attention"],
+        "gossip_gather": regime_b["launches"]["gossip_gather"]
+        + rounds["launches"]["gossip_gather"]}
+    ctx["ssm_regime_b"] = {"gossip_gather_shape": regime_b["gather_shape"],
+                           "launches": regime_b["launches"]}
+    emit("ssm", card=ctx["smi"], arch=arch, full_width=full,
+         regime_b_full_width=regime_b, parity=parity, regime_b=rounds,
+         launches=ctx["ssm_launches"])
+
+
+def phase_encdec(ctx):
+    """The encdec family (whisper-large-v3): the flash kernel at its
+    decoder prefill (1, 8,192, 20, 20, 64), hd 64 at a group of 1, held
+    against its plain version before anything is timed, then full width
+    (`_family_full`: 32 encoder + 32 decoder layers, 32 flash_attention
+    launches a prefill, `prefill_cross` and decode), reduced() card vs CPU
+    in f32 and bf16 and 2 reduced Regime-B rounds.  Full-width Regime B
+    does not fit one card: with m 4 the shared buffer and its momentum
+    alone are 2 x 4 x 1,535,216,640 x 4 B = 49 GB."""
+    arch = "whisper-large-v3"
+    flash = _dense_flash_timing(ctx, arch, FAMILY_PREFILL[arch])
+    full = _family_full(ctx, arch)
+    parity = {dt: _family_parity(ctx, arch, dt)
+              for dt in ("float32", "bfloat16")}
+    rounds = _family_rounds(ctx, arch)
+    ctx["encdec_launches"] = {
+        "flash_attention": full["prefill"]["launches"]["flash_attention"],
+        "gossip_gather": rounds["launches"]["gossip_gather"]}
+    ctx["encdec_flash"] = flash
+    emit("encdec", card=ctx["smi"], arch=arch, flash=flash, full_width=full,
+         parity=parity, regime_b=rounds, launches=ctx["encdec_launches"],
+         regime_b_full_width="not run: m 4 clients' shared buffer and "
+                             "momentum alone are 49 GB")
+
+
 def phase_timings(ctx):
     torch = ctx["torch"]
     from repro_torch.core import gossip, topology
@@ -4849,7 +5093,10 @@ def phase_timings(ctx):
         "regime_b_launches": ctx["regime_b_launches"]["gossip_gather"],
         "regime_b": ctx["regime_b_kernels"]["gossip_gather"],
         "moe_launches": ctx["moe_launches"]["gossip_gather"],
-        "vlm_launches": ctx["vlm_launches"]["gossip_gather"]})
+        "vlm_launches": ctx["vlm_launches"]["gossip_gather"],
+        "ssm_launches": ctx["ssm_launches"]["gossip_gather"],
+        "ssm_regime_b": ctx["ssm_regime_b"],
+        "encdec_launches": ctx["encdec_launches"]["gossip_gather"]})
 
     # head_gather_matmul at the serve path's shapes (m=100, d=64, n=10):
     # H read once, each distinct user's slab and bias read once, uid read
@@ -5174,8 +5421,11 @@ def phase_timings(ctx):
             ctx["regime_b_launches"]["flash_attention"],
         "moe_launches": ctx["moe_launches"]["flash_attention"],
         "vlm_launches": ctx["vlm_launches"]["flash_attention"],
+        "ssm_launches": ctx["ssm_launches"]["flash_attention"],
+        "encdec_launches": ctx["encdec_launches"]["flash_attention"],
         "family_by_config": {"deepseek-moe-16b": ctx["moe_flash"],
-                             "qwen2-vl-7b": ctx["vlm_flash"]},
+                             "qwen2-vl-7b": ctx["vlm_flash"],
+                             "whisper-large-v3": ctx["encdec_flash"]},
         "max_abs_err": ctx["flash_err"][0], "ms": fl["ms"],
         "plain_ms": fl["plain_ms"], "bound_ms": fb_ms,
         "bound_by": "bytes" if fbytes / bw * 1e3 >= t_ops else "operations",
@@ -5347,7 +5597,7 @@ def main(argv=None) -> int:
              "timings": {"kernels", "train", "sampled", "kernel_mix",
                          "compress", "baselines", "async", "obs",
                          "checkpoint", "serve", "lm", "dense",
-                         "regime_b", "moe", "vlm"}}
+                         "regime_b", "moe", "vlm", "ssm", "encdec"}}
     for phase in only:
         missing = needs.get(phase, set()) - wanted
         if missing:
@@ -5360,6 +5610,7 @@ def main(argv=None) -> int:
            "obs": phase_obs, "checkpoint": phase_checkpoint,
            "serve": phase_serve, "lm": phase_lm, "dense": phase_dense,
            "regime_b": phase_regime_b, "moe": phase_moe, "vlm": phase_vlm,
+           "ssm": phase_ssm, "encdec": phase_encdec,
            "timings": phase_timings}
     t0 = time.perf_counter()
     for phase in PHASES:

@@ -1,8 +1,8 @@
-"""Architecture config registry: arch id -> ModelConfig, for the archs the
-port runs so far (the hybrid recurrentgemma-9b, the four dense archs, the
-moe deepseek-moe-16b and deepseek-v2-236b, and the vlm qwen2-vl-7b).
-The reference's other archs (ssm, encdec) raise a KeyError naming ROADMAP
-item 15 (the LM architectures still to port)."""
+"""Architecture config registry: arch id -> ModelConfig, for every arch of
+the reference (the hybrid recurrentgemma-9b, the four dense archs, the
+moe deepseek-moe-16b and deepseek-v2-236b, the vlm qwen2-vl-7b, the ssm
+xlstm-125m and the encdec whisper-large-v3).  An unknown arch raises a
+KeyError."""
 from __future__ import annotations
 
 import importlib
@@ -20,9 +20,9 @@ _MODULES = {
     "deepseek-moe-16b": "deepseek_moe_16b",
     "deepseek-v2-236b": "deepseek_v2_236b",
     "qwen2-vl-7b": "qwen2_vl_7b",
+    "xlstm-125m": "xlstm_125m",
+    "whisper-large-v3": "whisper_large_v3",
 }
-# the reference's archs whose family the port does not run yet
-_UNPORTED = ("xlstm-125m", "whisper-large-v3")
 
 # every arch of the reference, in its registry's order
 ARCH_IDS = ("deepseek-moe-16b", "recurrentgemma-9b", "xlstm-125m",
@@ -35,11 +35,8 @@ LONG_CONTEXT_ARCHS = ("recurrentgemma-9b", "xlstm-125m", "h2o-danube-1.8b")
 
 
 def _module(arch_id: str):
-    if arch_id in _UNPORTED:
-        raise KeyError(f"arch {arch_id!r} is not ported yet (ROADMAP item "
-                       f"15); ported: {sorted(_MODULES)}")
     if arch_id not in _MODULES:
-        raise KeyError(f"unknown arch {arch_id!r}; ported: "
+        raise KeyError(f"unknown arch {arch_id!r}; known: "
                        f"{sorted(_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
 

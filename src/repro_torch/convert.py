@@ -8,7 +8,8 @@ are numpy arrays (or anything `numpy.asarray` accepts): the reference's
 tree-form and resident DFedPGP states, its baselines' states and its hetero
 `ClientProfile`.  Regime B's states are DFedPGP states of stacked LM trees
 (nested layer dicts, QKV biases, personal `lm_head` / `final_norm`): the
-same two state functions carry them (tests/test_torch_regime_b.py).
+same two state functions carry them (tests/test_torch_regime_b.py), and
+xLSTM's list of layer dicts.
 """
 from __future__ import annotations
 
@@ -19,25 +20,36 @@ from .core import baselines
 from .core.dfedpgp import DFedPGPState, FlatDFedPGPState
 from .hetero.profiles import ClientProfile
 from .optim import SGDState
+from .tree import from_paths
 
 
 def _tensor(a, device):
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
+def _reference_paths(node, prefix: tuple = ()):
+    """(path, array) pairs of a reference tree in JAX treedef order (dict
+    keys sorted, list and tuple indices ascending); None leaves are
+    skipped."""
+    if node is None:
+        return
+    if isinstance(node, dict):
+        for key in sorted(node):
+            yield from _reference_paths(node[key], prefix + (key,))
+    elif isinstance(node, (list, tuple)):
+        for i, val in enumerate(node):
+            yield from _reference_paths(val, prefix + (i,))
+    else:
+        yield prefix, node
+
+
 def params_from_reference(tree_of_numpy: dict, device="cpu") -> dict:
-    """Nested dict of arrays (None leaves dropped) -> dict of tensors."""
-    out = {}
-    for key, val in tree_of_numpy.items():
-        if val is None:
-            continue
-        if isinstance(val, dict):
-            sub = params_from_reference(val, device)
-            if sub:
-                out[key] = sub
-        else:
-            out[key] = _tensor(val, device)
-    return out
+    """Nested dicts, lists and tuples of arrays (None leaves and the
+    subtrees they empty dropped) -> the port's tree of tensors: dicts, and
+    lists where the reference has lists or tuples (xLSTM's layers and
+    decode cache)."""
+    return from_paths((p, _tensor(a, device))
+                      for p, a in _reference_paths(tree_of_numpy))
 
 
 def flat_state_from_reference(*, flat, personal, mu, mom_u, mom_v, round,

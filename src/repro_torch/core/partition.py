@@ -1,18 +1,22 @@
 """Partial-model partition: shared `u` vs personal `v` (paper §3.1).
 
-Port of `repro/core/partition.py`.  A mask is a nested dict of bools with
-the params' structure (True = shared/u).  Where the reference keeps None
-placeholders at the other side's leaves, the port drops them: `split`
-returns two pruned dicts and `merge` joins them again.
+Port of `repro/core/partition.py`.  A mask is a tree of bools with the
+params' structure (True = shared/u; dicts and lists, `repro_torch.tree`).
+Where the reference keeps None placeholders at the other side's leaves,
+the port drops them: `split` returns two pruned trees and `merge` joins
+them again.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Callable
 
 from .. import tree
 
 
 def path_str(path: tuple) -> str:
+    """'layers/0/ln': dict keys and list indices joined by '/', as the
+    reference's path_str writes a jax key path."""
     return "/".join(str(p) for p in path)
 
 
@@ -40,10 +44,7 @@ def split(params: dict, mask: dict) -> tuple:
 
 def merge(u: dict, v: dict) -> dict:
     """Join two disjoint pruned trees (the inverse of `split`)."""
-    out = dict(u)
-    for key, val in v.items():
-        out[key] = merge(out[key], val) if key in out else val
-    return out
+    return tree.from_paths(itertools.chain(tree.paths(u), tree.paths(v)))
 
 
 def where(mask: dict, a: dict, b: dict) -> dict:

@@ -35,7 +35,7 @@ from ..core.gossip import FlatLayout
 from ..models import get_model, prefill_logits
 from ..models.config import ModelConfig
 from ..optim import SGD
-from ..tree import tree_map
+from ..tree import from_paths, paths, tree_map
 
 META = torch.device("meta")
 
@@ -93,8 +93,11 @@ def batch_struct(cfg: ModelConfig, shape: InputShape,
     tokens and labels (..., seq_len) int64 (the reference's int32; torch
     indexes an embedding with int64).  seq_len is the TOTAL context: for
     the vlm family the vision embeddings (..., n_vision_tokens, d_model)
-    f32 take its first n_vision_tokens positions and the text the rest."""
-    get_model(cfg)        # raises for the families still to port
+    f32 take its first n_vision_tokens positions and the text the rest;
+    for the encdec family the (stub) conv frontend supplies the frame
+    embeddings (..., n_frames, d_model) f32 and seq_len is the decoder
+    length."""
+    get_model(cfg)        # raises for an unknown family
     lead = tuple(lead)
     S = shape.seq_len
     if cfg.family == "vlm":
@@ -102,6 +105,11 @@ def batch_struct(cfg: ModelConfig, shape: InputShape,
         return {"tokens": _meta(lead + (S - nv,), torch.int64),
                 "vision": _meta(lead + (nv, cfg.d_model), torch.float32),
                 "labels": _meta(lead + (S - nv,), torch.int64)}
+    if cfg.family == "encdec":
+        return {"frames": _meta(lead + (cfg.n_frames, cfg.d_model),
+                                torch.float32),
+                "tokens": _meta(lead + (S,), torch.int64),
+                "labels": _meta(lead + (S,), torch.int64)}
     return {"tokens": _meta(lead + (S,), torch.int64),
             "labels": _meta(lead + (S,), torch.int64)}
 
@@ -114,8 +122,8 @@ def stacked_param_struct(cfg: ModelConfig, m: int) -> dict:
     api = get_model(cfg)
     with FakeTensorMode():
         one = api.init_params(torch.Generator(), cfg, device="cpu")
-        shapes = tree_map(lambda a: (tuple(a.shape), a.dtype), one)
-    return tree_map(lambda sd: _meta((m,) + sd[0], sd[1]), shapes)
+        shapes = [(p, tuple(a.shape), a.dtype) for p, a in paths(one)]
+    return from_paths((p, _meta((m,) + shape, dt)) for p, shape, dt in shapes)
 
 
 def input_specs(cfg: ModelConfig, shape: InputShape, layout: Layout,
@@ -367,10 +375,11 @@ def build_prefill_step(cfg: ModelConfig, mesh, layout: Layout,
 
     prefill_step(params, batch) -> (m, B, 1, vocab) logits: each client's
     `prefill_logits` on the kernel route over its slice of every batch
-    entry (tokens; a vlm's vision embeddings too).  The reference vmaps the
-    clients; the flash kernel is a ctypes launch that cannot run under
-    `torch.func.vmap`, so the clients run in a loop: n_layers
-    `flash_attention` launches per client (24 x m for qwen2-0.5b)."""
+    entry (tokens; a vlm's vision embeddings or an encdec's frames too).
+    The reference vmaps the clients; the flash kernel is a ctypes launch
+    that cannot run under `torch.func.vmap`, so the clients run in a loop:
+    n_layers `flash_attention` launches per client (24 x m for
+    qwen2-0.5b)."""
     icfg = cfg.replace(remat=False)
 
     def prefill_step(params, batch):

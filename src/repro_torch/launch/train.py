@@ -51,16 +51,20 @@ DATA_STREAM = 22
 def synth_lm_batch(generator: torch.Generator, cfg, lead, seq: int) -> dict:
     """Synthetic next-token data with learnable structure (the labels are
     the tokens shifted by one), drawn from `generator` on its device:
-    tokens and labels (*lead, seq) int64, and for the vlm family the
-    stub vision embeddings (*lead, n_vision_tokens, d_model) f32 drawn
-    after them."""
+    tokens and labels (*lead, seq) int64, and drawn after them the vlm
+    family's stub vision embeddings (*lead, n_vision_tokens, d_model) or
+    the encdec family's stub frame embeddings (*lead, n_frames, d_model),
+    f32."""
     toks = torch.randint(0, cfg.vocab, tuple(lead) + (seq,),
                          generator=generator, device=generator.device)
     batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=-1)}
-    if cfg.family == "vlm":
-        batch["vision"] = torch.randn(
-            tuple(lead) + (cfg.n_vision_tokens, cfg.d_model),
-            generator=generator, device=generator.device)
+    extra = {"vlm": ("vision", cfg.n_vision_tokens),
+             "encdec": ("frames", cfg.n_frames)}.get(cfg.family)
+    if extra is not None:
+        name, n = extra
+        batch[name] = torch.randn(tuple(lead) + (n, cfg.d_model),
+                                  generator=generator,
+                                  device=generator.device)
     return batch
 
 

@@ -2,17 +2,17 @@
 (`hybrid`, Griffin / RecurrentGemma), the dense decoder-only LM family
 (`dense`: qwen2, granite, codeqwen, h2o-danube), the mixture-of-experts
 family (`moe`: deepseek-moe, deepseek-v2's MLA), the Qwen2-VL backbone
-(`vlm`, M-RoPE) and their layers.
+(`vlm`, M-RoPE), the xLSTM family (`ssm`), the Whisper encoder-decoder
+(`encdec`) and their layers.
 
 Registry counterpart of `repro/models/__init__.py`: one `ModelApi` per
-family the port runs.  The reference's other LM families (ssm, encdec)
-are still to port (ROADMAP item 15) and raise.
+family, all six of the reference's.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple
 
-from . import dense, hybrid, moe, vlm
+from . import dense, encdec, hybrid, moe, ssm, vlm
 from .config import ModelConfig
 
 
@@ -32,15 +32,14 @@ _FAMILIES = {
                     moe.decode_step),
     "vlm": ModelApi(vlm.init_params, vlm.loss_fn, vlm.init_cache,
                     vlm.decode_step),
+    "ssm": ModelApi(ssm.init_params, ssm.loss_fn, ssm.init_cache,
+                    ssm.decode_step),
+    "encdec": ModelApi(encdec.init_params, encdec.loss_fn, encdec.init_cache,
+                       encdec.decode_step),
 }
-_UNPORTED = ("ssm", "encdec")
 
 
 def _check_family(fam: str) -> None:
-    if fam in _UNPORTED:
-        raise NotImplementedError(
-            f"model family {fam!r} is not ported yet (ROADMAP item 15); "
-            f"ported: {sorted(_FAMILIES)}")
     if fam not in _FAMILIES:
         raise ValueError(f"unknown model family {fam!r}")
 
@@ -53,18 +52,18 @@ def get_model(cfg: ModelConfig) -> ModelApi:
 def prefill_logits(params: dict, batch: dict, cfg: ModelConfig):
     """Inference prefill: the full forward, lm_head on the LAST position
     only (the next-token sample point).  The moe forward's logits without
-    its aux loss; the vlm forward takes the whole batch (tokens and
-    vision embeddings)."""
+    its aux loss; the vlm and encdec forwards take the whole batch
+    (tokens and vision embeddings, or frames)."""
     _check_family(cfg.family)
     fam = cfg.family
     if fam == "moe":
         return moe.forward_train(params, batch["tokens"], cfg,
                                  last_only=True)[0]
-    if fam == "vlm":
-        return vlm.forward_train(params, batch, cfg, last_only=True)
-    mod = dense if fam == "dense" else hybrid
-    return mod.forward_train(params, batch["tokens"], cfg, last_only=True)
+    mod = {"dense": dense, "hybrid": hybrid, "ssm": ssm, "vlm": vlm,
+           "encdec": encdec}[fam]
+    inputs = batch if fam in ("vlm", "encdec") else batch["tokens"]
+    return mod.forward_train(params, inputs, cfg, last_only=True)
 
 
 __all__ = ["ModelConfig", "ModelApi", "get_model", "prefill_logits", "dense",
-           "hybrid", "moe", "vlm"]
+           "encdec", "hybrid", "moe", "ssm", "vlm"]

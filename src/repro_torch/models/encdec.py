@@ -1,0 +1,243 @@
+"""Encoder-decoder family — the Whisper large-v3 backbone
+[arXiv:2212.04356].
+
+Port of `repro/models/encdec.py`.  The mel-spectrogram + conv frontend is
+a stub, as in the reference: the batch carries precomputed frame
+embeddings (B, n_frames, d_model).  Downstream all is real: a
+bidirectional encoder, a causal decoder with cross-attention, LayerNorm +
+bias blocks, GELU MLPs.  Positions are sinusoidal on both sides (the
+reference's deviation from Whisper's learned 448-entry decoder table);
+self-attention passes theta 0, so no RoPE.
+
+Attention routes:
+- decoder self-attention is `layers.attention_train(..., route=)`: the
+  kernel route, `ops.flash_attention` (the CUDA kernel on the card, its
+  plain version on the CPU), for prefill; the plain route under autograd
+  for `loss_fn`;
+- the encoder's full-mask attention and the cross-attention are always
+  the plain `gqa_attend`, as in the reference: the flash kernel is causal
+  or windowed only.
+
+The layer weights are stacked on a leading dim (`enc_layers`,
+`dec_layers`) as in the reference, and the layers run as a Python loop
+over `layers.unstack` of the stacks (the reference's `lax.scan`;
+`remat` and `scan_unroll` are not read).  `prefill_cross` (the encoder
+run once and the cross-attention keys and values cached) is a module
+function outside `ModelApi`, as in the reference.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..device import resolve_device
+from . import layers as L
+from .config import ModelConfig
+
+
+def _init_ln(cfg: ModelConfig, lead=(), device="cpu") -> dict:
+    shape = tuple(lead) + (cfg.d_model,)
+    return {"w": torch.ones(shape, dtype=cfg.pdtype, device=device),
+            "b": torch.zeros(shape, dtype=cfg.pdtype, device=device)}
+
+
+def init_enc_layer(generator: torch.Generator, cfg: ModelConfig, lead=(),
+                   device="cpu") -> dict:
+    """One encoder block's weights, stacked over the leading dims
+    `lead`."""
+    return {
+        "ln1": _init_ln(cfg, lead, device),
+        "attn": L.init_attention(generator, cfg, lead=lead, device=device),
+        "ln2": _init_ln(cfg, lead, device),
+        "mlp": L.init_gelu_mlp(generator, cfg.d_model, cfg.d_ff, cfg.pdtype,
+                               lead, device),
+    }
+
+
+def init_dec_layer(generator: torch.Generator, cfg: ModelConfig, lead=(),
+                   device="cpu") -> dict:
+    return {
+        "ln1": _init_ln(cfg, lead, device),
+        "self_attn": L.init_attention(generator, cfg, lead=lead,
+                                      device=device),
+        "ln_x": _init_ln(cfg, lead, device),
+        "cross_attn": L.init_attention(generator, cfg, lead=lead,
+                                       device=device),
+        "ln2": _init_ln(cfg, lead, device),
+        "mlp": L.init_gelu_mlp(generator, cfg.d_model, cfg.d_ff, cfg.pdtype,
+                               lead, device),
+    }
+
+
+def init_params(generator: torch.Generator, cfg: ModelConfig,
+                device="cuda") -> dict:
+    """Random parameters drawn from `generator` on its own device, stored
+    on `device`.  The draws cannot replay the reference's `jax.random`
+    init; parity runs carry that init across with
+    `convert.params_from_reference`."""
+    device = resolve_device(device)
+    return {
+        "embed": L.embed_init(generator, (cfg.vocab, cfg.d_model),
+                              cfg.pdtype, device),
+        "enc_layers": init_enc_layer(generator, cfg, (cfg.n_enc_layers,),
+                                     device),
+        "enc_norm": _init_ln(cfg, device=device),
+        "dec_layers": init_dec_layer(generator, cfg, (cfg.n_layers,), device),
+        "dec_norm": _init_ln(cfg, device=device),
+        "lm_head": L.dense_init(generator, (cfg.d_model, cfg.vocab),
+                                cfg.pdtype, device=device),
+    }
+
+
+def _ln(x: torch.Tensor, p: dict, eps: float = 1e-5) -> torch.Tensor:
+    return L.layer_norm(x, p["w"].to(x.dtype), p["b"].to(x.dtype), eps)
+
+
+def _full(sq: int, sk: int, device) -> torch.Tensor:
+    return torch.ones((sq, sk), dtype=torch.bool, device=device)
+
+
+def encode(params: dict, frames: torch.Tensor,
+           cfg: ModelConfig) -> torch.Tensor:
+    """frames (B, F, D), the stub conv frontend's output -> encoder
+    features (B, F, D) in the compute dtype: bidirectional attention
+    (`gqa_attend` under a full mask)."""
+    x = frames.to(cfg.cdtype)
+    x = x + L.sinusoid_positions(x.shape[1], cfg.d_model,
+                                 x.device).to(x.dtype)[None]
+    full = _full(x.shape[1], x.shape[1], x.device)
+    for lp in L.unstack(params["enc_layers"]):
+        hn = _ln(x, lp["ln1"])
+        q, k, v = L._qkv(lp["attn"], hn, cfg)
+        a = L.gqa_attend(q, k, v, full)
+        x = x + a.reshape(*x.shape[:2], -1) @ lp["attn"]["wo"].to(x.dtype)
+        hn = _ln(x, lp["ln2"])
+        x = x + L.gelu_mlp(lp["mlp"], hn)
+    return _ln(x, params["enc_norm"])
+
+
+def _cross_attend(lp: dict, h: torch.Tensor, enc_kv,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """enc_kv: the encoder's (k, v), each (B, F, Hkv, hd)."""
+    B, S, _ = h.shape
+    q = (h @ lp["wq"].to(h.dtype)).reshape(B, S, cfg.n_heads, cfg.hd)
+    k, v = enc_kv
+    a = L.gqa_attend(q, k.to(h.dtype), v.to(h.dtype),
+                     _full(S, k.shape[1], h.device))
+    return a.reshape(B, S, -1) @ lp["wo"].to(h.dtype)
+
+
+def _enc_kv(lp: dict, enc_out: torch.Tensor, cfg: ModelConfig):
+    B, F, _ = enc_out.shape
+    k = (enc_out @ lp["wk"].to(enc_out.dtype)).reshape(B, F, cfg.n_kv_heads,
+                                                       cfg.hd)
+    v = (enc_out @ lp["wv"].to(enc_out.dtype)).reshape(B, F, cfg.n_kv_heads,
+                                                       cfg.hd)
+    return k, v
+
+
+def _dec_block(lp: dict, h: torch.Tensor, enc_out: torch.Tensor,
+               positions: torch.Tensor, cfg: ModelConfig,
+               route: str) -> torch.Tensor:
+    hn = _ln(h, lp["ln1"])
+    h = h + L.attention_train(lp["self_attn"], hn, positions, cfg,
+                              theta=0.0, route=route)
+    hn = _ln(h, lp["ln_x"])
+    h = h + _cross_attend(lp["cross_attn"], hn,
+                          _enc_kv(lp["cross_attn"], enc_out, cfg), cfg)
+    hn = _ln(h, lp["ln2"])
+    return h + L.gelu_mlp(lp["mlp"], hn)
+
+
+def forward_train(params: dict, batch: dict, cfg: ModelConfig,
+                  last_only: bool = False,
+                  route: str = "kernel") -> torch.Tensor:
+    """batch: {frames (B, F, D), tokens (B, S)} -> logits (B, S, vocab),
+    or (B, 1, vocab) with last_only, in the compute dtype.  route: the
+    decoder self-attention's (`layers.ROUTES`); "plain" is the training
+    route."""
+    if route not in L.ROUTES:
+        raise ValueError(f"route={route!r}; known: {L.ROUTES}")
+    enc_out = encode(params, batch["frames"], cfg)
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    # gather, then cast: the reference's cast-then-gather without a
+    # (vocab, d_model) temporary
+    x = params["embed"][tokens].to(cfg.cdtype)
+    x = x + L.sinusoid_positions(S, cfg.d_model, x.device).to(x.dtype)[None]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+    for lp in L.unstack(params["dec_layers"]):
+        x = _dec_block(lp, x, enc_out, positions, cfg, route)
+    x = _ln(x, params["dec_norm"])
+    if last_only:
+        x = x[:, -1:]
+    return x @ params["lm_head"].to(x.dtype)
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Mean next-token cross-entropy on the training route (plain
+    attention under autograd)."""
+    logits = forward_train(params, batch, cfg, route="plain")
+    return L.softmax_xent(logits, batch["labels"])
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
+               device="cuda") -> dict:
+    """Self-attention keys and values (n_layers, B, cache_len, Hkv, hd)
+    and the cross-attention's (n_layers, B, n_frames, Hkv, hd) (`xk`,
+    `xv`, zeros until `prefill_cross`), in the compute dtype."""
+    device = resolve_device(device)
+    shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.hd)
+    xshape = (cfg.n_layers, batch, cfg.n_frames, cfg.n_kv_heads, cfg.hd)
+    kw = dict(dtype=cfg.cdtype, device=device)
+    return {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw),
+            "xk": torch.zeros(xshape, **kw), "xv": torch.zeros(xshape, **kw)}
+
+
+def prefill_cross(params: dict, frames: torch.Tensor, cfg: ModelConfig,
+                  cache: dict) -> dict:
+    """Run the encoder once and fill the cross-attention cache: -> a new
+    cache dict with `xk` / `xv` replaced."""
+    enc_out = encode(params, frames, cfg)
+    kv = [_enc_kv(lp["cross_attn"], enc_out, cfg)
+          for lp in L.unstack(params["dec_layers"])]
+    return dict(cache, xk=torch.stack([k for k, _ in kv]),
+                xv=torch.stack([v for _, v in kv]))
+
+
+def _position_embedding(pos: int, d: int, device) -> torch.Tensor:
+    """The sinusoid at one position, as the reference's decode step
+    writes it (its own expression: the f32 log of 10^4 over d)."""
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=device)
+                    * (-torch.log(torch.tensor(10000.0, device=device)) / d))
+    ang = torch.tensor(float(pos), dtype=torch.float32, device=device) * div
+    pe = torch.zeros((d,), dtype=torch.float32, device=device)
+    pe[0::2] = torch.sin(ang)
+    pe[1::2] = torch.cos(ang)
+    return pe
+
+
+def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int,
+                cfg: ModelConfig):
+    """One token per sequence at absolute position `pos`: tokens (B, 1) ->
+    (logits (B, 1, vocab), new cache); the cache passed in is not
+    modified (the self-attention keys and values are copied once and
+    written in place)."""
+    pos = int(pos)
+    x = params["embed"][tokens].to(cfg.cdtype)
+    x = x + _position_embedding(pos, cfg.d_model, x.device).to(
+        x.dtype)[None, None, :]
+    ck, cv = cache["k"].clone(), cache["v"].clone()
+    for i, lp in enumerate(L.unstack(params["dec_layers"])):
+        hn = _ln(x, lp["ln1"])
+        x = x + L.attention_decode_into(lp["self_attn"], hn, pos, ck[i], cv[i],
+                                        cfg, theta=0.0)
+        hn = _ln(x, lp["ln_x"])
+        x = x + _cross_attend(lp["cross_attn"], hn,
+                              (cache["xk"][i], cache["xv"][i]), cfg)
+        hn = _ln(x, lp["ln2"])
+        x = x + L.gelu_mlp(lp["mlp"], hn)
+    x = _ln(x, params["dec_norm"])
+    return x @ params["lm_head"].to(x.dtype), dict(cache, k=ck, v=cv)

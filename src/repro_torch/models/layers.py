@@ -1,6 +1,6 @@
 """Shared building blocks of `repro/models/layers.py`: the CNN's helpers
-and what the hybrid (Griffin / RecurrentGemma), dense, moe and vlm
-families use.
+and what the hybrid (Griffin / RecurrentGemma), dense, moe, vlm, ssm
+(xLSTM) and encdec (Whisper) families use.
 
 Parameters are plain nested dicts of tensors, weights (in, out) as the
 reference keeps them.  Every block casts its weights to the activation's
@@ -65,6 +65,18 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     return (x * weight).to(dt)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in f32 as the reference writes it (the variance as the
+    mean of (x - mu)^2; `F.layer_norm` rounds differently)."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * weight + bias).to(dt)
+
+
 # ---------------------------------------------------------------------------
 # RoPE (split-half, angles in f32)
 # ---------------------------------------------------------------------------
@@ -112,6 +124,19 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, sections,
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoid_positions(n_pos: int, dim: int, device=None) -> torch.Tensor:
+    """(n_pos, dim) f32 sinusoidal embeddings: sin at the even columns,
+    cos at the odd, angle pos * exp(-2i ln(10^4) / dim)."""
+    pos = torch.arange(n_pos, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32,
+                                 device=device)
+                    * (-math.log(10000.0) / dim))
+    pe = torch.zeros((n_pos, dim), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
 
 
 # ---------------------------------------------------------------------------
@@ -330,6 +355,23 @@ def init_swiglu(generator: torch.Generator, d: int, f: int,
 def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(x @ p["wg"].to(x.dtype)) * (x @ p["wu"].to(x.dtype))
     return h @ p["wd"].to(x.dtype)
+
+
+def init_gelu_mlp(generator: torch.Generator, d: int, f: int,
+                  dtype=torch.float32, lead=(), device="cpu") -> dict:
+    lead = tuple(lead)
+    return {"w1": dense_init(generator, lead + (d, f), dtype, device=device),
+            "b1": torch.zeros(lead + (f,), dtype=dtype, device=device),
+            "w2": dense_init(generator, lead + (f, d), dtype, device=device),
+            "b2": torch.zeros(lead + (d,), dtype=dtype, device=device)}
+
+
+def gelu_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """x W1 + b1, GELU (tanh form: `jax.nn.gelu`'s default), then W2 +
+    b2."""
+    h = F.gelu(x @ p["w1"].to(x.dtype) + p["b1"].to(x.dtype),
+               approximate="tanh")
+    return h @ p["w2"].to(x.dtype) + p["b2"].to(x.dtype)
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,

@@ -1,8 +1,8 @@
 """Minimal functional SGD with momentum / weight decay (paper's optimizer).
 
 Port of `repro/optim/sgd.py`: SGD(lr=0.1, momentum 0.9, weight decay
-5e-4) with an exponential per-round lr scale, on tensors or nested dicts
-of tensors — not `torch.optim` — plus the reference's
+5e-4) with an exponential per-round lr scale, on tensors or trees of
+tensors (`repro_torch.tree`) — not `torch.optim` — plus the reference's
 `exp_decay_schedule` and `clip_by_global_norm`.
 """
 from __future__ import annotations
@@ -15,7 +15,7 @@ from .. import tree
 
 
 def _map(fn, x, *rest):
-    if isinstance(x, dict):
+    if tree.is_node(x):
         return tree.tree_map(fn, x, *rest)
     return fn(x, *rest)
 
@@ -63,7 +63,7 @@ def exp_decay_schedule(base: float, decay: float):
 def clip_by_global_norm(grads, max_norm: float):
     """-> (grads scaled so their joint L2 norm is at most max_norm, the
     norm before clipping as a 0-d tensor)."""
-    leaves = tree.leaves(grads) if isinstance(grads, dict) else [grads]
+    leaves = tree.leaves(grads) if tree.is_node(grads) else [grads]
     norm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in leaves))
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return _map(lambda g: g * scale, grads), norm

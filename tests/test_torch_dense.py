@@ -104,12 +104,9 @@ def test_arch_registry_matches_reference():
         for shape in jconfigs.SHAPES:
             assert configs.shape_applicable(arch, shape) == \
                 jconfigs.shape_applicable(arch, shape), (arch, shape)
+        # every family of the reference resolves
         family = jconfigs.get_config(arch).family
-        if family in ("dense", "hybrid", "moe", "vlm"):
-            assert configs.get_config(arch).family == family
-        else:
-            with pytest.raises(KeyError, match="item 15"):
-                configs.get_config(arch)
+        assert configs.get_config(arch).family == family
     # danube is the one dense arch the long_500k decode shape admits
     assert [a for a in DENSE if configs.shape_applicable(a, "long_500k")] \
         == ["h2o-danube-1.8b"]

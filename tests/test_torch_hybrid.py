@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro import configs as jconfigs
 from repro.configs import get_config as jget_config
 from repro.configs import get_reduced as jget_reduced
 from repro.kernels import ref as jref
@@ -254,17 +255,26 @@ def test_config_equals_reference_field_by_field(which):
 
 
 def test_unported_archs_and_families_raise():
-    with pytest.raises(KeyError, match="item 15"):
-        configs.get_config("whisper-large-v3")
-    with pytest.raises(KeyError, match="item 15"):
-        configs.get_reduced("xlstm-125m")
+    # every arch and family of the reference resolves; an unknown arch or
+    # family still raises
+    families = set()
+    for arch in jconfigs.ARCH_IDS:
+        cfg = configs.get_config(arch)
+        assert configs.get_reduced(arch).family == cfg.family
+        api = models.get_model(cfg)
+        assert api is models.get_model(configs.get_reduced(arch))
+        families.add(cfg.family)
+    assert len(jconfigs.ARCH_IDS) == 10
+    assert families == {"dense", "moe", "ssm", "hybrid", "encdec", "vlm"}
     with pytest.raises(KeyError, match="unknown arch"):
         configs.get_config("gpt-5")
-    ssm = configs.get_reduced(ARCH).replace(family="ssm")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        models.get_model(ssm)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        models.prefill_logits({}, {"tokens": None}, ssm)
+    with pytest.raises(KeyError, match="unknown arch"):
+        configs.get_reduced("gpt-5")
+    odd = configs.get_reduced(ARCH).replace(family="rnn")
+    with pytest.raises(ValueError, match="unknown model family"):
+        models.get_model(odd)
+    with pytest.raises(ValueError, match="unknown model family"):
+        models.prefill_logits({}, {"tokens": None}, odd)
     api = models.get_model(configs.get_reduced(ARCH))
     assert api.decode_step is thybrid.decode_step
     assert configs.SHAPES["prefill_32k"].seq_len == 32_768

@@ -60,6 +60,19 @@ line is never printed):
                 topk codec fires (+ one topk_gather per group); the osgp
                 and dfedavgm legs; 25% participation; window and tick
                 times, busy share, the gated gather's device time;
+10b. analysis — the program invariant analyzer (`repro_torch.analysis`)
+                on the card: `run_all(device="cuda")` over the six
+                registered programs (m 13) and the schedule kinds finds no
+                violation, its steady-state rounds under
+                torch.cuda.set_sync_debug_mode("error"); each broken
+                fixture trips its detector on the card; each program's 3
+                rounds launch exactly the kernels stated in
+                ANALYSIS_LAUNCHES (the wrappers' counts and
+                torch.profiler's kernel events); the per-round lr upload
+                the detector found in the rounds (since repaired), put
+                back for one check, found on the card; `python -m
+                repro_torch.analysis --all` in a subprocess exits 0 and
+                `--fixture X` returns 1 for every fixture;
 11. obs       — the telemetry spine: telemetry-on runs through
                 run_experiment with a JSONL sink (5 rounds with graph
                 records every 2, 3 sampled rounds, 3 topk codec rounds, 2
@@ -137,8 +150,10 @@ line is never printed):
                 512 tokens (a device-only profile), the sLSTM layers'
                 share, 16 decode steps at B 4 (one profiled), peak memory; 2 resident Regime-B
                 rounds at full width (1 gossip_gather a round at (4, 3,
-                160,350,800)), a profiled round; reduced() card vs CPU
-                in f32 and bf16 and 2 reduced rounds;
+                160,350,800)), a profiled round; the gather at that width
+                bitwise its plain version, timed (CUDA events) beside the
+                plain gather and torch.sparse.mm (CSR); reduced() card vs
+                CPU in f32 and bf16 and 2 reduced rounds;
 20. encdec    — whisper-large-v3: the flash kernel at its decoder prefill
                 (1, 8,192, 20, 20, 64), hd 64 at a group of 1, held
                 against its plain version, timed beside SDPA and its
@@ -179,7 +194,7 @@ import time
 from pathlib import Path
 
 PHASES = ("device", "build", "kernels", "train", "parity", "sampled",
-          "kernel_mix", "compress", "baselines", "async", "obs",
+          "kernel_mix", "compress", "baselines", "async", "analysis", "obs",
           "checkpoint", "serve", "lm", "dense", "regime_b", "moe", "vlm",
           "ssm", "encdec", "timings")
 # the paper's comparison rows (the port's simulator.ALGOS but dfedpgp)
@@ -2673,6 +2688,207 @@ def _rerun_gap(torch, runs) -> float:
                if hasattr(x, "is_cuda"))
 
 
+# launches of each registered program's N_ROUNDS (3) rounds on the card:
+# the f32 "sparse" mix routes through gossip_gather (k < n in every
+# program: 13 x 4, the sampled 7 x 4, Regime B 13 x 3 and 6 x 3), the
+# sampled rounds write flat and momentum back in one gossip_scatter, the
+# async tick fires once in 3 ticks (k_v + k_u = 3; one delay group), and
+# every serve call is one head_gather_matmul
+ANALYSIS_LAUNCHES = {
+    "simA.resident": {"gossip_gather": 3},
+    "simA.sampled": {"gossip_gather": 3, "gossip_scatter": 3},
+    "regimeB.resident": {"gossip_gather": 3},
+    "regimeB.sampled": {"gossip_gather": 3, "gossip_scatter": 3},
+    "async.tick": {"gossip_gather": 1},
+    "serve.cnn": {"head_gather_matmul": 3},
+}
+# profiler kernel names of each wrapper's launches
+KERNEL_EVENTS = {"gossip_gather": ("gossip_gather",),
+                 "gossip_scatter": ("gossip_scatter_kernel",),
+                 "head_gather_matmul": ("head_warp_kernel",
+                                        "head_tiled_kernel")}
+
+
+def _analysis_launches(ctx, inst) -> dict:
+    """The wrappers' launch counts over inst's N_ROUNDS rounds from a
+    fresh state, counts set to 0 just before and read just after, and
+    torch.profiler's kernel events of the same rounds (a window short of
+    the wrappers' count is run again, at most 3 times: the card's
+    profiler drops an event now and then)."""
+    torch = ctx["torch"]
+    from repro_torch.analysis.programs import N_ROUNDS
+    from repro_torch.kernels import ops
+
+    def rounds():
+        carry = None
+        for t in range(N_ROUNDS):
+            out = inst.fn(*inst.args(t, carry))
+            carry = inst.carry_of(out)
+
+    for attempt in range(3):
+        ops.reset_launch_counts()
+        _, events, wall = profiled(torch, rounds)
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        seen = {k: sum(e.count for e in events
+                       if any(n in e.key for n in names))
+                for k, names in KERNEL_EVENTS.items()}
+        seen = {k: v for k, v in seen.items() if v}
+        if seen == counts:
+            break
+        PROFILER_MISSES.append(f"analysis {inst.name}: profiler {seen}, "
+                               f"wrappers {counts} (window {attempt + 1})")
+    return {"wrappers": counts, "profiler": seen, "wall_ms": wall,
+            "windows": attempt + 1}
+
+
+MEMORY_ROUNDS = 6      # rounds of each Regime B program read for memory
+
+
+def _memory_rounds(torch, inst, rounds) -> list:
+    """After each of `rounds` rounds from a fresh state: the allocator's
+    allocated and requested bytes, its active blocks, and the blocks
+    handed out larger than asked (more than the 512-byte rounding) as
+    (block size, requested size)."""
+    out, carry = [], None
+    for t in range(rounds):
+        res = inst.fn(*inst.args(t, carry))
+        carry = inst.carry_of(res)
+        del res
+        torch.cuda.synchronize()
+        blocks = [(b["size"], b["requested_size"])
+                  for seg in torch.cuda.memory_snapshot()
+                  for b in seg["blocks"] if b["state"] == "active_allocated"]
+        out.append({"allocated": torch.cuda.memory_allocated(),
+                    "requested": torch.cuda.memory_stats()[
+                        "requested_bytes.all.current"],
+                    "blocks": len(blocks),
+                    "unsplit": sorted(b for b in blocks
+                                      if b[0] - b[1] >= 512)})
+    return out
+
+
+def _chained_graph(torch, programs):
+    """A round whose new state carries an autograd graph over every
+    earlier state (U * w with w requiring grad): autograd, not Python,
+    holds the old states, 3.4 MB more each round."""
+    dev = torch.device("cuda")
+    w = torch.ones((), device=dev, requires_grad=True)
+    shape = (programs.SIM_M, 1 << 16)
+
+    def fn(U, b):
+        return U * w + b, torch.sum(U.detach())
+
+    return programs.ProgramInstance(
+        name="chained-graph", fn=fn,
+        round_args=((torch.zeros(shape, device=dev),),) * programs.N_ROUNDS,
+        fresh_state=lambda: torch.ones(shape, device=dev), donate=(0,),
+        m=programs.SIM_M, device=dev)
+
+
+def phase_analysis(ctx):
+    """The program invariant analyzer on the card: every registered
+    program clean (sync debug mode "error" in its steady-state rounds),
+    every fixture tripping its own detector, each program's launches
+    against ANALYSIS_LAUNCHES, the allocator's requested bytes flat over
+    six rounds of each Regime B program, the donation check tripping on
+    storage only autograd holds, and the CLI (a subprocess for --all; main
+    in-process for the fixtures' exit code 1)."""
+    torch = ctx["torch"]
+    from repro_torch.analysis import __main__ as analysis_cli
+    from repro_torch.analysis import detectors, fixtures, programs
+    t0 = time.perf_counter()
+    rows, srows, viols = detectors.run_all(device="cuda")
+    check(not viols, f"analysis: violations on the card: {viols[:6]}")
+    check({r["program"] for r in rows} == set(programs.PROGRAMS)
+          and all(r["m"] == programs.SIM_M for r in rows),
+          f"analysis rows {rows}")
+    check(torch.cuda.get_sync_debug_mode() == 0,
+          "the sync debug mode was left on")
+    run_all_s = time.perf_counter() - t0
+    trips = {}
+    for name, (_, expected) in fixtures.FIXTURES.items():
+        _, fv = fixtures.run_fixture(name, device="cuda")
+        trips[name] = sorted({v.detector for v in fv})
+        check(set(expected) <= set(trips[name]),
+              f"fixture {name} tripped {trips[name]} on the card, want "
+              f"{expected}: {fv}")
+    hostsync = [v.message for v in fixtures.run_fixture(
+        "hostsync", device="cuda")[1]]
+    check(any("set_sync_debug_mode" in m for m in hostsync),
+          f"the hostsync fixture did not trip the sync debug mode: "
+          f"{hostsync}")
+    # the fault the detector found in the shipped rounds, put back for one
+    # check: the lr decay base made with torch.tensor every round
+    from repro_torch.core.dfedpgp import DFedPGP
+    fixed = DFedPGP._lr_scale
+
+    def per_round(self, rnd):
+        return torch.tensor(self.lr_decay, dtype=torch.float32,
+                            device=rnd.device) ** rnd.to(torch.float32)
+
+    DFedPGP._lr_scale = per_round
+    try:
+        before_fix = detectors.check_host_sync(
+            programs.build_sim_resident(device="cuda"))
+    finally:
+        DFedPGP._lr_scale = fixed
+    check(any("lift_fresh" in m for m in before_fix)
+          and any("set_sync_debug_mode" in m for m in before_fix),
+          f"the per-round lr upload was not found on the card: "
+          f"{before_fix}")
+    launches = {}
+    for name, builder in programs.PROGRAMS.items():
+        got = _analysis_launches(ctx, builder(device="cuda"))
+        want = ANALYSIS_LAUNCHES[name]
+        check(got["wrappers"] == want and got["profiler"] == want,
+              f"analysis {name}: launches {got}, want {want}")
+        launches[name] = got
+    ctx["analysis_launches"] = {
+        k: sum(got["wrappers"].get(k, 0) for got in launches.values())
+        for k in KERNEL_EVENTS}
+    memory = {name: _memory_rounds(torch, programs.PROGRAMS[name](
+        device="cuda"), MEMORY_ROUNDS)
+        for name in ("regimeB.resident", "regimeB.sampled")}
+    for name, recs in memory.items():
+        check(len({r["requested"] for r in recs[1:]}) == 1,
+              f"analysis {name}: the allocator's requested bytes move "
+              f"across rounds 1..{MEMORY_ROUNDS - 1}: {recs}")
+    chained = detectors.check_donation(_chained_graph(torch, programs))
+    check(any("requested bytes" in m for m in chained),
+          f"the donation check missed a graph chained across rounds "
+          f"(storage held by autograd, not Python): {chained}")
+    exits = {}
+    with contextlib.redirect_stdout(sys.stderr):
+        for name in fixtures.FIXTURES:
+            exits[name] = analysis_cli.main(["--fixture", name])
+    check(all(rc == 1 for rc in exits.values()),
+          f"--fixture exit codes {exits}, want 1 each")
+    src = Path(__file__).resolve().parent / "src"
+    t_cli = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "repro_torch.analysis",
+                          "--all"], capture_output=True, text=True,
+                         timeout=300, cwd=str(src.parent),
+                         env={**os.environ, "PYTHONPATH": str(src)})
+    cli_s = time.perf_counter() - t_cli
+    check(cli.returncode == 0 and "all invariants hold" in cli.stdout,
+          f"python -m repro_torch.analysis --all exited {cli.returncode}: "
+          f"{cli.stdout[-1500:]} {cli.stderr[-1500:]}")
+    emit("analysis", card=ctx["smi"], rows=rows, schedules=srows,
+         violations_found=[], before_fix_sim_resident=before_fix,
+         violations_repaired=[
+             "core/dfedpgp.py _lr_scale: torch.tensor(lr_decay) made every "
+             "round (aten.lift_fresh; a host-to-device copy on the card) "
+             "-> torch.full on the device",
+             "hetero/runtime.py _lr_scale: torch.tensor(round) per new "
+             "lr-table row -> torch.full on the device"],
+         fixtures=trips, fixture_exit_codes=exits, launches=launches,
+         memory=memory, chained_graph=chained,
+         launches_total=ctx["analysis_launches"],
+         cli_all={"rc": cli.returncode, "seconds": cli_s,
+                  "stdout_tail": cli.stdout[-400:]},
+         run_all_s=run_all_s, seconds=time.perf_counter() - t0)
+
+
 def phase_obs(ctx):
     """The observability spine at the paper's defaults (m 100, d_flat
     13,328, random topology with 10 neighbours): telemetry-on runs through
@@ -4121,20 +4337,18 @@ def _wide_times(torch, kernel, plain, library, bound_ms: float) -> dict:
             "bound_ms": bound_ms, "bound_by": "bytes"}
 
 
-def _regime_b_kernels(ctx) -> dict:
-    """gossip_gather at (4, 3, d 494,031,872) and gossip_scatter_many
-    with 2 rows and 2 f32 pairs at that width, each bitwise against its
-    plain version on the card, timed warm and cold (`_wide_times`) beside
-    its byte bound and its library call (torch.sparse.mm over the table
-    in CSR; index_copy_ per buffer)."""
+def _wide_gather(ctx, d: int, g) -> dict:
+    """gossip_gather at (4, 3, d) on a random table (2 neighbors + self)
+    and U drawn from the CUDA generator g,
+    bitwise against its plain version on the card, timed warm and cold
+    (`_wide_times`) beside its byte bound, the plain gather and
+    torch.sparse.mm over the table in CSR."""
     torch = ctx["torch"]
     from repro_torch.core import topology
-    from repro_torch.kernels import _build, ops
-    from repro_torch.kernels.gossip_scatter import plan as scatter_plan
+    from repro_torch.kernels import ops
     bw = ctx["peak_bw"]
-    m, d = 4, REGIME_B_D
+    m = 4
     torch.cuda.empty_cache()
-    g = torch.Generator(device="cuda").manual_seed(23)
     P = topology.get_schedule("random", m, 2, 0).at(0).to("cuda")
     k = P.idx.shape[1]
     U = torch.randn((m, d), generator=g, device="cuda")
@@ -4164,7 +4378,22 @@ def _regime_b_kernels(ctx) -> dict:
             P.idx, P.w, U, force="ref"), gather_lib, bytes_g / bw * 1e3),
         shape=[m, k, d], check="bitwise == ref",
         library="torch.sparse.mm (CSR)", bytes=bytes_g, plan=pl._asdict())}
-    del U
+    return out
+
+
+def _regime_b_kernels(ctx) -> dict:
+    """gossip_gather at (4, 3, d 494,031,872) (`_wide_gather`) and
+    gossip_scatter_many with 2 rows and 2 f32 pairs at that width, each
+    bitwise against its plain version on the card, timed warm and cold
+    (`_wide_times`) beside its byte bound and its library call
+    (index_copy_ per buffer for the scatter)."""
+    torch = ctx["torch"]
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.gossip_scatter import plan as scatter_plan
+    bw = ctx["peak_bw"]
+    m, d = 4, REGIME_B_D
+    g = torch.Generator(device="cuda").manual_seed(23)
+    out = _wide_gather(ctx, d, g)
     torch.cuda.empty_cache()
     n, pairs = 2, 2
     rows_s = torch.tensor([0, 2], dtype=torch.int32, device="cuda")
@@ -4930,7 +5159,9 @@ def _ssm_regime_b(ctx) -> dict:
     128, 2 neighbors): exactly one gossip_gather a round over the (4,
     160,350,800) buffer with 3 in-neighbors a row, finite losses, sum(mu)
     = 4, ms per round; then a profiled round of a Trainer (busy share; the
-    profile's wall time is the profiled round's own)."""
+    profile's wall time is the profiled round's own); then the gather at
+    that width alone (`_wide_gather`: bitwise its plain version; CUDA
+    events beside the plain gather and torch.sparse.mm in CSR)."""
     torch = ctx["torch"]
     run = _train_main(ctx, SSM_REGIME_B_ARGS + ["--rounds", "2"])
     check(_only(run["launches"], gossip_gather=2),
@@ -4950,6 +5181,11 @@ def _ssm_regime_b(ctx) -> dict:
     out["profile"] = _round_profile(ctx, prof_run, 1, cpu=False)
     out["gather_shape"] = [4, k, SSM_REGIME_B_D]
     del prof_run
+    torch.cuda.empty_cache()
+    # the gather at this width beside the plain gather and sparse.mm
+    out["gather_at_width"] = _wide_gather(
+        ctx, SSM_REGIME_B_D,
+        torch.Generator(device="cuda").manual_seed(31))["gossip_gather"]
     torch.cuda.empty_cache()
     return out
 
@@ -4972,7 +5208,8 @@ def phase_ssm(ctx):
         "gossip_gather": regime_b["launches"]["gossip_gather"]
         + rounds["launches"]["gossip_gather"]}
     ctx["ssm_regime_b"] = {"gossip_gather_shape": regime_b["gather_shape"],
-                           "launches": regime_b["launches"]}
+                           "launches": regime_b["launches"],
+                           "gossip_gather": regime_b["gather_at_width"]}
     emit("ssm", card=ctx["smi"], arch=arch, full_width=full,
          regime_b_full_width=regime_b, parity=parity, regime_b=rounds,
          launches=ctx["ssm_launches"])
@@ -5089,6 +5326,7 @@ def phase_timings(ctx):
         "async_codec_launches":
             ctx["async_codec_launches"]["gossip_gather"],
         "obs_launches": ctx["obs_launches"]["gossip_gather"],
+        "analysis_launches": ctx["analysis_launches"]["gossip_gather"],
         "checkpoint_launches": ctx["checkpoint_launches"]["gossip_gather"],
         "regime_b_launches": ctx["regime_b_launches"]["gossip_gather"],
         "regime_b": ctx["regime_b_kernels"]["gossip_gather"],
@@ -5153,6 +5391,7 @@ def phase_timings(ctx):
         "replaces": "src/repro/kernels/head_gather.py:126",
         "launches": ctx["serve_launches"]["head_gather_matmul"],
         "obs_launches": ctx["obs_launches"]["head_gather_matmul"],
+        "analysis_launches": ctx["analysis_launches"]["head_gather_matmul"],
         "checkpoint_launches":
             ctx["checkpoint_launches"]["head_gather_matmul"],
         "dense_launches": ctx["dense_launches"]["head_gather_matmul"],
@@ -5243,6 +5482,7 @@ def phase_timings(ctx):
         "shape": [100, 25, 13328], "dtype": "float32",
         "baseline_launches": ctx["baseline_launches"]["gossip_scatter"],
         "obs_launches": ctx["obs_launches"]["gossip_scatter"],
+        "analysis_launches": ctx["analysis_launches"]["gossip_scatter"],
         "regime_b_launches": ctx["regime_b_launches"]["gossip_scatter"],
         "regime_b": ctx["regime_b_kernels"]["gossip_scatter"]})
 
@@ -5595,7 +5835,7 @@ def main(argv=None) -> int:
     wanted = set(only) | {"device"}
     needs = {"serve": {"train"}, "compress": {"train"},
              "timings": {"kernels", "train", "sampled", "kernel_mix",
-                         "compress", "baselines", "async", "obs",
+                         "compress", "baselines", "async", "analysis", "obs",
                          "checkpoint", "serve", "lm", "dense",
                          "regime_b", "moe", "vlm", "ssm", "encdec"}}
     for phase in only:
@@ -5607,6 +5847,7 @@ def main(argv=None) -> int:
            "parity": phase_parity, "sampled": phase_sampled,
            "kernel_mix": phase_kernel_mix, "compress": phase_compress,
            "baselines": phase_baselines, "async": phase_async,
+           "analysis": phase_analysis,
            "obs": phase_obs, "checkpoint": phase_checkpoint,
            "serve": phase_serve, "lm": phase_lm, "dense": phase_dense,
            "regime_b": phase_regime_b, "moe": phase_moe, "vlm": phase_vlm,

@@ -130,8 +130,9 @@ class DFedPGP:
                              f"{gossip.MODES}")
 
     def _lr_scale(self, rnd: torch.Tensor) -> torch.Tensor:
-        return torch.tensor(self.lr_decay, dtype=torch.float32,
-                            device=rnd.device) ** rnd.to(torch.float32)
+        # the base is filled on the device, not uploaded from the host
+        return torch.full((), self.lr_decay, dtype=torch.float32,
+                          device=rnd.device) ** rnd.to(torch.float32)
 
     # ------------------------------------------------------------------
     # tree form

@@ -7,9 +7,12 @@ baselines, the dense-degree ceiling, the `TopologySchedule` registry,
 for partial participation the `induced_subgraph` of the round's active
 clients, for Regime B the schedule's `permutation_offsets`, and for the
 async runtime the lazy push form `to_push_sparse`
-with its `staleness_self_weight`.  Pull form: every row is
-row-stochastic (the undirected tables are doubly stochastic); the push
-form is column-stochastic.
+with its `staleness_self_weight`, and the diagnostics of the program
+invariant analyzer and the tests (`from_dense`, `densify`,
+`to_column_stochastic`, `is_strongly_connected`,
+`union_strongly_connected`).  Pull form: every row is row-stochastic (the
+undirected tables are doubly stochastic); the push form is
+column-stochastic.
 
 The exponential, ring and full tables are deterministic and equal the
 reference's table for table.  `random` and `undirected` draw from a
@@ -78,6 +81,66 @@ class SparseTopology(NamedTuple):
         (m, ...), through `gossip.mix_any` (densified when k >= m)."""
         from . import gossip  # gossip imports this module
         return gossip.mix_any(self, torch.as_tensor(x))
+
+
+def from_dense(P, k: int | None = None) -> SparseTopology:
+    """Host-side conversion of a dense row-stochastic (m, m) matrix (numpy
+    or tensor) -> CPU tables.  k defaults to the largest row nnz; rows with
+    fewer edges are padded with (self, 0).  Each row's edges are ordered
+    by decreasing weight, ties by column (a stable argsort, the
+    reference's order).  Refuses above MAX_DENSE_M and for k < the
+    largest row nnz."""
+    Pn = np.asarray(torch.as_tensor(P).cpu(), np.float32)
+    m = Pn.shape[0]
+    _check_dense_degree(m, "from_dense (dense host-side conversion)")
+    nnz = int((Pn > 0).sum(1).max()) if m else 0
+    k = max(nnz, 1) if k is None else k
+    if nnz > k:
+        raise ValueError(f"k={k} < max row nnz {nnz}")
+    order = np.argsort(-Pn, axis=1, kind="stable")[:, :k]
+    w = np.take_along_axis(Pn, order, axis=1)
+    idx = np.where(w > 0, order, np.arange(m)[:, None])
+    return SparseTopology(torch.from_numpy(idx.astype(np.int32)),
+                          torch.from_numpy(w.astype(np.float32)))
+
+
+def densify(P) -> torch.Tensor:
+    """Either representation -> the dense (m, m) matrix as a tensor."""
+    return P.dense() if isinstance(P, SparseTopology) else torch.as_tensor(P)
+
+
+def to_column_stochastic(P_row) -> torch.Tensor:
+    """The push (column-stochastic) matrix over the transposed edge set of
+    a pull pattern: column j spreads uniformly over the nonzeros of row j
+    of P_row.  A node with no edge (a zero column, possible for asymmetric patterns
+    without self-loops) keeps its mass on a self-loop instead of a 0/0
+    NaN column.  f32, on P_row's device."""
+    P_row = densify(P_row)
+    m = P_row.shape[0]
+    A = (P_row > 0).to(torch.float32).T                 # out-edges of each col
+    col = torch.sum(A, dim=0, keepdim=True)
+    A = A + torch.eye(m, dtype=A.dtype, device=A.device) * (col == 0)
+    return A / torch.sum(A, dim=0, keepdim=True)
+
+
+def is_strongly_connected(P) -> bool:
+    """Is the directed graph of P's positive entries strongly connected?
+    (reachability by repeated squaring, on the host)"""
+    A = np.asarray(densify(P).cpu()) > 0
+    m = A.shape[0]
+    reach = np.eye(m, dtype=bool) | A
+    for _ in range(int(np.ceil(np.log2(max(m, 2))))):
+        reach = reach | (reach @ reach)
+    return bool(reach.all())
+
+
+def union_strongly_connected(Ps) -> bool:
+    """Assumption 1 (B-bounded connectivity): is the union graph of a
+    window of mixing patterns strongly connected?"""
+    U = np.zeros_like(np.asarray(densify(Ps[0]).cpu()))
+    for P in Ps:
+        U = U + np.asarray(densify(P).cpu())
+    return is_strongly_connected(U)
 
 
 # ---------------------------------------------------------------------------
@@ -328,6 +391,30 @@ class TopologySchedule:
         if self.kind == "exponential" and self.m & (self.m - 1):
             raise ValueError("exponential graph wants power-of-two m")
 
+    # -- constructors (the reference's classmethods) ----------------------
+    @classmethod
+    def random(cls, m: int, n: int, seed: int = 0) -> "TopologySchedule":
+        return cls("random", m, n, seed)
+
+    @classmethod
+    def exponential(cls, m: int) -> "TopologySchedule":
+        # the reference's assertion, raised so that it holds under -O too
+        if m & (m - 1):
+            raise AssertionError("exponential graph wants power-of-two m")
+        return cls("exponential", m)
+
+    @classmethod
+    def ring(cls, m: int) -> "TopologySchedule":
+        return cls("ring", m)
+
+    @classmethod
+    def full(cls, m: int) -> "TopologySchedule":
+        return cls("full", m)
+
+    @classmethod
+    def undirected(cls, m: int, n: int, seed: int = 0) -> "TopologySchedule":
+        return cls("undirected", m, n, seed)
+
     @property
     def period(self) -> int:
         """Rounds until the schedule repeats: the B of the exponential
@@ -389,7 +476,11 @@ def get_schedule(kind: str, m: int, n: int = 0,
                  seed: int = 0) -> TopologySchedule:
     """kind string -> the run's one TopologySchedule.  The degree/seed
     knobs parameterize only the random kinds; static kinds zero them so two
-    resolvers handed the same (kind, m) produce equal schedules."""
+    resolvers handed the same (kind, m) produce equal schedules.  An
+    unknown kind raises ValueError naming the known ones."""
+    if kind not in TopologySchedule.KINDS:
+        raise ValueError(
+            f"schedule kind {kind!r}; known: {TopologySchedule.KINDS}")
     if kind in ("random", "undirected"):
         return TopologySchedule(kind, m, n, seed)
     return TopologySchedule(kind, m, 0, 0)

@@ -41,6 +41,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .. import tree
+from ..analysis.scope import scope
 from ..core import gossip, pushsum
 from ..core.dfedpgp import CODEC_STREAM, DFedPGP
 from ..core.topology import SparseTopology
@@ -136,8 +137,9 @@ class AsyncRuntime:
         need = t // self.k_total + 1
         dev = local_round.device
         while len(self._lr_table) < need:
-            r = torch.tensor(len(self._lr_table), dtype=torch.int32,
-                             device=dev)
+            # the round number is filled on the device, not uploaded
+            r = torch.full((), len(self._lr_table), dtype=torch.int32,
+                           device=dev)
             self._lr_table.append(self.algo._lr_scale(r))
         table = torch.stack(self._lr_table[:need])
         return table[local_round.long()]
@@ -164,12 +166,15 @@ class AsyncRuntime:
         m = state.mu.shape[0]
         t = state.clock.t
 
-        # 1. deliver the mail whose time has come
-        mail = mbox.flush(state.mail, t)
+        # 1. deliver the mail whose time has come (the ring slot is a
+        # function of the host tick index)
+        with scope("async.host_clock"):
+            mail = mbox.flush(state.mail, t)
 
         # 2. wake: time arrived, available, and owns (or is owed, the owed
         # part already delivered) positive push-sum mass
-        time_ok = vclock.active_mask(state.clock, prof)
+        with scope("async.host_clock"):
+            time_ok = vclock.active_mask(state.clock, prof)
         if participation is not None:
             time_ok = time_ok & participation
         active = time_ok & ((state.mu + mail.inbox_mu) > 0.0)
@@ -217,14 +222,18 @@ class AsyncRuntime:
         if lossy:
             P = self._gamma_blend(P)
         # one device sync: a tick where nobody fires launches no kernel
-        if bool(fired.any()):
-            if lossy:
-                mail, ef, ref = self._fire_codec(
-                    mail, P, flat, mu, fired, edge_delay, t, groups, ef,
-                    ref)
-            else:
-                mail = mbox.push(mail, P, flat, mu, fired, edge_delay, t,
-                                 mode=self._mix_mode(), n_groups=groups)
+        with scope("async.fire_gate"):
+            any_fired = bool(fired.any())
+        if any_fired:
+            with scope("async.fire"):
+                if lossy:
+                    mail, ef, ref = self._fire_codec(
+                        mail, P, flat, mu, fired, edge_delay, t, groups, ef,
+                        ref)
+                else:
+                    mail = mbox.push(mail, P, flat, mu, fired, edge_delay,
+                                     t, mode=self._mix_mode(),
+                                     n_groups=groups)
         mu_at_fire = mu       # pre-zeroing mu: the mass each fire pushed
         flat = torch.where(fired[:, None], 0.0, flat).to(state.flat.dtype)
         mu = torch.where(fired, 0.0, mu)
@@ -235,6 +244,8 @@ class AsyncRuntime:
         n_active = active.sum()
         # payload-carrying directed non-self edges: the wire-bytes unit
         nonself = ~self_edge & (P.w > 0)
+        with scope("async.host_clock"):
+            vtime = torch.tensor(float(clk.t), dtype=torch.float32)
         metrics = {
             "loss": torch.where(active, loss, 0.0).sum()
             / torch.clamp(n_active, min=1).to(loss.dtype),
@@ -242,7 +253,7 @@ class AsyncRuntime:
             "n_fired": fired.sum(),
             "wire_edges": (fired[idx] & nonself).sum(),
             "mass_total": pushsum.total_mass(mu, mbox.mass(mail)),
-            "vtime": torch.tensor(float(clk.t), dtype=torch.float32),
+            "vtime": vtime,
         }
         if algo.telemetry:
             # in-flight-aware de-bias (eval_params' accounting): a fired

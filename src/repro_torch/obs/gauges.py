@@ -16,6 +16,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..analysis.scope import scope
 from ..compress.codecs import MU_BYTES
 from ..core import pushsum
 from ..core.topology import SparseTopology
@@ -112,7 +113,14 @@ def to_host(values: dict) -> dict:
     """{name: 0-d tensor or Python scalar} -> {name: Python scalar}, with
     ONE device sync: the card's tensors are stacked in f64 (exact for f32
     and int32 values) and copied over once; integer and bool tensors come
-    back as int and bool.  Entries that are not scalars are dropped."""
+    back as int and bool.  Entries that are not scalars are dropped.
+    Runs inside the analyzer's scope "obs.to_host", the reviewed
+    telemetry boundary of its host-sync check."""
+    with scope("obs.to_host"):
+        return _to_host(values)
+
+
+def _to_host(values: dict) -> dict:
     out, on_card = {}, []
     for k, v in values.items():
         if isinstance(v, torch.Tensor):

@@ -124,6 +124,18 @@ line is never printed):
                 against their plain versions, timed warm and cold;
                 reduced() card vs CPU (3 resident, 2 sampled rounds); one
                 full-width prefill step (24 x 4 flash_attention);
+16b. ranks    — Regime B across ranks on one card: a one-rank NCCL group
+                (launch/ranks.py, a file rendezvous) holding the 4 clients
+                of qwen2-0.5b at full width: 3 resident rounds with the
+                permutation mix (0 gossip_gather) and 3 with the
+                cross-rank matrix mix (3 gossip_gather), each bitwise the
+                one-process run under deterministic algorithms, each mix
+                alone bitwise the one-process mix, peak memory; `python
+                -m repro_torch.launch.dryrun --all --mesh single
+                --no-flops` in a subprocess (exit 0);
+16c. remat    — a full-width round with remat on (the config's default)
+                and off: the states bitwise (else the gap at the Regime B
+                tolerance), peak memory and ms per round of both;
 17. moe       — the moe family: the flash kernel at deepseek-moe-16b's
                 prefill (1, 8,192, 16, 16, 128) against its plain version,
                 timed beside SDPA and its bound; deepseek-moe-16b at full
@@ -195,8 +207,8 @@ from pathlib import Path
 
 PHASES = ("device", "build", "kernels", "train", "parity", "sampled",
           "kernel_mix", "compress", "baselines", "async", "analysis", "obs",
-          "checkpoint", "serve", "lm", "dense", "regime_b", "moe", "vlm",
-          "ssm", "encdec", "timings")
+          "checkpoint", "serve", "lm", "dense", "regime_b", "ranks", "remat",
+          "moe", "vlm", "ssm", "encdec", "timings")
 # the paper's comparison rows (the port's simulator.ALGOS but dfedpgp)
 BASELINES = ("local", "fedavg", "fedper", "fedrep", "fedbabu", "ditto",
              "dfedavgm", "dfedavgm-p", "osgp", "dispfl")
@@ -4430,14 +4442,15 @@ def _regime_b_kernels(ctx) -> dict:
     return out
 
 
-def _to_card(torch, obj):
-    """A copy of tensors, dicts and NamedTuples of them on the card."""
+def _to_card(torch, obj, device="cuda"):
+    """A copy of tensors, dicts and NamedTuples of them on the card (or on
+    `device`)."""
     if isinstance(obj, torch.Tensor):
-        return obj.to("cuda", copy=True)
+        return obj.detach().to(device, copy=True)
     if isinstance(obj, dict):
-        return {k: _to_card(torch, v) for k, v in obj.items()}
+        return {k: _to_card(torch, v, device) for k, v in obj.items()}
     if hasattr(obj, "_fields"):
-        return type(obj)(*(_to_card(torch, v) for v in obj))
+        return type(obj)(*(_to_card(torch, v, device) for v in obj))
     return obj
 
 
@@ -4581,6 +4594,228 @@ def phase_regime_b(ctx):
          batch=2, seq=128, d_flat=REGIME_B_D, full_width=full,
          kernels=kernels, parity=parity, prefill_step=prefill,
          launches=ctx["regime_b_launches"])
+
+
+# ---------------------------------------------------------------------------
+# Regime B across ranks (launch/ranks.py) and remat (models/remat.py)
+# ---------------------------------------------------------------------------
+RANKS_ROUNDS = 3
+DRYRUN_TIMEOUT_S = 600
+
+
+@contextlib.contextmanager
+def _deterministic(torch):
+    """cuDNN's and torch's deterministic algorithms for the span (the
+    embedding's gradient accumulates by a sort, not by atomics), restored
+    after: two runs compared bit for bit must each repeat themselves."""
+    import warnings
+    prev = torch.are_deterministic_algorithms_enabled()
+    with _cudnn_deterministic(torch), warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield
+        finally:
+            torch.use_deterministic_algorithms(prev)
+
+
+def _trainer_rounds(ctx, argv, rounds: int, mesh=None) -> dict:
+    """`rounds` rounds of a Trainer on the card (every client in this
+    process, or this rank's block of `mesh`): launches (counted from 0
+    just before the rounds, read just after), ms per round (each ending
+    in a device sync), losses reduced over the ranks, peak memory, and a
+    CPU copy of the final state."""
+    torch = ctx["torch"]
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ap = train.build_parser()
+    run = train.Trainer(ap.parse_args(argv), ap, mesh)
+    ops.reset_launch_counts()
+    ms, losses = [], []
+    for r in range(rounds):
+        b = run.batches(r)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics, _, _ = run.step(r, b)
+        metrics = run.reduce_metrics(metrics)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append([float(metrics["loss_u"]), float(metrics["loss_v"])])
+    counts = ops.launch_counts()
+    out = {"launches": counts, "round_ms": ms, "loss": losses,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "remat": run.cfg.remat,
+           "state": _to_card(torch, run.state, "cpu")}
+    del run
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mix_bitwise(ctx, mesh, state, gossip: str) -> dict:
+    """The cross-rank mix of `gossip` against the one-process mix on the
+    same (m, d) buffer and round-0 table, bit for bit: the matrix mix
+    against `gossip.mix_flat`, the permutation mix against `mix_flat` over
+    the exponential schedule's table (weights 1/2, 1/2)."""
+    torch = ctx["torch"]
+    from repro_torch.core import dfedpgp, gossip as gossip_mod, topology
+    from repro_torch.launch import mesh as mesh_mod, steps
+    m = state.flat.shape[0]
+    layout = mesh_mod.one_device_layout(m, 2)
+    flat = state.flat.to("cuda")
+    mu = state.mu.to("cuda")
+    if gossip == "ppermute":
+        P = topology.TopologySchedule.exponential(m).at(0)
+        mix = steps.make_ppermute_mix_flat(mesh, layout, flat.shape[1])
+    else:
+        P = topology.get_schedule("random", m, 2, 0).at(0)
+        mix = steps.make_matrix_mix_flat(mesh, layout)
+    got_f, got_mu = mix(flat, mu, dfedpgp.round_counter(0, "cuda"), P)
+    want_f, want_mu = gossip_mod.mix_flat(P.to("cuda"), flat, mu)
+    ok = torch.equal(got_f, want_f) and torch.equal(got_mu, want_mu)
+    err = max_abs(got_f, want_f)
+    del flat, got_f, want_f
+    torch.cuda.empty_cache()
+    check(ok, f"{gossip} cross-rank mix differs from the one-process mix "
+              f"by {err}")
+    return {"bitwise": True, "table": P.idx.tolist()}
+
+
+def phase_ranks(ctx):
+    """Regime B across ranks on one card: a one-rank NCCL group
+    (launch/ranks.py, a file rendezvous), its client mesh of the 4
+    clients, and 3 resident rounds at qwen2-0.5b's full width with the
+    permutation mix (gossip="ppermute") and with the cross-rank matrix
+    mix, each bitwise against the one-process run (the exponential
+    schedule's matrix mix for ppermute) from the same init, batches and
+    tables; gossip_gather launches 0 and 3; each cross-rank mix alone
+    bitwise the one-process mix on the same buffer; peak memory; the dry
+    run `--all --mesh single` as a subprocess (exit 0)."""
+    torch = ctx["torch"]
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_mod, ranks
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    src = str(Path(__file__).resolve().parent / "src")
+    env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    dry = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--mesh", "single", "--no-flops", "--out",
+         os.path.join(tmp, "dryrun_out")],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    t_dry = time.perf_counter()
+    try:
+        ranks.init(0, 1, os.path.join(tmp, "rendezvous"), "cuda")
+        one = torch.ones(1, device="cuda")
+        dist.all_reduce(one)
+        check(dist.get_backend() == "nccl" and float(one) == 1.0,
+              f"NCCL did not initialise: backend {dist.get_backend()}")
+        mesh = mesh_mod.make_host_mesh(4)
+        base = REGIME_B_ARGS + ["--resident"]
+        out = {"backend": dist.get_backend(), "world": mesh.world,
+               "clients_per_rank": mesh.n_local}
+        with _deterministic(torch):
+            for gossip, topo, want in (("ppermute", "exponential", 0),
+                                       ("matrix", "random", 3)):
+                argv = base + ["--topology", topo]
+                single = _trainer_rounds(ctx, argv, RANKS_ROUNDS)
+                across = _trainer_rounds(ctx, argv + ["--gossip", gossip],
+                                         RANKS_ROUNDS, mesh)
+                leaves = _hold_bitwise(torch, across["state"],
+                                       single["state"],
+                                       f"{gossip} rounds across ranks")
+                check(_only(across["launches"], gossip_gather=want),
+                      f"{gossip} rounds across ranks launched "
+                      f"{across['launches']}; want {want} gossip_gather")
+                check(across["peak_bytes"] < 80e9,
+                      f"peak {across['peak_bytes']} B")
+                mix = _mix_bitwise(ctx, mesh, single["state"], gossip)
+                out[gossip] = {
+                    "rounds": RANKS_ROUNDS, "bitwise_leaves": leaves,
+                    "launches": across["launches"],
+                    "one_process_launches": single["launches"],
+                    "round_ms": across["round_ms"],
+                    "one_process_round_ms": single["round_ms"],
+                    "loss": across["loss"],
+                    "peak_bytes": across["peak_bytes"],
+                    "one_process_peak_bytes": single["peak_bytes"],
+                    "mix_alone": mix}
+                del single, across
+    finally:
+        ranks.shutdown()
+    try:
+        log, _ = dry.communicate(timeout=DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        dry.kill()
+        dry.communicate()
+        raise SmokeFailure(f"dryrun --all did not end in "
+                           f"{DRYRUN_TIMEOUT_S} s")
+    written = sorted(os.listdir(os.path.join(tmp, "dryrun_out"))) \
+        if os.path.isdir(os.path.join(tmp, "dryrun_out")) else []
+    check(dry.returncode == 0, f"dryrun --all exited {dry.returncode}: "
+                               f"{log[-800:]}")
+    out["dryrun"] = {"rc": dry.returncode, "records": len(written),
+                     "seconds": time.perf_counter() - t_dry,
+                     "tail": log.strip().splitlines()[-3:]}
+    import shutil
+    shutil.rmtree(tmp, ignore_errors=True)
+    ctx["ranks_launches"] = {
+        "gossip_gather": sum(out[g]["launches"]["gossip_gather"]
+                             for g in ("ppermute", "matrix"))}
+    emit("ranks", card=ctx["smi"], arch="qwen2-0.5b", clients=4, batch=2,
+         seq=128, d_flat=REGIME_B_D, deterministic_algorithms=True, **out)
+
+
+def _host_gap(torch, a, b, chunk: int = 1 << 27) -> float:
+    """max |a - b| over two CPU tensors, checked against the Regime B
+    tolerance, `chunk` elements at a time on the card (a full-width leaf
+    is 7.9 GB: host temporaries of whole leaves do not fit beside the two
+    states in the host's memory)."""
+    if torch.equal(a, b):
+        return 0.0
+    fa, fb = a.reshape(-1), b.reshape(-1)
+    worst = 0.0
+    for i in range(0, fa.numel(), chunk):
+        x, y = (t[i:i + chunk].to("cuda", torch.float64) for t in (fa, fb))
+        worst = max(worst, float((x - y).abs().max()))
+        check(torch.allclose(x, y, **REGIME_B_TOL),
+              f"remat: a leaf differs by {worst}")
+        del x, y
+    return worst
+
+
+def phase_remat(ctx):
+    """One full-width qwen2-0.5b resident round with remat on (the
+    config's default, each block through models/remat.py) and off
+    (--no-remat), from the same init, batches and table: the states
+    bitwise, or the largest gap reported and held at the Regime B
+    tolerance; peak memory and ms per round of both (a second round timed
+    warm)."""
+    torch = ctx["torch"]
+    runs = {}
+    with _deterministic(torch):
+        for name, extra in (("remat", []), ("no_remat", ["--no-remat"])):
+            runs[name] = _trainer_rounds(ctx, REGIME_B_ARGS
+                                         + ["--resident"] + extra, 2)
+    check(runs["remat"]["remat"] and not runs["no_remat"]["remat"],
+          "the remat run's config must rematerialize, --no-remat's not")
+    a, b = (dict(_state_leaves(runs[k]["state"])) for k in runs)
+    check(a.keys() == b.keys(), "remat states' leaves differ")
+    gaps = {k: _host_gap(torch, a[k], b[k]) for k in a
+            if hasattr(a[k], "dtype")}
+    bitwise = all(g == 0.0 for g in gaps.values())
+    out = {k: {"peak_bytes": runs[k]["peak_bytes"],
+               "round_ms": runs[k]["round_ms"],
+               "launches": runs[k]["launches"], "loss": runs[k]["loss"]}
+           for k in runs}
+    saved = runs["no_remat"]["peak_bytes"] - runs["remat"]["peak_bytes"]
+    emit("remat", card=ctx["smi"], arch="qwen2-0.5b", clients=4, batch=2,
+         seq=128, rounds=2, bitwise=bitwise,
+         max_abs_gap=max(gaps.values()), peak_saved_bytes=saved,
+         tolerance=REGIME_B_TOL, **out)
 
 
 # ---------------------------------------------------------------------------
@@ -5329,6 +5564,7 @@ def phase_timings(ctx):
         "analysis_launches": ctx["analysis_launches"]["gossip_gather"],
         "checkpoint_launches": ctx["checkpoint_launches"]["gossip_gather"],
         "regime_b_launches": ctx["regime_b_launches"]["gossip_gather"],
+        "ranks_launches": ctx["ranks_launches"]["gossip_gather"],
         "regime_b": ctx["regime_b_kernels"]["gossip_gather"],
         "moe_launches": ctx["moe_launches"]["gossip_gather"],
         "vlm_launches": ctx["vlm_launches"]["gossip_gather"],
@@ -5837,7 +6073,8 @@ def main(argv=None) -> int:
              "timings": {"kernels", "train", "sampled", "kernel_mix",
                          "compress", "baselines", "async", "analysis", "obs",
                          "checkpoint", "serve", "lm", "dense",
-                         "regime_b", "moe", "vlm", "ssm", "encdec"}}
+                         "regime_b", "ranks", "moe", "vlm", "ssm",
+                         "encdec"}}
     for phase in only:
         missing = needs.get(phase, set()) - wanted
         if missing:
@@ -5850,7 +6087,8 @@ def main(argv=None) -> int:
            "analysis": phase_analysis,
            "obs": phase_obs, "checkpoint": phase_checkpoint,
            "serve": phase_serve, "lm": phase_lm, "dense": phase_dense,
-           "regime_b": phase_regime_b, "moe": phase_moe, "vlm": phase_vlm,
+           "regime_b": phase_regime_b, "ranks": phase_ranks,
+           "remat": phase_remat, "moe": phase_moe, "vlm": phase_vlm,
            "ssm": phase_ssm, "encdec": phase_encdec,
            "timings": phase_timings}
     t0 = time.perf_counter()

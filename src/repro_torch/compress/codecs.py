@@ -25,7 +25,8 @@ dense decode.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, NamedTuple, Optional, Union
+from typing import (Callable, Dict, NamedTuple, Optional, Protocol, Union,
+                    runtime_checkable)
 
 import torch
 
@@ -45,6 +46,25 @@ class Payload(NamedTuple):
     values: torch.Tensor
     indices: Optional[torch.Tensor] = None
     scale: Optional[torch.Tensor] = None
+
+
+@runtime_checkable
+class Codec(Protocol):
+    """The wire-codec protocol (duck-typed; the dataclasses below).  The
+    integration points also read `draws` (whether `encode` reads its key)
+    and `seed` (what its round generators fold the round into)."""
+    exact: bool
+    draws: bool
+    seed: int
+
+    def encode(self, rows: torch.Tensor, key: Key = None) -> Payload: ...
+
+    def decode(self, payload: Payload, d: int) -> torch.Tensor: ...
+
+    def residual(self, rows: torch.Tensor,
+                 payload: Payload) -> torch.Tensor: ...
+
+    def row_bytes(self, d: int) -> int: ...
 
 
 MU_BYTES = 4          # the push-sum weight rides every payload, f32

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from .core import baselines
-from .core.dfedpgp import DFedPGPState, FlatDFedPGPState
+from .core.dfedpgp import DFedPGPState, FlatDFedPGPState, round_counter
 from .hetero.profiles import ClientProfile
 from .optim import SGDState
 from .tree import from_paths
@@ -65,8 +65,7 @@ def flat_state_from_reference(*, flat, personal, mu, mom_u, mom_v, round,
         mu=_tensor(mu, device).to(torch.float32),
         opt_u=SGDState(_tensor(mom_u, device)),
         opt_v=SGDState(params_from_reference(mom_v, device)),
-        round=torch.tensor(int(np.asarray(round)), dtype=torch.int32,
-                           device=device),
+        round=round_counter(int(np.asarray(round)), device),
         ef=None if ef is None else _tensor(ef, device),
         ref=None if ref is None else _tensor(ref, device))
 

@@ -35,6 +35,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 from torch.func import grad_and_value, vmap
+from torch.utils.weak import WeakTensorKeyDictionary
 
 from .. import compress, tree
 from ..device import resolve_device, seeded_generator
@@ -80,6 +81,38 @@ class FlatDFedPGPState(NamedTuple):
 
 # stream of `device.seeded_generator` the codec draws come from
 CODEC_STREAM = 3
+
+# The round counter's value on the host, kept beside the state's 0-d
+# device counter (keyed by that tensor, as the async tick keeps its host
+# clock): a codec's draws and a permutation mix's offset read it without
+# reading the device.  The rounds register each new counter; a counter
+# made elsewhere (a restored or converted state) is read once.
+_HOST_ROUNDS = WeakTensorKeyDictionary()
+
+
+def host_round(rnd: torch.Tensor) -> int:
+    """The host value of a state's round counter."""
+    t = _HOST_ROUNDS.get(rnd)
+    if t is None:
+        t = _HOST_ROUNDS[rnd] = int(rnd)
+    return t
+
+
+def round_counter(t: int, device) -> torch.Tensor:
+    """A 0-d int32 round counter holding `t` on `device`, its host value
+    registered."""
+    rnd = torch.full((), int(t), dtype=torch.int32, device=device)
+    _HOST_ROUNDS[rnd] = int(t)
+    return rnd
+
+
+def _next_round(rnd: torch.Tensor) -> torch.Tensor:
+    """rnd + 1, its host value registered when rnd's is known."""
+    nxt = rnd + 1
+    t = _HOST_ROUNDS.get(rnd)
+    if t is not None:
+        _HOST_ROUNDS[nxt] = t + 1
+    return nxt
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,7 +190,7 @@ class DFedPGP:
             mu=torch.ones((m,), dtype=torch.float32, device=dev),
             opt_u=part_momentum(True),
             opt_v=part_momentum(False),
-            round=torch.zeros((), dtype=torch.int32, device=dev))
+            round=round_counter(0, dev))
 
     def local_update(self, params: dict, mu_i, opt_u: SGDState,
                      opt_v: SGDState, batches_v: dict, batches_u: dict,
@@ -248,7 +281,8 @@ class DFedPGP:
             params, mu = gossip.gossip_mix(
                 params, state.mu, P, self.mask, mode=self.gossip,
                 wire_dtype=self.gossip_dtype)
-        new_state = DFedPGPState(params, mu, opt_u, opt_v, state.round + 1)
+        new_state = DFedPGPState(params, mu, opt_u, opt_v,
+                                 _next_round(state.round))
         metrics = {"loss_v": loss_v.mean(), "loss_u": loss_u.mean(),
                    "mu_min": mu.min(), "mu_max": mu.max()}
         return new_state, metrics
@@ -285,7 +319,7 @@ class DFedPGP:
             mu=torch.ones((m,), dtype=torch.float32, device=dev),
             opt_u=SGDState(torch.zeros_like(fcs.flat)),
             opt_v=SGDState(tree.tree_map(torch.zeros_like, fcs.personal)),
-            round=torch.zeros((), dtype=torch.int32, device=dev),
+            round=round_counter(0, dev),
             ef=compress.init_ef(self.codec, fcs.flat),
             ref=compress.init_ref(self.codec, fcs.flat),
         ), layout
@@ -339,11 +373,12 @@ class DFedPGP:
         """The codec crossing of a resident round -> (flat, mu, ef, ref).
         A randomized codec draws from a generator on the buffer's device
         seeded by (codec.seed, round), the port's fold_in of the round
-        into the codec's key."""
+        into the codec's key; the round is the counter's host value
+        (`host_round`), so the round reads nothing from the device."""
         key = None
         if self.codec.draws:
-            key = seeded_generator(self.codec.seed, CODEC_STREAM, int(rnd),
-                                   flat.device)
+            key = seeded_generator(self.codec.seed, CODEC_STREAM,
+                                   host_round(rnd), flat.device)
         return gossip.mix_flat(P, flat, mu, mode=self.gossip,
                                codec=self.codec, ef=ef, ref=ref, key=key,
                                codec_gamma=self._gamma_value(flat, ef))
@@ -514,7 +549,7 @@ class DFedPGP:
             flat, mu = gossip.mix_flat(P, flat, state.mu, mode=self.gossip,
                                        wire_dtype=self.gossip_dtype)
         new_state = FlatDFedPGPState(flat, personal, mu, opt_u, opt_v,
-                                     state.round + 1, ef, ref)
+                                     _next_round(state.round), ef, ref)
         metrics = {"loss_v": loss_v.mean(), "loss_u": loss_u.mean(),
                    "mu_min": mu.min(), "mu_max": mu.max()}
         if self.telemetry:
@@ -625,7 +660,7 @@ class DFedPGP:
         opt_v = SGDState(tree.tree_map(put, state.opt_v.momentum,
                                        opt_v_a.momentum))
         new_state = FlatDFedPGPState(flat, personal, mu, opt_u, opt_v,
-                                     state.round + 1, ef, ref)
+                                     _next_round(state.round), ef, ref)
         metrics = {"loss_v": loss_v.mean(), "loss_u": loss_u.mean(),
                    "mu_min": mu.min(), "mu_max": mu.max(),
                    "n_active": int(idx.shape[0])}

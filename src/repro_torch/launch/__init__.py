@@ -3,16 +3,26 @@ transformer LM, each client a full personalized model whose shared body
 gossips over the run's one `TopologySchedule` while `lm_head` and
 `final_norm` stay personal.
 
-  mesh    mesh descriptions (axis names and sizes), `client_layout`, and
-          the one-device layout `train.py` runs on
-  steps   `Layout` / `decide_layout`, the input structs (meta tensors),
-          `build_train_algo` and the `build_*_step` functions of the
-          train / prefill / decode steps
-  train   `python -m repro_torch.launch.train`: the runnable trainer
+  mesh     mesh descriptions (`MeshSpec`, the production meshes),
+           the client mesh over the ranks of a process group
+           (`make_host_mesh`), `client_layout` and the one-device layout
+  ranks    the process-group setup (NCCL on the card, gloo on the CPU,
+           a file rendezvous) and the row plans of the cross-rank mixes
+  sharding the reference's placement rules as tuples
+  steps    `Layout` / `decide_layout`, the input structs (meta tensors),
+           the placements, the cross-rank mixes, `build_train_algo` and
+           the `build_*_step` functions of the train / prefill / decode
+           steps
+  train    `python -m repro_torch.launch.train`: the runnable trainer,
+           on one device or over `--ranks W` processes
+  dryrun   `python -m repro_torch.launch.dryrun`: bytes per device, wire
+           bytes and FLOPs of every arch x shape on the production meshes
+  ranks_check  the cross-rank mixes and rounds on arrays from files over
+           W spawned ranks (what the tests hold against the reference)
 
-One card is one device: every client lives on it, the gossip is the
-matrix mix (the `gossip_gather` kernel on the resident buffer), and the
-sharding entries of the `build_*_step` tuples are None.  The reference's
-multi-device half (`shard_map` + `ppermute` mixes, `sharding.py`,
-`dryrun.py`) is ROADMAP item 14b.
+On one device every client lives on it and the gossip is the matrix mix
+(the `gossip_gather` kernel on the resident buffer).  Across the ranks of
+a client mesh each rank holds a contiguous block of clients and the mixes
+exchange the rows that cross ranks; tensor parallelism is placed, not
+executed (ROADMAP item 17).
 """

@@ -1,17 +1,25 @@
-"""Mesh descriptions and the client layout (port of
-`repro/launch/mesh.py`).
+"""Meshes and the client layout (port of `repro/launch/mesh.py`).
 
-The reference lays clients over a jax device mesh.  The port has no mesh
-object yet: `MeshSpec` carries what the layout functions read of one (its
-axis names and sizes), so `client_layout` and `steps.decide_layout` run on
-the production meshes' descriptions; `one_device_layout` is the layout a
-single card runs (`launch/train.py`).  Building meshes over real devices
-(`make_production_mesh`, `make_host_mesh`) comes with the multi-rank
-mixes, ROADMAP item 14b.
+The reference lays clients over a jax device mesh.  The port has two
+kinds of mesh object, both read as a jax `Mesh` is (`.axis_names`,
+`.shape[name]`), so `client_layout`, `steps.decide_layout` and
+`sharding.py` run on either:
+- `MeshSpec`, a description (axis names and sizes): the production meshes
+  of `make_production_mesh`, which nothing runs on yet (the dry run reads
+  them, `launch/dryrun.py`);
+- `ClientMesh`, the client mesh over the ranks of the initialized default
+  process group (`make_host_mesh`): 'data' has W ranks, each holding a
+  contiguous block of the m clients, and 'model' has 1.
+`one_device_layout` is the layout a single device runs (`launch/train.py`
+without `--ranks`).
 """
 from __future__ import annotations
 
 from typing import Dict, NamedTuple, Tuple
+
+import torch
+
+from . import ranks
 
 
 class MeshSpec(NamedTuple):
@@ -30,20 +38,60 @@ def mesh_spec(shape, axes) -> MeshSpec:
     return MeshSpec(axes, dict(zip(axes, shape)))
 
 
-def _not_ported(name: str):
-    raise NotImplementedError(
-        f"{name} builds a mesh over real devices for the shard_map / "
-        f"ppermute mixes, which are not ported yet (ROADMAP item 14b); "
-        f"one card runs every client on one device "
-        f"(mesh.one_device_layout)")
+class ClientMesh(NamedTuple):
+    """A client mesh over the W ranks of the default process group:
+    'data' has W ranks, 'model' 1; this process is `rank`, on `device`,
+    and holds the clients `rows` of `n_clients`."""
+    axis_names: Tuple[str, ...]
+    shape: Dict[str, int]
+    n_clients: int
+    rank: int
+    device: torch.device
+
+    @property
+    def world(self) -> int:
+        return self.shape["data"]
+
+    @property
+    def rows(self) -> Tuple[int, int]:
+        return ranks.row_range(self.n_clients, self.world, self.rank)
+
+    @property
+    def n_local(self) -> int:
+        return self.n_clients // self.world
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    _not_ported("make_production_mesh")
+TP_ACROSS_RANKS = ("tensor parallelism across ranks is not ported yet "
+                   "(ROADMAP item 17)")
 
 
-def make_host_mesh(n_clients: int = 4, model: int = 2):
-    _not_ported("make_host_mesh")
+def make_production_mesh(*, multi_pod: bool = False) -> MeshSpec:
+    """The description of the single-pod (data 16, model 16) or multi-pod
+    (pod 2, data 16, model 16) mesh.  Nothing runs on it: the dry run
+    places the production steps on it."""
+    if multi_pod:
+        return mesh_spec((2, 16, 16), ("pod", "data", "model"))
+    return mesh_spec((16, 16), ("data", "model"))
+
+
+def make_host_mesh(n_clients: int = 4, model: int = 1) -> ClientMesh:
+    """The client mesh of `n_clients` over the ranks of the initialized
+    default process group (`ranks.init`).  Refuses m % W != 0 and
+    model > 1 (tensor parallelism across ranks)."""
+    import torch.distributed as dist
+    if model != 1:
+        raise NotImplementedError(f"make_host_mesh(model={model}): "
+                                  f"{TP_ACROSS_RANKS}")
+    if not dist.is_initialized():
+        raise RuntimeError("make_host_mesh needs the default process group: "
+                           "call launch.ranks.init first")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    ranks.row_range(n_clients, world, rank)        # refuses m % W
+    backend = dist.get_backend()
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if backend == "nccl" else torch.device("cpu"))
+    return ClientMesh(("data", "model"), {"data": world, "model": 1},
+                      int(n_clients), rank, device)
 
 
 def client_layout(mesh, strategy: str = "auto", arch_id: str = ""):
@@ -71,8 +119,9 @@ def client_layout(mesh, strategy: str = "auto", arch_id: str = ""):
 
 
 def one_device_layout(n_clients: int, per_client_batch: int):
-    """The layout of `launch/train.py` on one device: every client on it,
-    clients named along 'data', no tensor parallelism to speak of."""
+    """The layout of `launch/train.py` on one device, and of every rank of
+    a client mesh: clients named along 'data', no tensor parallelism to
+    speak of; n_clients counts every client of the run."""
     from .steps import Layout
     return Layout(("data",), (), ("model",), (), int(n_clients),
                   int(per_client_batch))

@@ -1,0 +1,185 @@
+"""Ranks of a client mesh on `torch.distributed`: the process-group setup
+and the row plans of the cross-rank mixes.
+
+W ranks each hold a contiguous block of the m clients (rank r the rows
+[r m/W, (r+1) m/W)).  The backend follows the device: NCCL for CUDA
+tensors, gloo for CPU tensors; a CUDA run never falls back to gloo.  The
+rendezvous is a file (`init_method="file://..."`), so no port is opened.
+
+The plans are pure functions of (m, W, rank) and the round's pattern, so
+every rank computes its peers' side of an exchange without asking, and
+the tests and the dry run (`launch/dryrun.py`) read the same plans the
+mixes execute:
+- `permutation_steps`: the ppermute mix's pull from (j - off) mod m, one
+  step per local row; a step receives the row it combines (or copies it
+  locally) and sends the rows its peers combine in the same step, so a
+  rank never holds more than one received row;
+- `gather_plan`: the matrix mix's halo, the neighbor rows a rank's
+  clients read that live on other ranks, and who sends which.
+"""
+from __future__ import annotations
+
+import os
+from typing import NamedTuple, Sequence, Tuple
+
+import torch
+
+from ..device import resolve_device
+
+
+def backend_for(device) -> str:
+    """"nccl" for a CUDA device, "gloo" for the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return "nccl"
+    if dev.type == "cpu":
+        return "gloo"
+    raise ValueError(f"no process-group backend for device {str(dev)!r}")
+
+
+def init(rank: int, world: int, init_file: str | None, device="cuda"):
+    """Join the default process group as `rank` of `world` through the
+    rendezvous file `init_file` (no port, no network), or through
+    torchrun's environment (`env://`) when init_file is None.  -> the
+    rank's torch.device: on CUDA the card `rank mod device_count()`, made
+    current.  The backend is `backend_for(device)`: a failing NCCL raises,
+    it never becomes gloo."""
+    import torch.distributed as dist
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    method = "env://" if init_file is None else \
+        "file://" + os.path.abspath(init_file)
+    dist.init_process_group(backend_for(dev), init_method=method,
+                            world_size=int(world), rank=int(rank))
+    return dev
+
+
+def from_environment() -> Tuple[int, int] | None:
+    """(rank, world) from torchrun's environment (RANK, WORLD_SIZE), or
+    None outside it."""
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        return int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    return None
+
+
+def shutdown() -> None:
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def row_range(m: int, world: int, rank: int) -> Tuple[int, int]:
+    """The global client rows [lo, hi) of `rank`: contiguous blocks of
+    m / world rows."""
+    if world < 1 or m % world:
+        raise ValueError(f"{m} clients over {world} ranks: the client "
+                         f"mesh wants m % W == 0 (equal blocks)")
+    n = m // world
+    return rank * n, (rank + 1) * n
+
+
+# ---------------------------------------------------------------------------
+# the permutation mix
+# ---------------------------------------------------------------------------
+class Step(NamedTuple):
+    """One step of the permutation mix on one rank: local row `row`
+    combines with global source row `src`, held locally at `local` (or
+    None) or received from rank `peer`; `sends` are (local row, peer)
+    pairs this rank sends in the same step."""
+    row: int
+    src: int
+    local: int | None
+    peer: int | None
+    sends: Tuple[Tuple[int, int], ...]
+
+
+def permutation_steps(m: int, world: int, rank: int,
+                      off: int) -> Tuple[Step, ...]:
+    """Client j pulls from client (j - off) mod m.  Step s handles local
+    row s on every rank, so a step's sends and receives pair up across
+    ranks in one batch of point-to-point operations."""
+    n = m // world
+    lo, _ = row_range(m, world, rank)
+    steps = []
+    for s in range(n):
+        src = (lo + s - off) % m
+        peer = src // n
+        sends = []
+        for q in range(world):
+            if q == rank:
+                continue
+            g = (q * n + s - off) % m
+            if g // n == rank:
+                sends.append((g - lo, q))
+        steps.append(Step(s, src, src - lo if peer == rank else None,
+                          None if peer == rank else peer, tuple(sends)))
+    return tuple(steps)
+
+
+# ---------------------------------------------------------------------------
+# the matrix mix
+# ---------------------------------------------------------------------------
+class GatherPlan(NamedTuple):
+    """The rows a rank reads beyond its own block: `halo` (global ids,
+    ascending) placed after the own rows; `recv` and `send` as (peer,
+    global rows ascending) pairs."""
+    lo: int
+    hi: int
+    halo: Tuple[int, ...]
+    recv: Tuple[Tuple[int, Tuple[int, ...]], ...]
+    send: Tuple[Tuple[int, Tuple[int, ...]], ...]
+
+    def position(self, g: int) -> int:
+        """Global row g -> its row in the (own + halo) buffer."""
+        if self.lo <= g < self.hi:
+            return g - self.lo
+        return self.hi - self.lo + self.halo.index(g)
+
+
+def _needs(idx_rows: Sequence[Sequence[int]], lo: int, hi: int):
+    return tuple(sorted({int(g) for row in idx_rows for g in row}
+                        - set(range(lo, hi))))
+
+
+def gather_plan(idx: Sequence[Sequence[int]], m: int, world: int,
+                rank: int) -> GatherPlan:
+    """idx: the round's full (m, k) neighbor table (global ids, the same
+    on every rank)."""
+    n = m // world
+    lo, hi = row_range(m, world, rank)
+    halo = _needs(idx[lo:hi], lo, hi)
+    recv = tuple((q, tuple(g for g in halo if g // n == q))
+                 for q in range(world) if q != rank
+                 and any(g // n == q for g in halo))
+    send = []
+    for q in range(world):
+        if q == rank:
+            continue
+        want = tuple(g for g in _needs(idx[q * n:(q + 1) * n], q * n,
+                                       (q + 1) * n) if lo <= g < hi)
+        if want:
+            send.append((q, want))
+    return GatherPlan(lo, hi, halo, recv, tuple(send))
+
+
+def exchange(sends, recvs) -> None:
+    """One batch of point-to-point operations: `sends` (tensor, peer) and
+    `recvs` (tensor to fill, peer), waited for.  Between one pair of ranks
+    the operations match in the order they are listed."""
+    import torch.distributed as dist
+    ops = [dist.P2POp(dist.isend, t, p) for t, p in sends]
+    ops += [dist.P2POp(dist.irecv, t, p) for t, p in recvs]
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+
+
+def all_gather_rows(x: torch.Tensor, world: int) -> torch.Tensor:
+    """The (m, ...) concatenation of every rank's (m / W, ...) block, a
+    collective even on one rank (so a one-rank group runs its backend)."""
+    import torch.distributed as dist
+    parts = [torch.empty_like(x) for _ in range(world)]
+    dist.all_gather(parts, x.contiguous())
+    return torch.cat(parts)

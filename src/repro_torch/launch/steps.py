@@ -5,22 +5,28 @@ Regime B: each client of the paper's decentralized directed gossip holds
 its own personalized transformer LM.  The client axis is a real leading
 axis of every parameter; the push-sum gossip of the shared part `u` is
 the mixing-matrix contraction over the run's `TopologySchedule` (on the
-resident (m, d_flat) buffer, the `gossip_gather` kernel on the card).
+resident (m, d_flat) buffer, the `gossip_gather` kernel on the card) or
+the one-peer permutation mix of the reference's `shard_map` + `ppermute`.
 
-One card is one device, so every client lives on it.  What the
-reference derives for a device mesh is kept where it is pure arithmetic
-on the mesh's axis names and sizes (`Layout`, `decide_layout`, read from
-a `mesh.MeshSpec`); placements are not: the sharding entries of the
-`build_*_step` tuples are None, and the `shard_map` + `ppermute`
-mixes raise, until ROADMAP item 14b ports them onto `torch.distributed`.
-Where the reference builds `jax.ShapeDtypeStruct`s, the port builds
-tensors on the "meta" device (shapes and dtypes, no data).
+One device holds every client (`mesh` None).  A client mesh
+(`mesh.make_host_mesh`) spreads them over the ranks of a
+`torch.distributed` group, each rank a contiguous block of rows: the
+permutation mix (`make_ppermute_mix_flat`, `make_ppermute_mix`) and the
+matrix mix (`make_matrix_mix_flat`) then exchange the rows that cross
+ranks with point-to-point operations (`launch/ranks.py` plans them).
+The placements of the reference's `NamedSharding`s are tuples of
+`launch/sharding.py`, derived from any mesh object (a `MeshSpec` of the
+production meshes included); with `mesh` None the `build_*_step` tuples
+hold None.  Where the reference builds `jax.ShapeDtypeStruct`s, the port
+builds tensors on the "meta" device (shapes and dtypes, no data).
 
-Layouts (from the reference; only their arithmetic runs here):
+Layouts (from the reference):
 - ``data_clients`` (default): clients over ('pod', 'data'); TP 'model'.
 - ``fsdp``: one client FSDP-sharded over 'data' and TP-sharded over
   'model', for deepseek-v2-236b (one pod per client on the multi-pod
   mesh) and for long_500k decode (global batch 1 cannot feed 16 clients).
+Tensor parallelism is arithmetic only: no rank executes a TP shard
+(ROADMAP item 17).
 """
 from __future__ import annotations
 
@@ -30,12 +36,17 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..configs import InputShape
-from ..core import dfedpgp, partition, topology
+from ..core import dfedpgp, gossip, partition, topology
 from ..core.gossip import FlatLayout
+from ..kernels import ops
 from ..models import get_model, prefill_logits
 from ..models.config import ModelConfig
-from ..optim import SGD
+from ..optim import SGD, SGDState
 from ..tree import from_paths, paths, tree_map
+from ..tree import get as tree_get
+from . import ranks, sharding
+from .mesh import ClientMesh
+from .sharding import axes_or_none
 
 META = torch.device("meta")
 
@@ -149,6 +160,243 @@ def input_specs(cfg: ModelConfig, shape: InputShape, layout: Layout,
 
 
 # ---------------------------------------------------------------------------
+# shardings (placements as `sharding.py` tuples)
+# ---------------------------------------------------------------------------
+def batch_specs(batch_tree, mesh, layout: Layout, n_lead: int):
+    """Client dim (0) over client_axes; per-client batch dim (n_lead) over
+    batch_axes; everything else replicated."""
+    ca = axes_or_none(layout.client_axes)
+    ba = axes_or_none(layout.batch_axes)
+
+    def spec(leaf):
+        dims = [None] * leaf.dim()
+        if ca is not None and leaf.dim():
+            dims[0] = ca
+        if ba is not None and leaf.dim() > n_lead:
+            dims[n_lead] = ba
+        return tuple(dims)
+
+    if isinstance(batch_tree, torch.Tensor):
+        return spec(batch_tree)
+    return tree_map(spec, batch_tree)
+
+
+def params_shardings(params_struct, mesh, layout: Layout):
+    return sharding.params_sharding(
+        params_struct, mesh, layout.tp_axes,
+        client_axes=layout.client_axes or None,
+        fsdp_axes=layout.fsdp_axes)
+
+
+def _client_spec(layout: Layout) -> tuple:
+    ca = axes_or_none(layout.client_axes)
+    return (ca,) if ca is not None else ()
+
+
+def state_shardings(state_struct, mesh, layout: Layout):
+    """Placements of a DFedPGPState with client-stacked params / momentum
+    trees: full-momentum leaves share their param's, the (m,) scalar
+    placeholders ride the client axes."""
+    ps = params_shardings(state_struct.params, mesh, layout)
+
+    def one(path, leaf):
+        if leaf.dim() <= 1:
+            return _client_spec(layout) if leaf.dim() == 1 else ()
+        return tree_get(ps, path)
+
+    def opt(mom_struct):
+        return SGDState(from_paths((p, one(p, leaf))
+                                   for p, leaf in paths(mom_struct.momentum)))
+
+    return dfedpgp.DFedPGPState(params=ps, mu=_client_spec(layout),
+                                opt_u=opt(state_struct.opt_u),
+                                opt_v=opt(state_struct.opt_v), round=())
+
+
+def flat_state_shardings(state_struct, mesh, layout: Layout):
+    """Placements of a FlatDFedPGPState: the (m, d_flat) buffer rows over
+    the client axes and the flat dim over TP (`sharding.flat_buffer_spec`),
+    shared by its momentum and the codec's ef / ref; the personal leaves
+    and their momentum by the per-leaf rules; mu over the client axes."""
+    buf = sharding.flat_buffer_spec(mesh, layout.client_axes,
+                                    state_struct.flat.shape[1],
+                                    layout.tp_axes)
+    personal = params_shardings(state_struct.personal, mesh, layout)
+    return dfedpgp.FlatDFedPGPState(
+        flat=buf, personal=personal, mu=_client_spec(layout),
+        opt_u=SGDState(buf), opt_v=SGDState(personal), round=(),
+        ef=None if state_struct.ef is None else buf,
+        ref=None if state_struct.ref is None else buf)
+
+
+def cache_shardings(cache_struct, mesh, layout: Layout):
+    """KV caches / recurrent state (client, [layer stack,] batch, ...):
+    the client dim over the client axes, the first of dims 1-2 that
+    divides over the batch axes, the last dim (down to dim 2) that divides
+    over TP."""
+    ca = axes_or_none(layout.client_axes)
+    ba = axes_or_none(layout.batch_axes)
+    tp = axes_or_none(layout.tp_axes)
+    tp_size = sharding.axes_size(mesh, layout.tp_axes)
+    ba_size = sharding.axes_size(mesh, layout.batch_axes)
+
+    def spec(leaf):
+        shape = tuple(leaf.shape)
+        dims = [None] * len(shape)
+        if ca is not None:
+            dims[0] = ca
+        if ba is not None:
+            for i in range(1, min(len(shape), 3)):
+                if shape[i] % ba_size == 0 and shape[i] >= ba_size:
+                    dims[i] = ba
+                    break
+        for i in range(len(shape) - 1, 1, -1):
+            if dims[i] is None and shape[i] % tp_size == 0 \
+                    and shape[i] >= tp_size and shape[i] > 1:
+                dims[i] = tp
+                break
+        return tuple(dims)
+
+    return tree_map(spec, cache_struct)
+
+
+# ---------------------------------------------------------------------------
+# the mixes across the ranks of a client mesh
+# ---------------------------------------------------------------------------
+def _schedule_offsets(schedule, m: int):
+    """The mix's schedule (default: the one-peer exponential graph) and
+    its validated per-round permutation offsets."""
+    schedule = schedule or topology.TopologySchedule.exponential(m)
+    if schedule.m != m:
+        raise AssertionError((schedule.m, m))
+    return schedule, schedule.permutation_offsets()
+
+
+def _narrow(row: torch.Tensor, wire_dtype) -> torch.Tensor:
+    return row.to(wire_dtype) if wire_dtype is not None else row
+
+
+def _permute_rows(x: torch.Tensor, steps, wire_dtype) -> torch.Tensor:
+    """(x + recv) * 0.5 over the local rows of x, recv[i] the source row
+    of `steps` (local, or received in the step's exchange).  Only the
+    copy that is sent (or copied) is narrowed to wire_dtype; one row is
+    received at a time, so the mix holds x, its output and one row."""
+    out = torch.empty_like(x)
+    for st in steps:
+        sends = [(_narrow(x[i], wire_dtype), q) for i, q in st.sends]
+        if st.local is None:
+            got = torch.empty(x.shape[1:], device=x.device,
+                              dtype=wire_dtype or x.dtype)
+            ranks.exchange(sends, [(got, st.peer)])
+        else:
+            ranks.exchange(sends, [])
+            got = _narrow(x[st.local], wire_dtype)
+        torch.add(x[st.row], got.to(x.dtype), out=out[st.row])
+        out[st.row].mul_(0.5)
+    return out
+
+
+def _permute_mu(mu: torch.Tensor, steps, world: int) -> torch.Tensor:
+    """(mu + mu[src]) * 0.5 per local row, mu gathered from every rank."""
+    mu_all = ranks.all_gather_rows(mu, world)
+    return torch.stack([(mu[st.row] + mu_all[st.src]) * 0.5
+                        for st in steps])
+
+
+def _permutation_plans(mesh, m: int, offsets):
+    return [ranks.permutation_steps(m, mesh.world, mesh.rank, off)
+            for off in offsets]
+
+
+def make_ppermute_mix(mesh, layout: Layout, mask, params_struct,
+                      wire_dtype=None,
+                      schedule: "topology.TopologySchedule | None" = None):
+    """The one-peer permutation mix of the tree-form round, across the
+    ranks of a client mesh (`mesh.make_host_mesh`).  The per-round offsets
+    come from `schedule` (default: the one-peer exponential graph): round
+    t pulls from client (j - offsets[t mod period]) mod m with weights
+    (1/2, 1/2), so the push-sum weight stays 1.  Each shared leaf mixes
+    as (a + recv) * 0.5, recv narrowed to wire_dtype on the wire only; the
+    personal part merges back untouched.  -> mix(params, mu, rnd, P) ->
+    (params, mu); `rnd` is the state's round counter (its host value,
+    `dfedpgp.host_round`, picks the offset) and P is not read."""
+    m = layout.n_clients
+    _, offsets = _schedule_offsets(schedule, m)
+    plans = _permutation_plans(mesh, m, offsets)
+
+    def mix(params, mu, rnd, P_unused=None):
+        steps = plans[dfedpgp.host_round(rnd) % len(plans)]
+        u, v = partition.split(params, mask)
+        u2 = tree_map(lambda a: _permute_rows(a, steps, wire_dtype), u)
+        return partition.merge(u2, v), _permute_mu(mu, steps, mesh.world)
+
+    return mix
+
+
+def make_ppermute_mix_flat(mesh, layout: Layout, d_flat: int,
+                           wire_dtype=None,
+                           schedule: "topology.TopologySchedule | None"
+                           = None):
+    """The resident form of `make_ppermute_mix`: the rank's (m / W,
+    d_flat) block of the buffer mixes row by row (at most one received row
+    held at a time), mu with it.  -> mix(flat, mu, rnd, P) -> (flat, mu)
+    for `DFedPGP(mix_fn_flat=...)`."""
+    m = layout.n_clients
+    _, offsets = _schedule_offsets(schedule, m)
+    plans = _permutation_plans(mesh, m, offsets)
+
+    def mix(flat, mu, rnd, P_unused=None):
+        steps = plans[dfedpgp.host_round(rnd) % len(plans)]
+        return (_permute_rows(flat, steps, wire_dtype),
+                _permute_mu(mu, steps, mesh.world))
+
+    return mix
+
+
+def make_matrix_mix_flat(mesh, layout: Layout, wire_dtype=None):
+    """The resident matrix mix across the ranks of a client mesh, under a
+    SparseTopology.  mix(flat, mu, rnd, P): P is the round's FULL (m, k)
+    table in global ids, on the host (every rank holds the same one, so
+    each plans its peers' side, `ranks.gather_plan`).  The rank receives
+    the neighbor rows its clients read from other ranks into a buffer
+    after its own rows (one batch of point-to-point operations; on one
+    rank the block itself, no copy), then mixes its rows in one
+    `ops.gossip_gather` call (the kernel on the card; `mix_rows` for a
+    narrowed payload, as `gossip.mix_flat`'s "sparse" mode), and mu by
+    `mix_rows` over the gathered mu.  Wide tables (k >= m) gather too: the
+    cross-rank mix never densifies."""
+    m, world = layout.n_clients, mesh.world
+
+    def mix(flat, mu, rnd, P):
+        plan = ranks.gather_plan(P.idx.tolist(), m, world, mesh.rank)
+        lo, hi, dev = plan.lo, plan.hi, flat.device
+        x = _narrow(flat, wire_dtype)
+        if plan.halo:
+            ext = torch.empty((hi - lo + len(plan.halo),) + x.shape[1:],
+                              dtype=x.dtype, device=dev)
+            ext[:hi - lo].copy_(x)
+        else:
+            ext = x
+        ranks.exchange(
+            [(x[g - lo], q) for q, rows in plan.send for g in rows],
+            [(ext[plan.position(g)], q) for q, rows in plan.recv
+             for g in rows])
+        idx = torch.tensor([[plan.position(int(g)) for g in row]
+                            for row in P.idx[lo:hi].tolist()],
+                           dtype=torch.int32).to(dev)
+        w = P.w[lo:hi].to(dev)
+        if ext.dtype == torch.float32:
+            mixed = ops.gossip_gather(idx, w, ext)
+        else:
+            mixed = gossip.mix_rows(idx, w, ext)
+        mu_all = ranks.all_gather_rows(mu, world)
+        return (mixed.to(flat.dtype),
+                gossip.mix_rows(P.idx[lo:hi].to(dev), w, mu_all))
+
+    return mix
+
+
+# ---------------------------------------------------------------------------
 # steps
 # ---------------------------------------------------------------------------
 def _resolve_regime_b(layout: Layout, spec, gossip, schedule, resident,
@@ -209,15 +457,49 @@ def build_train_algo(cfg: ModelConfig, mesh, layout: Layout,
     (flat_layout: the buffer's layout, None otherwise).  params_struct is
     the stacked tree as meta tensors.  `spec` (AlgoSpec) supplies gossip /
     schedule / resident / telemetry; the kwargs are the legacy surface.
-    `mesh` is unused on one device (None)."""
+
+    `mesh`: None (one device: the matrix mix of `gossip.mix_flat`), or a
+    client mesh (`mesh.make_host_mesh`), whose rank runs the clients of
+    its block: gossip="ppermute" then mixes through
+    `make_ppermute_mix_flat` (resident) or `make_ppermute_mix` (tree
+    form), gossip="matrix" through `make_matrix_mix_flat` (resident only).
+    gossip="ppermute" needs a client mesh."""
     knobs = _resolve_regime_b(layout, spec, gossip, schedule, resident,
                               "build_train_algo")
-    return _train_algo(cfg, layout, knobs, spec, k_u, k_v, bf16_grads,
+    return _train_algo(cfg, mesh, layout, knobs, spec, k_u, k_v, bf16_grads,
                        gossip_dtype, lr)
 
 
-def _train_algo(cfg: ModelConfig, layout: Layout, knobs, spec, k_u: int,
-                k_v: int, bf16_grads: bool, gossip_dtype: str, lr: float):
+def _cross_rank_mixes(mesh, layout: Layout, gossip: str, schedule,
+                      resident: bool, mask, params_struct, flat_layout,
+                      wire_dtype):
+    """(mix_fn, mix_fn_flat) of a Regime B round: (None, None) for the
+    one-device matrix mix."""
+    if gossip == "ppermute":
+        if not isinstance(mesh, ClientMesh):
+            raise ValueError(
+                "gossip='ppermute' mixes across the ranks of a client mesh "
+                "(launch.mesh.make_host_mesh); on one device use "
+                "gossip='matrix'")
+        if resident:
+            return None, make_ppermute_mix_flat(
+                mesh, layout, flat_layout.d_flat, wire_dtype=wire_dtype,
+                schedule=schedule)
+        return make_ppermute_mix(mesh, layout, mask, params_struct,
+                                 wire_dtype=wire_dtype,
+                                 schedule=schedule), None
+    if not isinstance(mesh, ClientMesh):
+        return None, None
+    if not resident:
+        raise ValueError("the matrix mix across ranks runs on the resident "
+                         "buffer (resident=True); the tree-form round "
+                         "across ranks mixes with gossip='ppermute'")
+    return None, make_matrix_mix_flat(mesh, layout, wire_dtype=wire_dtype)
+
+
+def _train_algo(cfg: ModelConfig, mesh, layout: Layout, knobs, spec,
+                k_u: int, k_v: int, bf16_grads: bool, gossip_dtype: str,
+                lr: float):
     """build_train_algo on resolved (gossip, schedule, resident, frac)."""
     gossip, schedule, resident, _ = knobs
     # round gauges: spec-only, as in the reference
@@ -238,19 +520,18 @@ def _train_algo(cfg: ModelConfig, layout: Layout, knobs, spec, k_u: int,
                              f"layout.n_clients={layout.n_clients}")
     flat_layout = FlatLayout.build(params_struct, mask) if resident else None
     opt = SGD(lr=lr, momentum=0.9, weight_decay=5e-4)
-    if gossip == "ppermute":
-        raise NotImplementedError(
-            "gossip='ppermute': the shard_map + ppermute permutation mix "
-            "runs over a device mesh and is not ported yet (ROADMAP item "
-            "14b); on one device use gossip='matrix'")
+    wire_dtype = getattr(torch, gossip_dtype) if gossip_dtype else None
+    mix_fn, mix_fn_flat = _cross_rank_mixes(
+        mesh, layout, gossip, schedule, resident, mask, params_struct,
+        flat_layout, wire_dtype)
     grad_hook = grad_hook_flat = None
     if bf16_grads:
         grad_hook, grad_hook_flat = _bf16_hooks(mask)
     algo = dfedpgp.DFedPGP(
         loss_fn=loss_fn, mask=mask, opt_u=opt, opt_v=opt, k_v=k_v, k_u=k_u,
+        mix_fn=mix_fn, mix_fn_flat=mix_fn_flat,
         grad_hook=grad_hook, grad_hook_flat=grad_hook_flat,
-        gossip_dtype=getattr(torch, gossip_dtype) if gossip_dtype else None,
-        telemetry=telemetry)
+        gossip_dtype=wire_dtype, telemetry=telemetry)
     return algo, mask, params_struct, flat_layout
 
 
@@ -263,6 +544,16 @@ def _topology_struct(schedule, dense_struct):
     topo0 = schedule.at(0)
     return topology.SparseTopology(_meta(topo0.idx.shape, topo0.idx.dtype),
                                    _meta(topo0.w.shape, topo0.w.dtype))
+
+
+def _topology_spec(layout: Layout, P_struct, rows=None):
+    """The pattern's placement: a SparseTopology's tables row-split over
+    the client axes (`rows`: their entry, default the client axes), the
+    dense matrix replicated."""
+    if not isinstance(P_struct, topology.SparseTopology):
+        return ()
+    rows = axes_or_none(layout.client_axes) if rows is None else rows
+    return topology.SparseTopology((rows, None), (rows, None))
 
 
 def _check_sampling(sample_frac: float, resident: bool, schedule,
@@ -303,8 +594,9 @@ def build_train_step(cfg: ModelConfig, mesh, layout: Layout,
     launch on the card).  It needs resident=True and a schedule, and
     refuses gossip='ppermute'.
 
-    The shardings are None (one device, until ROADMAP item 14b);
-    arg_structs are meta tensors of the step's arguments."""
+    The shardings are `sharding.py` placements on `mesh` (None when
+    `mesh` is None: one device); arg_structs are meta tensors of the
+    step's arguments."""
     knobs = _resolve_regime_b(layout, spec, gossip, schedule, resident,
                               "build_train_algo")
     if spec is None:
@@ -319,7 +611,8 @@ def build_train_step(cfg: ModelConfig, mesh, layout: Layout,
     # cannot be built at all
     _check_sampling(sample_frac, resident, schedule, gossip)
     algo, mask, params_struct, flat_layout = _train_algo(
-        cfg, layout, knobs, spec, k_u, k_v, bf16_grads, gossip_dtype, 0.1)
+        cfg, mesh, layout, knobs, spec, k_u, k_v, bf16_grads, gossip_dtype,
+        0.1)
 
     specs = input_specs(cfg, shape, layout, k_u=k_u, k_v=k_v)
     P_struct = _topology_struct(schedule, specs["P"])
@@ -344,8 +637,17 @@ def build_train_step(cfg: ModelConfig, mesh, layout: Layout,
             return algo.round_fn_sampled(state, P_act, active, batches,
                                          flat_layout)
 
-        return (train_step, (None, None, None, None),
-                (None, dict.fromkeys(metric_names)),
+        ins, outs = (None, None, None, None), None
+        if mesh is not None:
+            row = sharding.sampled_buffer_spec(
+                mesh, layout.client_axes, n_act, flat_layout.d_flat,
+                layout.tp_axes)[0]
+            st_sh = flat_state_shardings(state_struct, mesh, layout)
+            ins = (st_sh, _topology_spec(layout, P_struct, row), (),
+                   tree_map(lambda leaf: (row,) + (None,) * (leaf.dim() - 1),
+                            b_struct))
+            outs = st_sh
+        return (train_step, ins, (outs, _metric_specs(mesh, metric_names)),
                 (state_struct, P_struct, act_struct, b_struct))
 
     if resident:
@@ -360,9 +662,19 @@ def build_train_step(cfg: ModelConfig, mesh, layout: Layout,
         def train_step(state, Pm, batches):
             return algo.round_fn(state, Pm, batches)
 
-    return (train_step, (None, None, None),
-            (None, dict.fromkeys(metric_names)),
+    ins, st_sh = (None, None, None), None
+    if mesh is not None:
+        st_sh = (flat_state_shardings if resident else state_shardings)(
+            state_struct, mesh, layout)
+        ins = (st_sh, _topology_spec(layout, P_struct),
+               batch_specs(specs["batches"], mesh, layout, n_lead=2))
+    return (train_step, ins, (st_sh, _metric_specs(mesh, metric_names)),
             (state_struct, P_struct, specs["batches"]))
+
+
+def _metric_specs(mesh, names) -> dict:
+    """Every metric a replicated scalar (None on one device)."""
+    return dict.fromkeys(names, None if mesh is None else ())
 
 
 def _client(tree: dict, i: int) -> dict:
@@ -389,8 +701,14 @@ def build_prefill_step(cfg: ModelConfig, mesh, layout: Layout,
 
     params_struct = stacked_param_struct(icfg, layout.n_clients)
     specs = input_specs(icfg, shape, layout)
-    return (prefill_step, (None, None), None,
-            (params_struct, specs["batch"]))
+    ins = out = None
+    if mesh is not None:
+        ins = (params_shardings(params_struct, mesh, layout),
+               batch_specs(specs["batch"], mesh, layout, n_lead=1))
+        out = (axes_or_none(layout.client_axes),
+               axes_or_none(layout.batch_axes))
+    return prefill_step, ins or (None, None), out, (params_struct,
+                                                    specs["batch"])
 
 
 def build_decode_step(cfg: ModelConfig, mesh, layout: Layout,
@@ -413,7 +731,13 @@ def build_decode_step(cfg: ModelConfig, mesh, layout: Layout,
 
     params_struct = stacked_param_struct(icfg, layout.n_clients)
     specs = input_specs(icfg, shape, layout)
-    return (serve_step, (None, None, None, None), (None, None),
+    ins, outs = (None, None, None, None), (None, None)
+    if mesh is not None:
+        c_sh = cache_shardings(specs["cache"], mesh, layout)
+        ins = (params_shardings(params_struct, mesh, layout), c_sh,
+               batch_specs(specs["tokens"], mesh, layout, n_lead=1), ())
+        outs = ((axes_or_none(layout.client_axes),), c_sh)
+    return (serve_step, ins, outs,
             (params_struct, specs["cache"], specs["tokens"], specs["pos"]))
 
 

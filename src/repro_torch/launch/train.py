@@ -16,6 +16,17 @@ state.  `--gossip ppermute` needs a client mesh: on one device the run
 falls back to the matrix mix and says so, as the reference does without
 a mesh.
 
+`--ranks W` spawns W processes joined in one `torch.distributed` group
+(`launch/ranks.py`: NCCL on the card, gloo on the CPU, a file
+rendezvous), or joins the group torchrun's environment describes.  Each
+rank holds the client mesh's block of m / W clients; the schedule and the
+batch draws are the same on every rank, each slicing its rows.  The mix
+crosses ranks: `--gossip ppermute` the permutation mix (tree form or
+--resident), `--gossip matrix` the resident matrix mix.  Rank 0 prints and
+emits the records, their losses and mu range reduced over the ranks.  The
+sampled round, tensor parallelism and the gauges across ranks are refused
+(ROADMAP items 17, 18).
+
 Usage (the reduced smoke config on the CPU, a few rounds, synthetic LM
 data):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
@@ -24,10 +35,17 @@ data):
 and on the card at full width:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
       --clients 4 --resident
+and over two gloo ranks on the CPU:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
+      --reduced --clients 4 --resident --ranks 2 --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import os
+import shutil
+import sys
+import tempfile
 
 import torch
 
@@ -40,7 +58,7 @@ from ..obs import gauges as obs_gauges
 from ..spec import make_algo_spec
 from ..tree import tree_map
 from . import mesh as mesh_mod
-from . import steps
+from . import ranks, steps
 
 # streams of `device.seeded_generator`: client i's init is (0, INIT, i),
 # round r's batches (0, DATA, r + 1)
@@ -68,19 +86,22 @@ def synth_lm_batch(generator: torch.Generator, cfg, lead, seq: int) -> dict:
     return batch
 
 
-def init_stacked(cfg, m: int, device) -> dict:
-    """The (m, ...)-stacked params of m clients, client i drawn from
-    `seeded_generator(0, INIT_STREAM, i)` on `device` and copied into its
-    slot (one client's tree beside the stack at a time)."""
+def init_stacked(cfg, m: int, device, rows=None) -> dict:
+    """The stacked params of the clients `rows` (a range; default all m),
+    client i drawn from `seeded_generator(0, INIT_STREAM, i)` on `device`
+    and copied into its slot (one client's tree beside the stack at a
+    time): a rank of a client mesh draws its block only."""
     api = get_model(cfg)
+    rows = range(m) if rows is None else rows
     stacked = None
-    for i in range(m):
+    for slot, i in enumerate(rows):
         one = api.init_params(seeded_generator(0, INIT_STREAM, i, device),
                               cfg, device=device)
         if stacked is None:
             stacked = tree_map(lambda a: torch.empty(
-                (m,) + tuple(a.shape), dtype=a.dtype, device=a.device), one)
-        tree_map(lambda s, a: s[i].copy_(a), stacked, one)
+                (len(rows),) + tuple(a.shape), dtype=a.dtype,
+                device=a.device), one)
+        tree_map(lambda s, a: s[slot].copy_(a), stacked, one)
         del one
     return stacked
 
@@ -147,7 +168,39 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="where every client lives: 'cuda' (default; "
                          "raises without a GPU) or 'cpu'")
+    ap.add_argument("--no-remat", dest="remat", action="store_false",
+                    help="keep every block's activations for the backward "
+                         "(the config's remat off; the full-width configs "
+                         "rematerialize each block, as the reference's)")
+    ap.add_argument("--ranks", type=int, default=0,
+                    help="W > 0: spread the clients over W processes of "
+                         "one process group (NCCL on the card, gloo on "
+                         "the CPU), each a contiguous block of m / W; the "
+                         "mixes cross ranks")
     return ap
+
+
+def check_ranks_args(ap, args, world: int) -> None:
+    """The flags a run over `world` ranks refuses (before any process
+    starts)."""
+    if world < 1:
+        ap.error(f"--ranks {world}: want at least one rank")
+    try:
+        ranks.row_range(args.clients, world, 0)
+    except ValueError as e:
+        ap.error(f"--ranks {world}: {e}")
+    if args.tp > 1:
+        ap.error(f"--tp {args.tp} with --ranks: "
+                 f"{mesh_mod.TP_ACROSS_RANKS}")
+    if args.sample < 1.0:
+        ap.error(f"--sample {args.sample} with --ranks: the sampled round "
+                 f"across ranks is not ported yet (ROADMAP item 18)")
+    if args.telemetry:
+        ap.error("--telemetry with --ranks: the round gauges across ranks "
+                 "are not ported yet (ROADMAP item 18)")
+    if args.gossip == "matrix" and not args.resident:
+        ap.error("--gossip matrix with --ranks mixes the resident buffer: "
+                 "add --resident (or use --gossip ppermute)")
 
 
 class Trainer:
@@ -156,20 +209,29 @@ class Trainer:
     sampler of the run's one AlgoSpec, and the state on `device`.
     `step(r)` runs round r; `main` loops it and emits the records."""
 
-    def __init__(self, args, ap=None):
+    def __init__(self, args, ap=None, mesh=None):
         ap = ap or build_parser()
-        self.device = resolve_device(args.device)
+        self.mesh = mesh
+        self.device = resolve_device(args.device) if mesh is None \
+            else mesh.device
         cfg = get_reduced(args.arch) if args.reduced \
             else get_config(args.arch)
+        if not args.remat:
+            cfg = cfg.replace(remat=False)
         m = args.clients
-        if m * args.tp > 1:
-            print(f"[train] note: {m}x{args.tp} logical > 1 devices; "
-                  f"running unsharded on 1 device(s)")
         gossip = args.gossip
-        if gossip == "ppermute":
-            print("[train] note: ppermute needs the client mesh; "
-                  "falling back to matrix gossip")
-            gossip = "matrix"
+        if mesh is not None:
+            check_ranks_args(ap, args, mesh.world)
+            self.rows = range(*mesh.rows)
+        else:
+            self.rows = range(m)
+            if m * args.tp > 1:
+                print(f"[train] note: {m}x{args.tp} logical > 1 devices; "
+                      f"running unsharded on 1 device(s)")
+            if gossip == "ppermute":
+                print("[train] note: ppermute needs the client mesh; "
+                      "falling back to matrix gossip")
+                gossip = "matrix"
         if not 0.0 < args.sample <= 1.0:
             ap.error(f"--sample {args.sample}: want a fraction in (0, 1]")
         sampled = args.sample < 1.0
@@ -190,13 +252,14 @@ class Trainer:
         self.sampler = self.spec.sampler(m)
         self.layout = mesh_mod.one_device_layout(m, args.batch)
         self.algo, self.mask, _, self.flat_layout = steps.build_train_algo(
-            cfg, None, self.layout, k_u=args.k_u, k_v=args.k_v,
+            cfg, mesh, self.layout, k_u=args.k_u, k_v=args.k_v,
             spec=self.spec, lr=0.02)
         self.n_lead = self.sampler.n_active if self.sampler is not None \
             else m
-        stacked = init_stacked(cfg, m, self.device)
-        self.d_client = partition.count_params(stacked) // m
-        self.d_shared = partition.count_params(stacked, self.mask, True) // m
+        stacked = init_stacked(cfg, m, self.device, self.rows)
+        n = len(self.rows)
+        self.d_client = partition.count_params(stacked) // n
+        self.d_shared = partition.count_params(stacked, self.mask, True) // n
         if args.resident:
             self.state, self.flat_layout = self.algo.init_flat(
                 stacked, self.flat_layout, device=self.device)
@@ -208,10 +271,15 @@ class Trainer:
         S), 'u': (n, K_u, B, S)} for the round's n clients."""
         gen = seeded_generator(0, DATA_STREAM, r + 1, self.device)
         a = self.args
-        return {"v": synth_lm_batch(gen, self.cfg,
-                                    (self.n_lead, a.k_v, a.batch), a.seq),
-                "u": synth_lm_batch(gen, self.cfg,
-                                    (self.n_lead, a.k_u, a.batch), a.seq)}
+        b = {"v": synth_lm_batch(gen, self.cfg,
+                                 (self.n_lead, a.k_v, a.batch), a.seq),
+             "u": synth_lm_batch(gen, self.cfg,
+                                 (self.n_lead, a.k_u, a.batch), a.seq)}
+        if self.mesh is None:
+            return b
+        # every rank draws every client's batch and keeps its block
+        lo, hi = self.mesh.rows
+        return tree_map(lambda x: x[lo:hi], b)
 
     def topology(self, r: int):
         """(round r's CPU table, the sorted active ids or None): the
@@ -229,7 +297,8 @@ class Trainer:
         another run's)."""
         P, active = self.topology(r)
         b = self.batches(r) if batches is None else batches
-        dev_P = P.to(self.device)
+        # the cross-rank mixes plan from the full table on the host
+        dev_P = P.to(self.device) if self.mesh is None else P
         if active is not None:
             act = torch.as_tensor(active, device=self.device)
             self.state, metrics = self.algo.round_fn_sampled(
@@ -241,21 +310,94 @@ class Trainer:
             self.state, metrics = self.algo.round_fn(self.state, dev_P, b)
         return metrics, P, active
 
+    def reduce_metrics(self, metrics: dict) -> dict:
+        """A round's metrics over every rank of the client mesh: the mean
+        losses over all clients, mu's min and max over all rows (the
+        rank's own on one device)."""
+        if self.mesh is None:
+            return metrics
+        import torch.distributed as dist
+        n = self.mesh.n_local
+        losses = torch.stack([metrics["loss_v"], metrics["loss_u"]]) * n
+        lo_hi = torch.stack([-metrics["mu_min"], metrics["mu_max"]])
+        dist.all_reduce(losses)
+        dist.all_reduce(lo_hi, op=dist.ReduceOp.MAX)
+        losses = losses / self.m
+        return dict(metrics, loss_v=losses[0], loss_u=losses[1],
+                    mu_min=-lo_hi[0], mu_max=lo_hi[1])
+
 
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
-    run = Trainer(args, ap)
+    env = ranks.from_environment()
+    if args.ranks and env is None:
+        check_ranks_args(ap, args, args.ranks)
+        return spawn(sys.argv[1:] if argv is None else argv, args.ranks)
+    if env is None:
+        return run_rank(args, ap)
+    rank, world = env
+    mesh = _join(args, rank, world, None)
+    try:
+        return run_rank(args, ap, mesh)
+    finally:
+        ranks.shutdown()
+
+
+def _join(args, rank: int, world: int, init_file):
+    """This process's rank of the group and its client mesh."""
+    ranks.init(rank, world, init_file, args.device)
+    return mesh_mod.make_host_mesh(args.clients)
+
+
+def _rank_main(rank: int, argv, world: int, init_file: str) -> None:
+    """One spawned rank of `spawn`."""
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if torch.device(args.device).type == "cpu":
+        # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    mesh = _join(args, rank, world, init_file)
+    try:
+        run_rank(args, ap, mesh)
+    finally:
+        ranks.shutdown()
+
+
+def spawn(argv, world: int) -> None:
+    """Run the trainer over `world` processes started here (spawned, one
+    a rank), their rendezvous a file in a fresh temporary directory."""
+    import torch.multiprocessing as mp
+    tmp = tempfile.mkdtemp(prefix="repro_torch_ranks_")
+    try:
+        mp.spawn(_rank_main, args=(list(argv), world,
+                                   os.path.join(tmp, "rendezvous")),
+                 nprocs=world, join=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_rank(args, ap, mesh=None):
+    """The trainer's loop in this process: every client on one device
+    (mesh None), or this rank's block of a client mesh.  -> the state
+    (the rank's block)."""
+    run = Trainer(args, ap, mesh)
     cfg, m = run.cfg, run.m
-    print(f"[train] {cfg.arch_id} family={cfg.family} clients={m} "
-          f"params/client={run.d_client:,} shared={run.d_shared:,} "
-          f"topology={run.schedule.kind} resident={args.resident}"
-          + (f" sample={args.sample} ({run.n_lead}/{m})"
-             if run.sampler is not None else ""))
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
+    if mesh is not None:
+        say(f"[train] ranks={mesh.world} clients/rank={mesh.n_local} "
+            f"backend={ranks.backend_for(mesh.device)} gossip={args.gossip}")
+    say(f"[train] {cfg.arch_id} family={cfg.family} clients={m} "
+        f"params/client={run.d_client:,} shared={run.d_shared:,} "
+        f"topology={run.schedule.kind} resident={args.resident}"
+        + (f" sample={args.sample} ({run.n_lead}/{m})"
+           if run.sampler is not None else ""))
 
     # one record per round through the telemetry spine: the printed line
     # IS the record's rendered form
-    sink = obs.JsonlSink(args.metrics) if args.metrics else obs.NULL_SINK
+    sink = obs.JsonlSink(args.metrics) if args.metrics and lead \
+        else obs.NULL_SINK
     run_id = f"trainB-{cfg.arch_id}-seed{args.seed}"
     wire_rb = obs_gauges.payload_row_bytes(None, run.d_shared)
     wire_total = 0
@@ -266,6 +408,7 @@ def main(argv=None):
                 batches = run.batches(r)
             with timer.phase("round", block=True) as ph:
                 metrics, P_r, active = run.step(r, batches)
+                metrics = run.reduce_metrics(metrics)
                 ph.out = metrics
             host = obs_gauges.to_host(metrics)
             wire_total += obs_gauges.edge_count(P_r) * wire_rb
@@ -283,13 +426,13 @@ def main(argv=None):
                     seed=args.seed, schedule=run.schedule, step=r, t0=r,
                     flat=s.flat, mu=s.mu, personal=s.personal,
                     active=active)
-            print(f"[train] {obs.record.render(rec)} "
-                  f"loss_v={rec['loss_v']:.4f} "
-                  f"mu=[{rec['mu_min']:.3f},{rec['mu_max']:.3f}]")
+            say(f"[train] {obs.record.render(rec)} "
+                f"loss_v={rec['loss_v']:.4f} "
+                f"mu=[{rec['mu_min']:.3f},{rec['mu_max']:.3f}]")
     sink.close()
     if args.metrics:
-        print(f"[train] metrics -> {args.metrics} "
-              f"(render: python -m repro_torch.obs.report {args.metrics})")
+        say(f"[train] metrics -> {args.metrics} "
+            f"(render: python -m repro_torch.obs.report {args.metrics})")
     return run.state
 
 

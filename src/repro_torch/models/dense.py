@@ -8,8 +8,8 @@ h2o-danube-1.8b [arXiv:2401.16818] (sliding-window attention, hd 80).
 Layout: pre-RMSNorm blocks, SwiGLU MLP, RoPE; the layer weights are
 stacked on a leading (n_layers, ...) dim as in the reference, and the
 layers run as a Python loop over that dim (the reference's `lax.scan`;
-`remat` and `scan_unroll` leave the forward's values unchanged and are not
-read).  The forward's attention takes one of two routes, named by the
+`scan_unroll` is not read).  `remat` rematerializes each block on the
+training route (`remat.py`), values and gradients unchanged.  The forward's attention takes one of two routes, named by the
 caller (`layers.ROUTES`): "kernel", `ops.flash_attention` (the CUDA
 kernel on the card, its plain version on the CPU; prefill), or "plain",
 the reference's own `gqa_attend` / `block_attention` under autograd
@@ -30,6 +30,7 @@ import torch
 from ..device import resolve_device
 from ..tree import tree_map
 from . import layers as L
+from . import remat
 from .config import ModelConfig
 
 
@@ -83,8 +84,9 @@ def _block(lp: dict, x: torch.Tensor, positions: torch.Tensor,
 def backbone(params: dict, x: torch.Tensor, positions: torch.Tensor,
              cfg: ModelConfig, route: str = "kernel") -> torch.Tensor:
     """x: (B, S, D) embeddings -> (B, S, D) features."""
+    on = remat.enabled(cfg, route)
     for lp in L.unstack(params["layers"]):
-        x = _block(lp, x, positions, cfg, route)
+        x = remat.maybe(on, _block, lp, x, positions, cfg, route)
     return L.rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
 
 

@@ -21,7 +21,9 @@ Attention routes:
 The layer weights are stacked on a leading dim (`enc_layers`,
 `dec_layers`) as in the reference, and the layers run as a Python loop
 over `layers.unstack` of the stacks (the reference's `lax.scan`;
-`remat` and `scan_unroll` are not read).  `prefill_cross` (the encoder
+`scan_unroll` is not read).  `remat` rematerializes each encoder and
+decoder block on the training route (`remat.py`).  `prefill_cross` (the
+encoder
 run once and the cross-attention keys and values cached) is a module
 function outside `ModelApi`, as in the reference.
 """
@@ -31,6 +33,7 @@ import torch
 
 from ..device import resolve_device
 from . import layers as L
+from . import remat
 from .config import ModelConfig
 
 
@@ -96,22 +99,28 @@ def _full(sq: int, sk: int, device) -> torch.Tensor:
     return torch.ones((sq, sk), dtype=torch.bool, device=device)
 
 
-def encode(params: dict, frames: torch.Tensor,
-           cfg: ModelConfig) -> torch.Tensor:
+def _enc_block(lp: dict, x: torch.Tensor, full: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    hn = _ln(x, lp["ln1"])
+    q, k, v = L._qkv(lp["attn"], hn, cfg)
+    a = L.gqa_attend(q, k, v, full)
+    x = x + a.reshape(*x.shape[:2], -1) @ lp["attn"]["wo"].to(x.dtype)
+    hn = _ln(x, lp["ln2"])
+    return x + L.gelu_mlp(lp["mlp"], hn)
+
+
+def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig,
+           rematerialize: bool = False) -> torch.Tensor:
     """frames (B, F, D), the stub conv frontend's output -> encoder
     features (B, F, D) in the compute dtype: bidirectional attention
-    (`gqa_attend` under a full mask)."""
+    (`gqa_attend` under a full mask).  rematerialize: each block through
+    `remat.call` (the training forward under cfg.remat)."""
     x = frames.to(cfg.cdtype)
     x = x + L.sinusoid_positions(x.shape[1], cfg.d_model,
                                  x.device).to(x.dtype)[None]
     full = _full(x.shape[1], x.shape[1], x.device)
     for lp in L.unstack(params["enc_layers"]):
-        hn = _ln(x, lp["ln1"])
-        q, k, v = L._qkv(lp["attn"], hn, cfg)
-        a = L.gqa_attend(q, k, v, full)
-        x = x + a.reshape(*x.shape[:2], -1) @ lp["attn"]["wo"].to(x.dtype)
-        hn = _ln(x, lp["ln2"])
-        x = x + L.gelu_mlp(lp["mlp"], hn)
+        x = remat.maybe(rematerialize, _enc_block, lp, x, full, cfg)
     return _ln(x, params["enc_norm"])
 
 
@@ -138,6 +147,10 @@ def _enc_kv(lp: dict, enc_out: torch.Tensor, cfg: ModelConfig):
 def _dec_block(lp: dict, h: torch.Tensor, enc_out: torch.Tensor,
                positions: torch.Tensor, cfg: ModelConfig,
                route: str) -> torch.Tensor:
+    # one autograd use of enc_out per block: its gradient sums the block's
+    # two uses (keys, values) first, in the same order whether or not the
+    # block is rematerialized (remat.py)
+    enc_out = enc_out.view_as(enc_out)
     hn = _ln(h, lp["ln1"])
     h = h + L.attention_train(lp["self_attn"], hn, positions, cfg,
                               theta=0.0, route=route)
@@ -157,7 +170,8 @@ def forward_train(params: dict, batch: dict, cfg: ModelConfig,
     route."""
     if route not in L.ROUTES:
         raise ValueError(f"route={route!r}; known: {L.ROUTES}")
-    enc_out = encode(params, batch["frames"], cfg)
+    on = remat.enabled(cfg, route)
+    enc_out = encode(params, batch["frames"], cfg, on)
     tokens = batch["tokens"]
     S = tokens.shape[1]
     # gather, then cast: the reference's cast-then-gather without a
@@ -166,7 +180,8 @@ def forward_train(params: dict, batch: dict, cfg: ModelConfig,
     x = x + L.sinusoid_positions(S, cfg.d_model, x.device).to(x.dtype)[None]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
     for lp in L.unstack(params["dec_layers"]):
-        x = _dec_block(lp, x, enc_out, positions, cfg, route)
+        x = remat.maybe(on, _dec_block, lp, x, enc_out, positions, cfg,
+                        route)
     x = _ln(x, params["dec_norm"])
     if last_only:
         x = x[:, -1:]

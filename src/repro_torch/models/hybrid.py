@@ -14,8 +14,10 @@ Parameters keep the reference's layout: periods of (2 recurrent + 1
 attention) layers stacked on leading dims (`period_lru` (P, 2, ...),
 `period_attn` (P, ...)) and the non-multiple tail (`tail_lru`
 (tail, ...)).  Layers run as a Python loop over those dims, the port's
-counterpart of `lax.scan`.  `lm_head` is its own leaf, as in the
-reference, although the config says `tie_embeddings=True`.
+counterpart of `lax.scan`; `remat` rematerializes each period on the
+training route (`remat.py`), as the reference checkpoints its period
+body.  `lm_head` is its own leaf, as in the reference, although the
+config says `tie_embeddings=True`.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from ..device import resolve_device
 from ..kernels import ops
 from ..tree import tree_map
 from . import layers as L
+from . import remat
 from .config import ModelConfig
 
 _C_RGLRU = 8.0
@@ -248,6 +251,16 @@ def _attn_layer_fwd(lp: dict, x: torch.Tensor, positions: torch.Tensor,
     return x + L.swiglu(lp["mlp"], h)
 
 
+def _period_fwd(lru: dict, attn: dict, x: torch.Tensor,
+                positions: torch.Tensor, cfg: ModelConfig,
+                route: str) -> torch.Tensor:
+    """One period of the pattern: two RG-LRU layers, then local attention
+    (the reference's rematerialized unit)."""
+    for lj in L.unstack(lru):
+        x, _ = _lru_layer_fwd(lj, x, cfg, route=route)
+    return _attn_layer_fwd(attn, x, positions, cfg, route)
+
+
 def forward_train(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
                   positions=None, last_only: bool = False,
                   route: str = "kernel") -> torch.Tensor:
@@ -261,12 +274,12 @@ def forward_train(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)[None, :]
     P, tail = _layout(cfg)
+    on = remat.enabled(cfg, route)      # each period, as the reference
     if P:
         for lru, attn in zip(L.unstack(params["period_lru"]),
                              L.unstack(params["period_attn"])):
-            for lj in L.unstack(lru):
-                x, _ = _lru_layer_fwd(lj, x, cfg, route=route)
-            x = _attn_layer_fwd(attn, x, positions, cfg, route)
+            x = remat.maybe(on, _period_fwd, lru, attn, x, positions, cfg,
+                            route)
     if tail:
         for lt in L.unstack(params["tail_lru"]):
             x, _ = _lru_layer_fwd(lt, x, cfg, route=route)

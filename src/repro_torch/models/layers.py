@@ -102,7 +102,8 @@ def mrope_streams(hd: int, sections, device=None) -> torch.Tensor:
     repeated sections[i] times, truncated to hd/2 or padded with the last
     stream (`jnp.repeat`'s total_repeat_length)."""
     sec = torch.repeat_interleave(torch.arange(3, device=device),
-                                  torch.as_tensor(sections, device=device))
+                                  torch.as_tensor(sections, device=device),
+                                  output_size=int(sum(sections)))
     n = hd // 2
     if sec.numel() < n:
         sec = torch.cat([sec, sec[-1:].expand(n - sec.numel())])

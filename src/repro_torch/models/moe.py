@@ -42,7 +42,10 @@ reference's association (`qc` first, then the scores).
 
 The layer weights are stacked on a leading dim (`dense_layers`,
 `moe_layers`) as in the reference, and the layers run as a Python loop
-(the reference's `lax.scan`; `remat` and `scan_unroll` are not read).
+(the reference's `lax.scan`; `scan_unroll` is not read).  `remat`
+rematerializes every dense and moe block on the training route
+(`remat.py`), except when the caller collects or hands in the routes
+(`routes`, `given`: a recompute would record or consume them twice).
 `moe_seq_chunk` becomes a Python loop over the chunks.
 """
 from __future__ import annotations
@@ -56,6 +59,7 @@ import torch.nn.functional as F
 from ..device import resolve_device
 from ..tree import tree_map
 from . import layers as L
+from . import remat
 from .config import ModelConfig
 
 
@@ -387,12 +391,14 @@ def forward_train(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     if positions is None:
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)[None, :]
+    on = remat.enabled(cfg, route) and routes is None and given is None
     if cfg.first_dense_layers:
         for lp in L.unstack(params["dense_layers"]):
-            x = _dense_block(lp, x, positions, cfg, route)
+            x = remat.maybe(on, _dense_block, lp, x, positions, cfg, route)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in L.unstack(params["moe_layers"]):
-        x, a = _moe_block(lp, x, positions, cfg, route, routes, given)
+        x, a = remat.maybe(on, _moe_block, lp, x, positions, cfg, route,
+                           routes, given)
         aux = aux + a
     x = L.rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
     if last_only:

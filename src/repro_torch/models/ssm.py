@@ -18,7 +18,8 @@ chunks of each mLSTM layer, over the S positions of each sLSTM layer.
 Everything is stock torch, as it is stock `jnp` in the reference: no
 TPU kernel lies on this family's path, and it has no attention, so the
 forward's `route` has no effect (it is checked and kept for the
-registry's common signature).  `remat` is not read.
+registry's common signature).  `remat` rematerializes each layer in
+`loss_fn`'s forward (`remat.py`).
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from . import layers as L
+from . import remat
 from .config import ModelConfig
 
 NEG = -1e30
@@ -189,8 +191,8 @@ def mlstm_block(p: dict, x: torch.Tensor, cfg: ModelConfig, state=None):
     q = (xc @ p["wq"].to(x.dtype)).reshape(B, S, H, hd)
     # sqrt(hd) rounded to x's dtype first, as the reference's weakly typed
     # Python float is (bf16: sqrt(384) -> 19.625)
-    k = (xc @ p["wk"].to(x.dtype)).reshape(B, S, H, hd) / torch.tensor(
-        math.sqrt(hd), dtype=x.dtype, device=x.device)
+    k = (xc @ p["wk"].to(x.dtype)).reshape(B, S, H, hd) / torch.full(
+        (), math.sqrt(hd), dtype=x.dtype, device=x.device)
     v = (xm @ p["wv"].to(x.dtype)).reshape(B, S, H, hd)
     gates = (xc @ p["w_if"].to(x.dtype) +
              p["b_if"].to(x.dtype)).to(torch.float32)
@@ -310,6 +312,11 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     }
 
 
+def _layer_out(fn, lp: dict, x: torch.Tensor, cfg: ModelConfig):
+    """A layer's output without its final state (the training forward)."""
+    return fn(lp, x, cfg)[0]
+
+
 def forward_train(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
                   positions=None, last_only: bool = False,
                   route: str = "kernel") -> torch.Tensor:
@@ -322,9 +329,10 @@ def forward_train(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     # gather, then cast: the reference's cast-then-gather without a
     # (vocab, d_model) temporary
     x = params["embed"][tokens].to(cfg.cdtype)
+    on = remat.enabled(cfg, route)
     for i, lp in enumerate(params["layers"]):
         fn = mlstm_block if _kind(i, cfg) == "mlstm" else slstm_block
-        x, _ = fn(lp, x, cfg)
+        x = remat.maybe(on, _layer_out, fn, lp, x, cfg)
     x = L.rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
     if last_only:
         x = x[:, -1:]

@@ -11,8 +11,9 @@ after the vision grid's extent.
 The parameters are the dense family's (`dense.init_params`), and so is
 the cache.  The forward's attention takes the port's two routes as
 `dense.py` does ("kernel", `ops.flash_attention`, for prefill; "plain"
-under autograd for `loss_fn`); decode is text-only, all three position
-streams at `pos`, attending over the cache with `gqa_attend`.
+under autograd for `loss_fn`, each block rematerialized under `remat`,
+`remat.py`); decode is text-only, all three position streams at `pos`,
+attending over the cache with `gqa_attend`.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import torch
 
 from . import dense
 from . import layers as L
+from . import remat
 from .config import ModelConfig
 
 init_params = dense.init_params  # the dense structure (with QKV bias)
@@ -79,8 +81,9 @@ def forward_train(params: dict, batch: dict, cfg: ModelConfig,
     x = torch.cat([vis, tok_emb], dim=1)
     n_vis, n_text = vis.shape[1], tok_emb.shape[1]
     positions3 = build_positions(n_vis, n_text, device=x.device)[:, None, :]
+    on = remat.enabled(cfg, route)
     for lp in L.unstack(params["layers"]):
-        x = _block(lp, x, positions3, cfg, route)
+        x = remat.maybe(on, _block, lp, x, positions3, cfg, route)
     x = L.rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
     x = x[:, -1:] if last_only else x[:, n_vis:]   # text positions only
     return x @ params["lm_head"].to(x.dtype)

@@ -116,16 +116,6 @@ def test_client_layout_matches_reference(multi_pod, strategy, arch):
         jmesh.client_layout(mesh, strategy, arch)
 
 
-def test_meshes_over_devices_wait_for_14b():
-    for fn in (tmesh.make_production_mesh, tmesh.make_host_mesh):
-        with pytest.raises(NotImplementedError, match="item 14b"):
-            fn()
-    lay = tmesh.one_device_layout(4, 2)
-    assert lay == tsteps.Layout(("data",), (), ("model",), (), 4, 2)
-    with pytest.raises(ValueError, match="one size per distinct"):
-        tmesh.mesh_spec((2, 2), ("data", "data"))
-
-
 # ---------------------------------------------------------------------------
 # input structs and build_train_step
 # ---------------------------------------------------------------------------
@@ -230,14 +220,6 @@ def test_build_train_step_refusals_match_reference(case, err, match):
                 _refusal(build, case)
         caught.append(str(e.value))
     assert caught[0] == caught[1]
-
-
-def test_ppermute_train_algo_waits_for_14b():
-    cfg = configs.get_reduced("qwen2-0.5b")
-    lay = tmesh.one_device_layout(4, 2)
-    with pytest.warns(DeprecationWarning):
-        with pytest.raises(NotImplementedError, match="item 14b"):
-            tsteps.build_train_algo(cfg, None, lay, gossip="ppermute")
 
 
 # ---------------------------------------------------------------------------

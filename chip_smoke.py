@@ -132,8 +132,20 @@ line is never printed):
                 one-process run under deterministic algorithms, each mix
                 alone bitwise the one-process mix, peak memory; `python
                 -m repro_torch.launch.dryrun --all --mesh single
-                --no-flops` in a subprocess (exit 0);
-16c. remat    — a full-width round with remat on (the config's default)
+                --no-flops` in a subprocess (exit 0); the rounds run
+                through the tensor-parallel executor (launch/tp.py) at
+                T = 1;
+16c. tp       — tensor parallelism across ranks (launch/tp.py) on a
+                one-rank NCCL group, (data 1, model 1) holding the 4
+                clients of qwen2-0.5b at full width: one client's loss
+                and every leaf's gradient through the executor's loss
+                under vmap(grad_and_value) bitwise the plain
+                dense.loss_fn; 3 resident rounds with the matrix mix (3
+                gossip_gather), 3 with the permutation mix (0) and 2
+                tree-form permutation rounds (0), each bitwise the
+                one-process run (per-leaf gaps printed otherwise), peak
+                memory, ms per round;
+16d. remat    — a full-width round with remat on (the config's default)
                 and off: the states bitwise (else the gap at the Regime B
                 tolerance), peak memory and ms per round of both;
 17. moe       — the moe family: the flash kernel at deepseek-moe-16b's
@@ -207,7 +219,8 @@ from pathlib import Path
 
 PHASES = ("device", "build", "kernels", "train", "parity", "sampled",
           "kernel_mix", "compress", "baselines", "async", "analysis", "obs",
-          "checkpoint", "serve", "lm", "dense", "regime_b", "ranks", "remat",
+          "checkpoint", "serve", "lm", "dense", "regime_b", "ranks", "tp",
+          "remat",
           "moe", "vlm", "ssm", "encdec", "timings")
 # the paper's comparison rows (the port's simulator.ALGOS but dfedpgp)
 BASELINES = ("local", "fedavg", "fedper", "fedrep", "fedbabu", "ditto",
@@ -4769,6 +4782,148 @@ def phase_ranks(ctx):
          seq=128, d_flat=REGIME_B_D, deterministic_algorithms=True, **out)
 
 
+# phase tp: the rounds of each cross-rank form and their count
+TP_ROUNDS = (("matrix", ["--resident", "--topology", "random"], 3, 3),
+             ("ppermute", ["--resident", "--topology", "exponential"], 3, 0),
+             ("tree", ["--topology", "exponential"], 2, 0))
+# phase ranks' peak before its rounds ran through the tensor-parallel
+# executor (NVIDIA H100 80GB HBM3, 700 W): the resident rounds' peak is
+# printed beside it
+RANKS_PEAK_BYTES = 64_114_536_448
+
+
+def _leaf_gaps(torch, a, b) -> dict:
+    """{leaf: max |a - b|} of the leaves of two states (trees, tensors)
+    that are not equal bit for bit; a leaf missing on one side is inf."""
+    la, lb = dict(_state_leaves(a)), dict(_state_leaves(b))
+    gaps = {k: math.inf for k in set(la) ^ set(lb)}
+    for k in set(la) & set(lb):
+        x, y = la[k], lb[k]
+        if hasattr(x, "is_cuda"):
+            if not (x.dtype == y.dtype and torch.equal(x, y)):
+                gaps[k] = _chunked_gap(torch, x, y)
+        elif x != y:
+            gaps[k] = math.inf
+    return gaps
+
+
+def _chunked_gap(torch, a, b, chunk: int = 1 << 27) -> float:
+    """max |a - b| of two tensors (of the card or of the host), `chunk`
+    elements at a time in f64 on the card: a full-width leaf is 7.9 GB,
+    too large for whole-leaf f64 temporaries on the host."""
+    fa, fb = a.reshape(-1), b.reshape(-1)
+    if fa.shape != fb.shape:
+        return math.inf
+    worst = 0.0
+    for i in range(0, fa.numel(), chunk):
+        x, y = (t[i:i + chunk].to("cuda", torch.float64) for t in (fa, fb))
+        worst = max(worst, float((x - y).abs().max()))
+    return worst
+
+
+def _tp_loss_gradients(ctx, mesh) -> dict:
+    """One qwen2-0.5b client at full width (B 2, S 128): its loss and
+    every leaf's gradient through the executor's loss on the rank's
+    shards (T = 1: whole leaves, one-rank NCCL collectives) under
+    vmap(grad_and_value), against the plain dense.loss_fn the same way,
+    bit for bit."""
+    torch = ctx["torch"]
+    from repro_torch.configs import get_config
+    from repro_torch.device import seeded_generator
+    from repro_torch.launch import tp, train
+    from repro_torch.models import get_model
+    from repro_torch.tree import tree_map
+    cfg = get_config("qwen2-0.5b")
+    api = get_model(cfg)
+    params = tree_map(lambda a: a[None], api.init_params(
+        seeded_generator(0, train.INIT_STREAM, 0, "cuda"), cfg,
+        device="cuda"))
+    batch = train.synth_lm_batch(
+        seeded_generator(0, train.DATA_STREAM, 1, "cuda"), cfg, (1, 2), 128)
+    shards = tp.Executor(cfg, mesh, tree_map(lambda a: a[0], params))
+    check(shards.model is not None and shards.T == 1,
+          "the executor of qwen2-0.5b at T = 1 runs the dense TP loss")
+    fn = torch.func.vmap(torch.func.grad_and_value(shards.loss_fn(api,
+                                                                  cfg)))
+    g, loss = fn(shards.shard(params), batch)
+    plain = torch.func.vmap(torch.func.grad_and_value(
+        lambda p, b: api.loss_fn(p, b, cfg)))
+    g0, loss0 = plain(params, batch)
+    gaps = _leaf_gaps(torch, {"loss": loss, "grad": g},
+                      {"loss": loss0, "grad": g0})
+    leaves = len(list(_state_leaves(g0)))
+    del params, g, g0
+    torch.cuda.empty_cache()
+    check(not gaps, f"the TP loss / gradients differ from dense.loss_fn: "
+                    f"{gaps}")
+    return {"loss": float(loss0[0]), "bitwise": True,
+            "gradient_leaves": leaves}
+
+
+def phase_tp(ctx):
+    """Tensor parallelism across ranks on one card (launch/tp.py): a
+    one-rank NCCL group, its client mesh (data 1, model 1) of the 4
+    clients of qwen2-0.5b at full width.  The executor's loss and
+    gradients bitwise the plain dense.loss_fn; 3 resident rounds with the
+    matrix mix, 3 with the permutation mix and 2 tree-form permutation
+    rounds through `train.Trainer` on the mesh, each bitwise the
+    one-process run from the same init, batches and tables (deterministic
+    algorithms on); gossip_gather launches 3 / 0 / 0; peak memory beside
+    phase ranks' before the executor; ms per round."""
+    torch = ctx["torch"]
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_mod, ranks
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    out = {}
+    counts = {}
+    try:
+        ranks.init(0, 1, os.path.join(tmp, "rendezvous"), "cuda")
+        check(dist.get_backend() == "nccl",
+              f"NCCL did not initialise: backend {dist.get_backend()}")
+        mesh = mesh_mod.make_host_mesh(4, model=1)
+        check((mesh.world, mesh.shape["model"]) == (1, 1),
+              f"mesh {mesh.shape}")
+        with _deterministic(torch):
+            out["loss_gradients"] = _tp_loss_gradients(ctx, mesh)
+            for name, extra, rounds, want in TP_ROUNDS:
+                argv = REGIME_B_ARGS + extra
+                gossip = "matrix" if name == "matrix" else "ppermute"
+                single = _trainer_rounds(ctx, argv, rounds)
+                across = _trainer_rounds(
+                    ctx, argv + ["--gossip", gossip, "--tp", "1"], rounds,
+                    mesh)
+                gaps = _leaf_gaps(torch, across["state"], single["state"])
+                check(not gaps, f"tp {name} rounds differ from the "
+                                f"one-process run: {gaps}")
+                check(_only(across["launches"], gossip_gather=want),
+                      f"tp {name} rounds launched {across['launches']}; "
+                      f"want {want} gossip_gather")
+                check(across["peak_bytes"] < 80e9,
+                      f"peak {across['peak_bytes']} B")
+                counts = _add_counts(counts, across["launches"])
+                out[name] = {
+                    "rounds": rounds, "bitwise_leaves":
+                        len(list(_state_leaves(single["state"]))),
+                    "launches": across["launches"],
+                    "one_process_launches": single["launches"],
+                    "round_ms": across["round_ms"],
+                    "one_process_round_ms": single["round_ms"],
+                    "loss": across["loss"],
+                    "peak_bytes": across["peak_bytes"],
+                    "one_process_peak_bytes": single["peak_bytes"],
+                    "ranks_peak_before_executor_bytes": RANKS_PEAK_BYTES}
+                del single, across
+    finally:
+        ranks.shutdown()
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    ctx["tp_launches"] = counts
+    emit("tp", card=ctx["smi"], arch="qwen2-0.5b", clients=4, batch=2,
+         seq=128, d_flat=REGIME_B_D, mesh={"data": 1, "model": 1},
+         backend="nccl", deterministic_algorithms=True, **out)
+
+
 def _host_gap(torch, a, b, chunk: int = 1 << 27) -> float:
     """max |a - b| over two CPU tensors, checked against the Regime B
     tolerance, `chunk` elements at a time on the card (a full-width leaf
@@ -5565,6 +5720,7 @@ def phase_timings(ctx):
         "checkpoint_launches": ctx["checkpoint_launches"]["gossip_gather"],
         "regime_b_launches": ctx["regime_b_launches"]["gossip_gather"],
         "ranks_launches": ctx["ranks_launches"]["gossip_gather"],
+        "tp_launches": ctx["tp_launches"]["gossip_gather"],
         "regime_b": ctx["regime_b_kernels"]["gossip_gather"],
         "moe_launches": ctx["moe_launches"]["gossip_gather"],
         "vlm_launches": ctx["vlm_launches"]["gossip_gather"],
@@ -6073,7 +6229,7 @@ def main(argv=None) -> int:
              "timings": {"kernels", "train", "sampled", "kernel_mix",
                          "compress", "baselines", "async", "analysis", "obs",
                          "checkpoint", "serve", "lm", "dense",
-                         "regime_b", "ranks", "moe", "vlm", "ssm",
+                         "regime_b", "ranks", "tp", "moe", "vlm", "ssm",
                          "encdec"}}
     for phase in only:
         missing = needs.get(phase, set()) - wanted
@@ -6088,7 +6244,7 @@ def main(argv=None) -> int:
            "obs": phase_obs, "checkpoint": phase_checkpoint,
            "serve": phase_serve, "lm": phase_lm, "dense": phase_dense,
            "regime_b": phase_regime_b, "ranks": phase_ranks,
-           "remat": phase_remat, "moe": phase_moe, "vlm": phase_vlm,
+           "tp": phase_tp, "remat": phase_remat, "moe": phase_moe, "vlm": phase_vlm,
            "ssm": phase_ssm, "encdec": phase_encdec,
            "timings": phase_timings}
     t0 = time.perf_counter()

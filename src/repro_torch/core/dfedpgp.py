@@ -156,6 +156,11 @@ class DFedPGP:
     # round gauges (repro_torch.obs) in the resident rounds' metrics;
     # the tree-form round_fn refuses them
     telemetry: bool = False
+    # a client mesh rank's tensor-parallel share (`launch.tp.Executor`):
+    # the resident steps run on the rank's columns of the buffer (z
+    # gathered over its model group, the gradient reduce-scattered); the
+    # tree form's leaves are already the rank's shards
+    tp: Optional[Any] = None
 
     def __post_init__(self):
         if self.gossip not in gossip.MODES:
@@ -388,10 +393,13 @@ class DFedPGP:
         """Every client's K_v personal steps at the pinned z^{t,0} = u/mu
         (personal gradient only).  batches_v leaves (m, K_v, B, ...);
         lr_scale (m,).  -> (personal, opt_v, (m,) mean loss)."""
-        z0 = (flat / mu[:, None]).to(flat.dtype)
+        tp = self.tp
+        z0 = self._z(flat, mu)
 
         def v_loss(pv, batch, z_row):
             shared = layout.unravel_row(z_row)
+            if tp is not None:
+                shared = tp.shard_row(shared)
             return self.loss_fn(partition.merge(shared, pv), batch)
 
         def client_v(pv, sv, bv, z_row, ls):
@@ -407,12 +415,17 @@ class DFedPGP:
         de-bias).  batch leaves (m, B, ...); lr_scale (m,).  -> (flat,
         opt_u, (m,) loss), and with grad_norm the (m,) f32 norm of each
         client's gradient row (what the optimizer consumed) — read after
-        the update, so the step's arithmetic is the same."""
-        value_and_grad_u = vmap(grad_and_value(
-            local.flat_view_loss(self.loss_fn, layout)))
-        z = (flat / mu[:, None]).to(flat.dtype)
+        the update, so the step's arithmetic is the same.  With `tp` the
+        rows are the rank's columns: the gradient is taken at the gathered
+        z and reduced onto them (`launch.tp.Executor.finish_grad`)."""
+        tp = self.tp
+        value_and_grad_u = vmap(grad_and_value(local.flat_view_loss(
+            self.loss_fn, layout, None if tp is None else tp.shard_row)))
+        z = self._z(flat, mu)
         g, loss = value_and_grad_u(z, personal, batch)
         del z
+        if tp is not None:
+            g = tp.finish_grad(g)
         if self.grad_hook_flat is not None or self.grad_hook is not None:
             g = vmap(self._apply_flat_grad_hook)(g)
         flat2, s2 = self.opt_u.update(g, opt_u, flat, lr_scale[:, None])
@@ -420,6 +433,13 @@ class DFedPGP:
             return flat2, s2, loss, torch.linalg.vector_norm(
                 g.to(torch.float32), dim=1)
         return flat2, s2, loss
+
+    def _z(self, flat, mu):
+        """z = u / mu of the resident rows, gathered into whole rows over
+        the model group with `tp`."""
+        if self.tp is not None:
+            return self.tp.gather_z(flat, mu)
+        return (flat / mu[:, None]).to(flat.dtype)
 
     def _apply_flat_grad_hook(self, g):
         """The hook of one client's (d_flat,) gradient row: grad_hook_flat,

@@ -29,12 +29,16 @@ def n_steps(batches: dict) -> int:
     return next(iter(batches.values())).shape[1]
 
 
-def flat_view_loss(loss_fn: Callable, layout) -> Callable:
+def flat_view_loss(loss_fn: Callable, layout, shard=None) -> Callable:
     """Wrap a tree-form loss into one over a client's flat shared row:
     (flat_row, personal_i, batch) -> loss.  The row is unraveled into leaf
-    views only at the loss_fn boundary."""
+    views only at the loss_fn boundary; `shard` (a tensor-parallel
+    rank's `launch.tp.Executor.shard_row`) then takes the rank's shard of
+    each leaf."""
     def wrapped(flat_row, personal_i, batch):
         shared = layout.unravel_row(flat_row)
+        if shard is not None:
+            shared = shard(shared)
         return loss_fn(partition.merge(shared, personal_i), batch)
 
     return wrapped

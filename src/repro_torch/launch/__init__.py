@@ -9,6 +9,9 @@ gossips over the run's one `TopologySchedule` while `lm_head` and
   ranks    the process-group setup (NCCL on the card, gloo on the CPU,
            a file rendezvous) and the row plans of the cross-rank mixes
   sharding the reference's placement rules as tuples
+  tp       tensor parallelism across a client mesh's 'model' group: the
+           shard plan, the conjugate collectives, the vocab-parallel
+           embedding and cross-entropy, a rank's share of the round
   steps    `Layout` / `decide_layout`, the input structs (meta tensors),
            the placements, the cross-rank mixes, `build_train_algo` and
            the `build_*_step` functions of the train / prefill / decode
@@ -22,7 +25,8 @@ gossips over the run's one `TopologySchedule` while `lm_head` and
 
 On one device every client lives on it and the gossip is the matrix mix
 (the `gossip_gather` kernel on the resident buffer).  Across the ranks of
-a client mesh each rank holds a contiguous block of clients and the mixes
-exchange the rows that cross ranks; tensor parallelism is placed, not
-executed (ROADMAP item 17).
+a (data, model) client mesh each data index holds a contiguous block of
+clients, its model ranks split those clients' models (the dense and vlm
+families; `tp.py`), and the mixes exchange the rows that cross data
+indices among the ranks of one model index.
 """

@@ -15,7 +15,7 @@ without `--ranks`).
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
@@ -39,30 +39,45 @@ def mesh_spec(shape, axes) -> MeshSpec:
 
 
 class ClientMesh(NamedTuple):
-    """A client mesh over the W ranks of the default process group:
-    'data' has W ranks, 'model' 1; this process is `rank`, on `device`,
-    and holds the clients `rows` of `n_clients`."""
+    """A client mesh over the W ranks of the default process group, laid
+    out as `jax.make_mesh((W / T, T), ("data", "model"))` lays out devices:
+    global rank = d * T + t.  This process is `rank`, on `device`, at data
+    index d (`data_index`) and model index t (`model_index`); it holds the
+    clients `rows` of `n_clients` (the block of d) and the t-th shard of
+    each of their models.  `data_group` holds the ranks of its model index
+    (the mixes run there), `model_group` the ranks of its data index (the
+    tensor-parallel collectives run there)."""
     axis_names: Tuple[str, ...]
     shape: Dict[str, int]
     n_clients: int
     rank: int
     device: torch.device
+    data_index: int
+    model_index: int
+    data_group: Any
+    model_group: Any
 
     @property
     def world(self) -> int:
+        """The ranks of the data group: how many blocks the clients are
+        cut into."""
         return self.shape["data"]
 
     @property
     def rows(self) -> Tuple[int, int]:
-        return ranks.row_range(self.n_clients, self.world, self.rank)
+        return ranks.row_range(self.n_clients, self.world, self.data_index)
 
     @property
     def n_local(self) -> int:
         return self.n_clients // self.world
 
+    def peer(self, q: int) -> int:
+        """The global rank of data index q in this rank's data group."""
+        return q * self.shape["model"] + self.model_index
 
-TP_ACROSS_RANKS = ("tensor parallelism across ranks is not ported yet "
-                   "(ROADMAP item 17)")
+
+TP_ACROSS_RANKS = ("tensor parallelism of this family across ranks is not "
+                   "ported yet (ROADMAP item 17b)")
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> MeshSpec:
@@ -75,23 +90,33 @@ def make_production_mesh(*, multi_pod: bool = False) -> MeshSpec:
 
 
 def make_host_mesh(n_clients: int = 4, model: int = 1) -> ClientMesh:
-    """The client mesh of `n_clients` over the ranks of the initialized
-    default process group (`ranks.init`).  Refuses m % W != 0 and
-    model > 1 (tensor parallelism across ranks)."""
+    """The client mesh of `n_clients` over the W ranks of the initialized
+    default process group (`ranks.init`): (data W / T, model T) with T =
+    `model`.  Refuses W % T != 0 and m % (W / T) != 0.  Every rank creates
+    every data group and every model group, in the same order (a rank
+    that skipped one would hang the others)."""
     import torch.distributed as dist
-    if model != 1:
-        raise NotImplementedError(f"make_host_mesh(model={model}): "
-                                  f"{TP_ACROSS_RANKS}")
     if not dist.is_initialized():
         raise RuntimeError("make_host_mesh needs the default process group: "
                            "call launch.ranks.init first")
     world, rank = dist.get_world_size(), dist.get_rank()
-    ranks.row_range(n_clients, world, rank)        # refuses m % W
+    T = int(model)
+    if T < 1 or world % T:
+        raise ValueError(f"{world} ranks over model={T}: the client mesh "
+                         f"wants W % T == 0 (whole data indices)")
+    n_data = world // T
+    d, t = divmod(rank, T)
+    ranks.row_range(n_clients, n_data, d)          # refuses m % (W / T)
+    data_groups = [dist.new_group([q * T + s for q in range(n_data)])
+                   for s in range(T)]
+    model_groups = [dist.new_group([q * T + s for s in range(T)])
+                    for q in range(n_data)]
     backend = dist.get_backend()
     device = (torch.device("cuda", torch.cuda.current_device())
               if backend == "nccl" else torch.device("cpu"))
-    return ClientMesh(("data", "model"), {"data": world, "model": 1},
-                      int(n_clients), rank, device)
+    return ClientMesh(("data", "model"), {"data": n_data, "model": T},
+                      int(n_clients), rank, device, d, t, data_groups[t],
+                      model_groups[d])
 
 
 def client_layout(mesh, strategy: str = "auto", arch_id: str = ""):
@@ -120,8 +145,9 @@ def client_layout(mesh, strategy: str = "auto", arch_id: str = ""):
 
 def one_device_layout(n_clients: int, per_client_batch: int):
     """The layout of `launch/train.py` on one device, and of every rank of
-    a client mesh: clients named along 'data', no tensor parallelism to
-    speak of; n_clients counts every client of the run."""
+    a client mesh: clients named along 'data', TP along 'model' (a client
+    mesh's model group executes it, `launch/tp.py`); n_clients counts
+    every client of the run."""
     from .steps import Layout
     return Layout(("data",), (), ("model",), (), int(n_clients),
                   int(per_client_batch))

@@ -1,15 +1,19 @@
 """Ranks of a client mesh on `torch.distributed`: the process-group setup
 and the row plans of the cross-rank mixes.
 
-W ranks each hold a contiguous block of the m clients (rank r the rows
-[r m/W, (r+1) m/W)).  The backend follows the device: NCCL for CUDA
+The D data indices of a client mesh each hold a contiguous block of the m
+clients (data index d the rows [d m/D, (d+1) m/D)); with T model ranks a
+data index is T ranks, each holding one tensor-parallel shard of those
+clients (`launch/mesh.py`, `launch/tp.py`).  The backend follows the device: NCCL for CUDA
 tensors, gloo for CPU tensors; a CUDA run never falls back to gloo.  The
 rendezvous is a file (`init_method="file://..."`), so no port is opened.
 
-The plans are pure functions of (m, W, rank) and the round's pattern, so
-every rank computes its peers' side of an exchange without asking, and
-the tests and the dry run (`launch/dryrun.py`) read the same plans the
-mixes execute:
+The plans are pure functions of (m, D, data index) and the round's
+pattern, so every rank computes its peers' side of an exchange without
+asking, and the tests and the dry run (`launch/dryrun.py`) read the same
+plans the mixes execute.  A plan's peer q is a data index: the mixes
+exchange with its global rank q T + t (`ClientMesh.peer`), so the ranks of
+one model index t mix their shards among themselves:
 - `permutation_steps`: the ppermute mix's pull from (j - off) mod m, one
   step per local row; a step receives the row it combines (or copies it
   locally) and sends the rows its peers combine in the same step, so a
@@ -176,10 +180,12 @@ def exchange(sends, recvs) -> None:
             req.wait()
 
 
-def all_gather_rows(x: torch.Tensor, world: int) -> torch.Tensor:
-    """The (m, ...) concatenation of every rank's (m / W, ...) block, a
-    collective even on one rank (so a one-rank group runs its backend)."""
+def all_gather_rows(x: torch.Tensor, world: int, group=None) -> torch.Tensor:
+    """The (m, ...) concatenation of the (m / D, ...) blocks of the `world`
+    ranks of `group` (a client mesh's data group; None: the default
+    group), a collective even on one rank (so a one-rank group runs its
+    backend)."""
     import torch.distributed as dist
     parts = [torch.empty_like(x) for _ in range(world)]
-    dist.all_gather(parts, x.contiguous())
+    dist.all_gather(parts, x.contiguous(), group=group)
     return torch.cat(parts)

@@ -4,10 +4,13 @@
         --job JOB IN.npz OUT.npz [--job JOB IN.npz OUT.npz ...]
 
 Every rank joins one process group (`ranks.init`, a file rendezvous in a
-fresh temporary directory) and runs the jobs in turn: each takes its
-block of the client rows, and rank 0 writes the blocks gathered back in
-row order.  IN.npz holds the arrays and, under "meta", a JSON object of
-the job's settings.
+fresh temporary directory) and runs the jobs in turn on the client mesh
+(data W / T, model T), T = meta.tp (default 1): each rank takes its data
+index's block of the client rows and its model index's shards of them
+(`launch/tp.py`), and rank 0 writes the whole leaves and rows gathered
+back in order.  IN.npz holds the arrays and, under "meta", a JSON object
+of the job's settings; meta.cfg replaces fields of the `reduced()`
+config (compute dtype f32).
 Jobs (m clients, every array leading with m):
 - `mix_flat`: `make_ppermute_mix_flat` on "flat" (m, d) and "mu" (m,),
   rounds t < meta.rounds of the exponential schedule, each mixing the
@@ -21,7 +24,15 @@ Jobs (m clients, every array leading with m):
   `reduced()` meta.arch (gossip meta.gossip, topology meta.topology) from
   the state "flat", "mu", "mom_u", "personal/<path>", "mom_v/<path>",
   with batches "b/t/{v,u}/{tokens,labels}" and (matrix) tables "idx/t",
-  "w/t" -> the final state's leaves under the same names.
+  "w/t" -> the final state's leaves under the same names;
+- `tree_rounds`: meta.rounds tree-form rounds (gossip "ppermute", the
+  exponential schedule) from "params/<path>", "mu", "mom_u/<path>",
+  "mom_v/<path>" (the momentum trees' placeholder leaves (m,)) and the
+  batches -> the final state's leaves under the same names;
+- `tp_loss`: each client's loss on the rank's shards of "params/<path>"
+  and the batch "tokens", "labels" (and a vlm's "vision"), under
+  `vmap(grad_and_value(...))` over the clients -> "loss" (m,) and the
+  whole gradients "grad/<path>".
 The tests of the cross-rank mixes run these jobs on gloo and hold the
 results against the JAX reference on the same arrays.
 """
@@ -40,9 +51,10 @@ import torch
 from .. import tree
 from ..core import dfedpgp, topology
 from . import mesh as mesh_mod
-from . import ranks, steps
+from . import ranks, steps, tp
 
-JOBS = ("mix_flat", "mix_tree", "matrix", "rounds")
+JOBS = ("mix_flat", "mix_tree", "matrix", "rounds", "tree_rounds",
+        "tp_loss")
 
 
 def _tensor(a: np.ndarray, dev) -> torch.Tensor:
@@ -57,8 +69,35 @@ def _sub(data: dict, prefix: str) -> list:
             for key in sorted(data) if key.startswith(prefix + "/")]
 
 
-def _gathered(x: torch.Tensor, world: int) -> np.ndarray:
-    return ranks.all_gather_rows(x, world).cpu().numpy()
+def _gathered(x: torch.Tensor, mesh) -> np.ndarray:
+    """The (m, ...) rows of every data index (a collective)."""
+    return ranks.all_gather_rows(x, mesh.world,
+                                 mesh.data_group).cpu().numpy()
+
+
+def _tree_out(out: dict, name: str, tree_, mesh) -> None:
+    for p, leaf in tree.paths(tree_):
+        out[name + "/" + "/".join(map(str, p))] = _gathered(leaf, mesh)
+
+
+def _config(meta: dict):
+    from ..configs import get_reduced
+    fields = {k: tuple(v) if isinstance(v, list) else v
+              for k, v in meta.get("cfg", {}).items()}
+    return get_reduced(meta["arch"]).replace(compute_dtype="float32",
+                                             **fields)
+
+
+def _batch(data: dict, prefix: str, dev, lo: int, hi: int) -> dict:
+    """The batch leaves under `prefix` (tokens and labels as int64), the
+    rows [lo, hi)."""
+    out = {}
+    for name in ("tokens", "labels", "vision"):
+        key = prefix + name
+        if key in data:
+            x = _tensor(data[key], dev)[lo:hi]
+            out[name] = x if name == "vision" else x.long()
+    return out
 
 
 def _layout(m: int):
@@ -67,7 +106,7 @@ def _layout(m: int):
 
 def _mix_job(job: str, meta: dict, data: dict, mesh) -> dict:
     lo, hi = mesh.rows
-    dev, m, world = mesh.device, mesh.n_clients, mesh.world
+    dev, m = mesh.device, mesh.n_clients
     mu = _tensor(data["mu"], dev)[lo:hi]
     wd = getattr(torch, meta["wire_dtype"]) if meta.get("wire_dtype") \
         else None
@@ -84,10 +123,8 @@ def _mix_job(job: str, meta: dict, data: dict, mesh) -> dict:
                                       wire_dtype=wd, schedule=sched)
         for t in range(meta["rounds"]):
             params, mu = mix(params, mu, dfedpgp.round_counter(t, dev))
-            for p, leaf in tree.paths(params):
-                out[f"params/{t}/" + "/".join(map(str, p))] = \
-                    _gathered(leaf, world)
-            out[f"mu/{t}"] = _gathered(mu, world)
+            _tree_out(out, f"params/{t}", params, mesh)
+            out[f"mu/{t}"] = _gathered(mu, mesh)
         return out
     flat = _tensor(data["flat"], dev)[lo:hi]
     if job == "mix_flat":
@@ -101,49 +138,84 @@ def _mix_job(job: str, meta: dict, data: dict, mesh) -> dict:
             P = topology.SparseTopology(torch.from_numpy(data[f"idx/{t}"]),
                                         torch.from_numpy(data[f"w/{t}"]))
         flat, mu = mix(flat, mu, dfedpgp.round_counter(t, dev), P)
-        out[f"flat/{t}"], out[f"mu/{t}"] = (_gathered(flat, world),
-                                            _gathered(mu, world))
+        out[f"flat/{t}"], out[f"mu/{t}"] = (_gathered(flat, mesh),
+                                            _gathered(mu, mesh))
     return out
 
 
-def _rounds_job(meta: dict, data: dict, mesh) -> dict:
-    from ..configs import get_reduced
+def _rounds_job(job: str, meta: dict, data: dict, mesh) -> dict:
     from ..spec import make_algo_spec
     lo, hi = mesh.rows
-    dev, m, world = mesh.device, mesh.n_clients, mesh.world
-    cfg = get_reduced(meta["arch"]).replace(compute_dtype="float32")
+    dev, m = mesh.device, mesh.n_clients
+    resident = job == "rounds"
+    cfg = _config(meta)
     spec = make_algo_spec("dfedpgp", topology=meta["topology"],
                           n_neighbors=meta.get("n_neighbors", 2), seed=0,
-                          gossip=meta["gossip"], resident=True)
+                          gossip=meta["gossip"], resident=resident)
     algo, _, _, flat_layout = steps.build_train_algo(
         cfg, mesh, _layout(m), spec=spec, lr=0.02)
+    shards = algo.tp
 
     def rows(prefix):
         return tree.from_paths((p, _tensor(a, dev)[lo:hi])
                                for p, a in _sub(data, prefix))
 
-    state = dfedpgp.FlatDFedPGPState(
-        flat=_tensor(data["flat"], dev)[lo:hi], personal=rows("personal"),
-        mu=_tensor(data["mu"], dev)[lo:hi],
-        opt_u=dfedpgp.SGDState(_tensor(data["mom_u"], dev)[lo:hi]),
-        opt_v=dfedpgp.SGDState(rows("mom_v")),
-        round=dfedpgp.round_counter(0, dev))
+    rnd = dfedpgp.round_counter(0, dev)
+    mu = _tensor(data["mu"], dev)[lo:hi]
+    if resident:
+        state = shards.shard_state(dfedpgp.FlatDFedPGPState(
+            flat=_tensor(data["flat"], dev)[lo:hi],
+            personal=rows("personal"), mu=mu,
+            opt_u=dfedpgp.SGDState(_tensor(data["mom_u"], dev)[lo:hi]),
+            opt_v=dfedpgp.SGDState(rows("mom_v")), round=rnd))
+    else:
+        state = dfedpgp.DFedPGPState(
+            params=shards.shard(rows("params")), mu=mu,
+            opt_u=dfedpgp.SGDState(shards.shard(rows("mom_u"))),
+            opt_v=dfedpgp.SGDState(shards.shard(rows("mom_v"))),
+            round=rnd)
     for t in range(meta["rounds"]):
-        b = {part: {name: _tensor(data[f"b/{t}/{part}/{name}"],
-                                  dev).long()[lo:hi]
-                    for name in ("tokens", "labels")} for part in "vu"}
+        b = {part: _batch(data, f"b/{t}/{part}/", dev, lo, hi)
+             for part in "vu"}
         P = None
         if meta["gossip"] == "matrix":
             P = topology.SparseTopology(torch.from_numpy(data[f"idx/{t}"]),
                                         torch.from_numpy(data[f"w/{t}"]))
-        state, _ = algo.round_fn_flat(state, P, b, flat_layout)
-    out = {"flat": _gathered(state.flat, world),
-           "mu": _gathered(state.mu, world),
-           "mom_u": _gathered(state.opt_u.momentum, world)}
-    for name, t in (("personal", state.personal),
-                    ("mom_v", state.opt_v.momentum)):
-        for p, leaf in tree.paths(t):
-            out[name + "/" + "/".join(map(str, p))] = _gathered(leaf, world)
+        if resident:
+            state, _ = algo.round_fn_flat(state, P, b, flat_layout)
+        else:
+            state, _ = algo.round_fn(state, P, b)
+    out = {"mu": _gathered(state.mu, mesh)}
+    if resident:
+        state = shards.unshard_state(state)
+        out["flat"] = _gathered(state.flat, mesh)
+        out["mom_u"] = _gathered(state.opt_u.momentum, mesh)
+        trees = (("personal", state.personal),
+                 ("mom_v", state.opt_v.momentum))
+    else:
+        trees = (("params", shards.unshard(state.params)),
+                 ("mom_u", shards.unshard(state.opt_u.momentum)),
+                 ("mom_v", shards.unshard(state.opt_v.momentum)))
+    for name, t in trees:
+        _tree_out(out, name, t, mesh)
+    return out
+
+
+def _loss_job(meta: dict, data: dict, mesh) -> dict:
+    from torch.func import grad_and_value, vmap
+    from ..models import get_model
+    lo, hi = mesh.rows
+    dev = mesh.device
+    cfg = _config(meta)
+    params = tree.from_paths((p, _tensor(a, dev)[lo:hi])
+                             for p, a in _sub(data, "params"))
+    template = tree.tree_map(lambda a: a[0], params)
+    shards = tp.Executor(cfg, mesh, template)
+    loss_fn = shards.loss_fn(get_model(cfg), cfg)
+    grads, loss = vmap(grad_and_value(loss_fn))(
+        shards.shard(params), _batch(data, "", dev, lo, hi))
+    out = {"loss": _gathered(loss, mesh)}
+    _tree_out(out, "grad", shards.unshard(grads), mesh)
     return out
 
 
@@ -155,9 +227,14 @@ def _rank(rank: int, jobs, world: int, init_file: str, device: str) -> None:
         for job, inp, out in jobs:
             data = dict(np.load(inp))
             meta = json.loads(str(data.pop("meta")))
-            mesh = mesh_mod.make_host_mesh(meta["m"])
-            res = _rounds_job(meta, data, mesh) if job == "rounds" \
-                else _mix_job(job, meta, data, mesh)
+            mesh = mesh_mod.make_host_mesh(meta["m"],
+                                           model=meta.get("tp", 1))
+            if job in ("rounds", "tree_rounds"):
+                res = _rounds_job(job, meta, data, mesh)
+            elif job == "tp_loss":
+                res = _loss_job(meta, data, mesh)
+            else:
+                res = _mix_job(job, meta, data, mesh)
             if rank == 0:
                 np.savez(out, **res)
     finally:

@@ -9,11 +9,15 @@ resident (m, d_flat) buffer, the `gossip_gather` kernel on the card) or
 the one-peer permutation mix of the reference's `shard_map` + `ppermute`.
 
 One device holds every client (`mesh` None).  A client mesh
-(`mesh.make_host_mesh`) spreads them over the ranks of a
-`torch.distributed` group, each rank a contiguous block of rows: the
-permutation mix (`make_ppermute_mix_flat`, `make_ppermute_mix`) and the
-matrix mix (`make_matrix_mix_flat`) then exchange the rows that cross
-ranks with point-to-point operations (`launch/ranks.py` plans them).
+(`mesh.make_host_mesh`) spreads them over the (data, model) ranks of a
+`torch.distributed` group: each data index holds a contiguous block of
+rows, and its T model ranks split those clients' models (tensor
+parallelism, executed by `launch/tp.py`: each rank holds its shard of
+every leaf, or its columns of the resident buffer).  The permutation mix
+(`make_ppermute_mix_flat`, `make_ppermute_mix`) and the matrix mix
+(`make_matrix_mix_flat`) exchange the rows that cross data indices with
+point-to-point operations among the ranks of one model index (its data
+group; `launch/ranks.py` plans them), each mixing its own shard.
 The placements of the reference's `NamedSharding`s are tuples of
 `launch/sharding.py`, derived from any mesh object (a `MeshSpec` of the
 production meshes included); with `mesh` None the `build_*_step` tuples
@@ -25,8 +29,9 @@ Layouts (from the reference):
 - ``fsdp``: one client FSDP-sharded over 'data' and TP-sharded over
   'model', for deepseek-v2-236b (one pod per client on the multi-pod
   mesh) and for long_500k decode (global batch 1 cannot feed 16 clients).
-Tensor parallelism is arithmetic only: no rank executes a TP shard
-(ROADMAP item 17).
+On a client mesh the ranks of a data group execute the TP placement of
+the dense and vlm families (`launch/tp.py`); the other families run at
+T = 1 (ROADMAP item 17b).
 """
 from __future__ import annotations
 
@@ -44,7 +49,7 @@ from ..models.config import ModelConfig
 from ..optim import SGD, SGDState
 from ..tree import from_paths, paths, tree_map
 from ..tree import get as tree_get
-from . import ranks, sharding
+from . import ranks, sharding, tp
 from .mesh import ClientMesh
 from .sharding import axes_or_none
 
@@ -276,18 +281,19 @@ def _narrow(row: torch.Tensor, wire_dtype) -> torch.Tensor:
     return row.to(wire_dtype) if wire_dtype is not None else row
 
 
-def _permute_rows(x: torch.Tensor, steps, wire_dtype) -> torch.Tensor:
+def _permute_rows(x: torch.Tensor, steps, wire_dtype, peer) -> torch.Tensor:
     """(x + recv) * 0.5 over the local rows of x, recv[i] the source row
-    of `steps` (local, or received in the step's exchange).  Only the
-    copy that is sent (or copied) is narrowed to wire_dtype; one row is
-    received at a time, so the mix holds x, its output and one row."""
+    of `steps` (local, or received in the step's exchange; `peer` maps a
+    plan's data index to its global rank).  Only the copy that is sent
+    (or copied) is narrowed to wire_dtype; one row is received at a time,
+    so the mix holds x, its output and one row."""
     out = torch.empty_like(x)
     for st in steps:
-        sends = [(_narrow(x[i], wire_dtype), q) for i, q in st.sends]
+        sends = [(_narrow(x[i], wire_dtype), peer(q)) for i, q in st.sends]
         if st.local is None:
             got = torch.empty(x.shape[1:], device=x.device,
                               dtype=wire_dtype or x.dtype)
-            ranks.exchange(sends, [(got, st.peer)])
+            ranks.exchange(sends, [(got, peer(st.peer))])
         else:
             ranks.exchange(sends, [])
             got = _narrow(x[st.local], wire_dtype)
@@ -296,15 +302,16 @@ def _permute_rows(x: torch.Tensor, steps, wire_dtype) -> torch.Tensor:
     return out
 
 
-def _permute_mu(mu: torch.Tensor, steps, world: int) -> torch.Tensor:
-    """(mu + mu[src]) * 0.5 per local row, mu gathered from every rank."""
-    mu_all = ranks.all_gather_rows(mu, world)
+def _permute_mu(mu: torch.Tensor, steps, mesh) -> torch.Tensor:
+    """(mu + mu[src]) * 0.5 per local row, mu gathered over the data group
+    (the same on every model index)."""
+    mu_all = ranks.all_gather_rows(mu, mesh.world, mesh.data_group)
     return torch.stack([(mu[st.row] + mu_all[st.src]) * 0.5
                         for st in steps])
 
 
 def _permutation_plans(mesh, m: int, offsets):
-    return [ranks.permutation_steps(m, mesh.world, mesh.rank, off)
+    return [ranks.permutation_steps(m, mesh.world, mesh.data_index, off)
             for off in offsets]
 
 
@@ -315,9 +322,10 @@ def make_ppermute_mix(mesh, layout: Layout, mask, params_struct,
     ranks of a client mesh (`mesh.make_host_mesh`).  The per-round offsets
     come from `schedule` (default: the one-peer exponential graph): round
     t pulls from client (j - offsets[t mod period]) mod m with weights
-    (1/2, 1/2), so the push-sum weight stays 1.  Each shared leaf mixes
-    as (a + recv) * 0.5, recv narrowed to wire_dtype on the wire only; the
-    personal part merges back untouched.  -> mix(params, mu, rnd, P) ->
+    (1/2, 1/2), so the push-sum weight stays 1.  Each shared leaf (the
+    rank's shard of it) mixes as (a + recv) * 0.5 over the data group,
+    recv narrowed to wire_dtype on the wire only; the personal part
+    merges back untouched.  -> mix(params, mu, rnd, P) ->
     (params, mu); `rnd` is the state's round counter (its host value,
     `dfedpgp.host_round`, picks the offset) and P is not read."""
     m = layout.n_clients
@@ -327,8 +335,9 @@ def make_ppermute_mix(mesh, layout: Layout, mask, params_struct,
     def mix(params, mu, rnd, P_unused=None):
         steps = plans[dfedpgp.host_round(rnd) % len(plans)]
         u, v = partition.split(params, mask)
-        u2 = tree_map(lambda a: _permute_rows(a, steps, wire_dtype), u)
-        return partition.merge(u2, v), _permute_mu(mu, steps, mesh.world)
+        u2 = tree_map(lambda a: _permute_rows(a, steps, wire_dtype,
+                                              mesh.peer), u)
+        return partition.merge(u2, v), _permute_mu(mu, steps, mesh)
 
     return mix
 
@@ -337,8 +346,9 @@ def make_ppermute_mix_flat(mesh, layout: Layout, d_flat: int,
                            wire_dtype=None,
                            schedule: "topology.TopologySchedule | None"
                            = None):
-    """The resident form of `make_ppermute_mix`: the rank's (m / W,
-    d_flat) block of the buffer mixes row by row (at most one received row
+    """The resident form of `make_ppermute_mix`: the rank's (m / D,
+    d_flat / T) block of the buffer (its clients' rows, its columns of
+    them) mixes row by row over the data group (at most one received row
     held at a time), mu with it.  -> mix(flat, mu, rnd, P) -> (flat, mu)
     for `DFedPGP(mix_fn_flat=...)`."""
     m = layout.n_clients
@@ -347,8 +357,8 @@ def make_ppermute_mix_flat(mesh, layout: Layout, d_flat: int,
 
     def mix(flat, mu, rnd, P_unused=None):
         steps = plans[dfedpgp.host_round(rnd) % len(plans)]
-        return (_permute_rows(flat, steps, wire_dtype),
-                _permute_mu(mu, steps, mesh.world))
+        return (_permute_rows(flat, steps, wire_dtype, mesh.peer),
+                _permute_mu(mu, steps, mesh))
 
     return mix
 
@@ -357,10 +367,12 @@ def make_matrix_mix_flat(mesh, layout: Layout, wire_dtype=None):
     """The resident matrix mix across the ranks of a client mesh, under a
     SparseTopology.  mix(flat, mu, rnd, P): P is the round's FULL (m, k)
     table in global ids, on the host (every rank holds the same one, so
-    each plans its peers' side, `ranks.gather_plan`).  The rank receives
-    the neighbor rows its clients read from other ranks into a buffer
-    after its own rows (one batch of point-to-point operations; on one
-    rank the block itself, no copy), then mixes its rows in one
+    each plans its peers' side, `ranks.gather_plan`).  The rank holds its
+    columns of its clients' rows (`launch/tp.py`); it receives those
+    columns of the neighbor rows its clients read from the other ranks of
+    its data group into a buffer after its own rows (one batch of
+    point-to-point operations; on one rank the block itself, no copy),
+    then mixes its rows in one
     `ops.gossip_gather` call (the kernel on the card; `mix_rows` for a
     narrowed payload, as `gossip.mix_flat`'s "sparse" mode), and mu by
     `mix_rows` over the gathered mu.  Wide tables (k >= m) gather too: the
@@ -368,7 +380,7 @@ def make_matrix_mix_flat(mesh, layout: Layout, wire_dtype=None):
     m, world = layout.n_clients, mesh.world
 
     def mix(flat, mu, rnd, P):
-        plan = ranks.gather_plan(P.idx.tolist(), m, world, mesh.rank)
+        plan = ranks.gather_plan(P.idx.tolist(), m, world, mesh.data_index)
         lo, hi, dev = plan.lo, plan.hi, flat.device
         x = _narrow(flat, wire_dtype)
         if plan.halo:
@@ -378,8 +390,9 @@ def make_matrix_mix_flat(mesh, layout: Layout, wire_dtype=None):
         else:
             ext = x
         ranks.exchange(
-            [(x[g - lo], q) for q, rows in plan.send for g in rows],
-            [(ext[plan.position(g)], q) for q, rows in plan.recv
+            [(x[g - lo], mesh.peer(q)) for q, rows in plan.send
+             for g in rows],
+            [(ext[plan.position(g)], mesh.peer(q)) for q, rows in plan.recv
              for g in rows])
         idx = torch.tensor([[plan.position(int(g)) for g in row]
                             for row in P.idx[lo:hi].tolist()],
@@ -389,7 +402,7 @@ def make_matrix_mix_flat(mesh, layout: Layout, wire_dtype=None):
             mixed = ops.gossip_gather(idx, w, ext)
         else:
             mixed = gossip.mix_rows(idx, w, ext)
-        mu_all = ranks.all_gather_rows(mu, world)
+        mu_all = ranks.all_gather_rows(mu, world, mesh.data_group)
         return (mixed.to(flat.dtype),
                 gossip.mix_rows(P.idx[lo:hi].to(dev), w, mu_all))
 
@@ -459,8 +472,11 @@ def build_train_algo(cfg: ModelConfig, mesh, layout: Layout,
     schedule / resident / telemetry; the kwargs are the legacy surface.
 
     `mesh`: None (one device: the matrix mix of `gossip.mix_flat`), or a
-    client mesh (`mesh.make_host_mesh`), whose rank runs the clients of
-    its block: gossip="ppermute" then mixes through
+    client mesh (`mesh.make_host_mesh`), whose rank runs its model index's
+    shard of the clients of its block (`algo.tp`, a `tp.Executor`; the
+    loss is the dense / vlm family's on shards, `tp.ModelShards`, and the
+    caller shards the init with `algo.tp.shard` / `.shard_state`):
+    gossip="ppermute" then mixes through
     `make_ppermute_mix_flat` (resident) or `make_ppermute_mix` (tree
     form), gossip="matrix" through `make_matrix_mix_flat` (resident only).
     gossip="ppermute" needs a client mesh."""
@@ -519,6 +535,12 @@ def _train_algo(cfg: ModelConfig, mesh, layout: Layout, knobs, spec,
         raise AssertionError(f"schedule.m={schedule.m} != "
                              f"layout.n_clients={layout.n_clients}")
     flat_layout = FlatLayout.build(params_struct, mask) if resident else None
+    executor = None
+    if isinstance(mesh, ClientMesh):
+        # the cross-rank path always runs through the executor (at T = 1
+        # its shards are whole leaves and its collectives one-rank copies)
+        executor = tp.Executor(cfg, mesh, template, flat_layout)
+        loss_fn = executor.loss_fn(api, cfg)
     opt = SGD(lr=lr, momentum=0.9, weight_decay=5e-4)
     wire_dtype = getattr(torch, gossip_dtype) if gossip_dtype else None
     mix_fn, mix_fn_flat = _cross_rank_mixes(
@@ -531,7 +553,7 @@ def _train_algo(cfg: ModelConfig, mesh, layout: Layout, knobs, spec,
         loss_fn=loss_fn, mask=mask, opt_u=opt, opt_v=opt, k_v=k_v, k_u=k_u,
         mix_fn=mix_fn, mix_fn_flat=mix_fn_flat,
         grad_hook=grad_hook, grad_hook_flat=grad_hook_flat,
-        gossip_dtype=wire_dtype, telemetry=telemetry)
+        gossip_dtype=wire_dtype, telemetry=telemetry, tp=executor)
     return algo, mask, params_struct, flat_layout
 
 

@@ -18,14 +18,17 @@ a mesh.
 
 `--ranks W` spawns W processes joined in one `torch.distributed` group
 (`launch/ranks.py`: NCCL on the card, gloo on the CPU, a file
-rendezvous), or joins the group torchrun's environment describes.  Each
-rank holds the client mesh's block of m / W clients; the schedule and the
-batch draws are the same on every rank, each slicing its rows.  The mix
-crosses ranks: `--gossip ppermute` the permutation mix (tree form or
---resident), `--gossip matrix` the resident matrix mix.  Rank 0 prints and
-emits the records, their losses and mu range reduced over the ranks.  The
-sampled round, tensor parallelism and the gauges across ranks are refused
-(ROADMAP items 17, 18).
+rendezvous), or joins the group torchrun's environment describes.  With
+`--tp T` the W ranks form the client mesh (data W / T, model T): each
+data index holds a block of m / (W / T) clients, and its T model ranks
+split those clients' models (`launch/tp.py`: the dense and vlm families;
+the others run at T = 1, ROADMAP item 17b).  The schedule and the batch
+draws are the same on every rank, each slicing its rows.  The mix
+crosses data indices: `--gossip ppermute` the permutation mix (tree form
+or --resident), `--gossip matrix` the resident matrix mix.  Rank 0
+prints and emits the records, their losses and mu range reduced over its
+data group.  The sampled round and the gauges across ranks are refused
+(ROADMAP item 18).
 
 Usage (the reduced smoke config on the CPU, a few rounds, synthetic LM
 data):
@@ -35,9 +38,11 @@ data):
 and on the card at full width:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
       --clients 4 --resident
-and over two gloo ranks on the CPU:
+and over two gloo ranks on the CPU, or four as (data 2, model 2):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
       --reduced --clients 4 --resident --ranks 2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
+      --reduced --clients 4 --resident --ranks 4 --tp 2 --device cpu
 """
 from __future__ import annotations
 
@@ -58,7 +63,7 @@ from ..obs import gauges as obs_gauges
 from ..spec import make_algo_spec
 from ..tree import tree_map
 from . import mesh as mesh_mod
-from . import ranks, steps
+from . import ranks, steps, tp
 
 # streams of `device.seeded_generator`: client i's init is (0, INIT, i),
 # round r's batches (0, DATA, r + 1)
@@ -146,7 +151,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "(FlatDFedPGPState)")
     ap.add_argument("--reduced", action="store_true",
                     help="use the reduced (smoke) variant of the arch")
-    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="with --ranks: T model ranks split each client's "
+                         "model (tensor parallelism; W %% T == 0, the dense "
+                         "and vlm families); without --ranks a note only")
     ap.add_argument("--sample", type=float, default=1.0,
                     help="participation fraction per round: < 1 draws a "
                          "seeded uniform subset each round and runs the "
@@ -185,13 +193,19 @@ def check_ranks_args(ap, args, world: int) -> None:
     starts)."""
     if world < 1:
         ap.error(f"--ranks {world}: want at least one rank")
+    T = args.tp
+    if T < 1 or world % T:
+        ap.error(f"--ranks {world} --tp {T}: the client mesh wants "
+                 f"W % T == 0 (whole data indices)")
     try:
-        ranks.row_range(args.clients, world, 0)
+        ranks.row_range(args.clients, world // T, 0)
     except ValueError as e:
-        ap.error(f"--ranks {world}: {e}")
-    if args.tp > 1:
-        ap.error(f"--tp {args.tp} with --ranks: "
-                 f"{mesh_mod.TP_ACROSS_RANKS}")
+        ap.error(f"--ranks {world} --tp {T}: {e}")
+    cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    try:
+        tp.check_tp(cfg, T)
+    except (ValueError, NotImplementedError) as e:
+        ap.error(f"--tp {T}: {e}")
     if args.sample < 1.0:
         ap.error(f"--sample {args.sample} with --ranks: the sampled round "
                  f"across ranks is not ported yet (ROADMAP item 18)")
@@ -221,7 +235,7 @@ class Trainer:
         m = args.clients
         gossip = args.gossip
         if mesh is not None:
-            check_ranks_args(ap, args, mesh.world)
+            check_ranks_args(ap, args, mesh.world * mesh.shape["model"])
             self.rows = range(*mesh.rows)
         else:
             self.rows = range(m)
@@ -260,10 +274,18 @@ class Trainer:
         n = len(self.rows)
         self.d_client = partition.count_params(stacked) // n
         self.d_shared = partition.count_params(stacked, self.mask, True) // n
+        # a client mesh's rank keeps its shard of every client
+        # (`algo.tp`, launch/tp.py)
+        shards = self.algo.tp
         if args.resident:
             self.state, self.flat_layout = self.algo.init_flat(
                 stacked, self.flat_layout, device=self.device)
+            del stacked
+            if shards is not None:
+                self.state = shards.shard_state(self.state)
         else:
+            if shards is not None:
+                stacked = shards.shard(stacked)
             self.state = self.algo.init(stacked, device=self.device)
 
     def batches(self, r: int) -> dict:
@@ -311,17 +333,19 @@ class Trainer:
         return metrics, P, active
 
     def reduce_metrics(self, metrics: dict) -> dict:
-        """A round's metrics over every rank of the client mesh: the mean
-        losses over all clients, mu's min and max over all rows (the
-        rank's own on one device)."""
+        """A round's metrics over the client mesh: the mean losses over all
+        clients, mu's min and max over all rows (the rank's own on one
+        device).  They reduce over the data group: the model ranks of a
+        data index hold the same clients' losses and mu, which a reduction
+        over every rank would count T times."""
         if self.mesh is None:
             return metrics
         import torch.distributed as dist
-        n = self.mesh.n_local
+        n, group = self.mesh.n_local, self.mesh.data_group
         losses = torch.stack([metrics["loss_v"], metrics["loss_u"]]) * n
         lo_hi = torch.stack([-metrics["mu_min"], metrics["mu_max"]])
-        dist.all_reduce(losses)
-        dist.all_reduce(lo_hi, op=dist.ReduceOp.MAX)
+        dist.all_reduce(losses, group=group)
+        dist.all_reduce(lo_hi, op=dist.ReduceOp.MAX, group=group)
         losses = losses / self.m
         return dict(metrics, loss_v=losses[0], loss_u=losses[1],
                     mu_min=-lo_hi[0], mu_max=lo_hi[1])
@@ -347,7 +371,7 @@ def main(argv=None):
 def _join(args, rank: int, world: int, init_file):
     """This process's rank of the group and its client mesh."""
     ranks.init(rank, world, init_file, args.device)
-    return mesh_mod.make_host_mesh(args.clients)
+    return mesh_mod.make_host_mesh(args.clients, model=args.tp)
 
 
 def _rank_main(rank: int, argv, world: int, init_file: str) -> None:
@@ -386,8 +410,10 @@ def run_rank(args, ap, mesh=None):
     lead = mesh is None or mesh.rank == 0
     say = print if lead else (lambda *a, **k: None)
     if mesh is not None:
-        say(f"[train] ranks={mesh.world} clients/rank={mesh.n_local} "
-            f"backend={ranks.backend_for(mesh.device)} gossip={args.gossip}")
+        say(f"[train] ranks={mesh.world * mesh.shape['model']} "
+            f"clients/rank={mesh.n_local} "
+            f"backend={ranks.backend_for(mesh.device)} gossip={args.gossip} "
+            f"data={mesh.world} model={mesh.shape['model']}")
     say(f"[train] {cfg.arch_id} family={cfg.family} clients={m} "
         f"params/client={run.d_client:,} shared={run.d_shared:,} "
         f"topology={run.schedule.kind} resident={args.resident}"

@@ -73,46 +73,78 @@ def _layer(params: dict, i: int) -> dict:
 # forward
 # ---------------------------------------------------------------------------
 def _block(lp: dict, x: torch.Tensor, positions: torch.Tensor,
-           cfg: ModelConfig, route: str) -> torch.Tensor:
+           cfg: ModelConfig, route: str, tp=None) -> torch.Tensor:
     h = L.rms_norm(x, lp["ln1"].to(x.dtype), cfg.norm_eps)
     x = x + L.attention_train(lp["attn"], h, positions, cfg,
-                              window=cfg.window, route=route)
+                              window=cfg.window, route=route, tp=tp)
     h = L.rms_norm(x, lp["ln2"].to(x.dtype), cfg.norm_eps)
-    return x + L.swiglu(lp["mlp"], h)
+    return x + L.swiglu(lp["mlp"], h, tp=tp)
 
 
 def backbone(params: dict, x: torch.Tensor, positions: torch.Tensor,
-             cfg: ModelConfig, route: str = "kernel") -> torch.Tensor:
-    """x: (B, S, D) embeddings -> (B, S, D) features."""
+             cfg: ModelConfig, route: str = "kernel",
+             tp=None) -> torch.Tensor:
+    """x: (B, S, D) embeddings -> (B, S, D) features; with `tp` the
+    layers hold one tensor-parallel shard (`launch/tp.py`)."""
     on = remat.enabled(cfg, route)
     for lp in L.unstack(params["layers"]):
-        x = remat.maybe(on, _block, lp, x, positions, cfg, route)
+        x = remat.maybe(on, _block, lp, x, positions, cfg, route, tp)
     return L.rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
+
+
+def embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+          tp=None) -> torch.Tensor:
+    """The tokens' embeddings in the compute dtype: gather, then cast (the
+    reference's cast-then-gather without a (vocab, d_model) temporary);
+    with `tp` from the rank's shard of the table."""
+    table = params["embed"]
+    x = table[tokens] if tp is None else tp.embed(table, tokens)
+    return x.to(cfg.cdtype)
+
+
+def head(params: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """Features -> logits through lm_head (with `tp`: the rank's logits,
+    `launch.tp.ModelShards.logits`)."""
+    if tp is None:
+        return x @ params["lm_head"].to(x.dtype)
+    return tp.logits(x, params["lm_head"])
 
 
 def forward_train(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
                   positions=None, last_only: bool = False,
-                  route: str = "kernel") -> torch.Tensor:
+                  route: str = "kernel", tp=None) -> torch.Tensor:
     """Logits (B, S, vocab), or (B, 1, vocab) with last_only (prefill: the
     next-token sample point only), in the compute dtype.  route: the
-    attention's (`layers.ROUTES`); "plain" is the training route."""
-    # gather, then cast: the reference's cast-then-gather without a
-    # (vocab, d_model) temporary
-    x = params["embed"][tokens].to(cfg.cdtype)
+    attention's (`layers.ROUTES`); "plain" is the training route.  With
+    `tp` (`launch.tp.ModelShards`) params hold model rank t's shards and
+    the logits are the rank's (its vocabulary slice where lm_head is
+    split over the vocabulary)."""
+    x = embed(params, tokens, cfg, tp)
     if positions is None:
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)[None, :]
-    x = backbone(params, x, positions, cfg, route)
+    x = backbone(params, x, positions, cfg, route, tp)
     if last_only:
         x = x[:, -1:]
-    return x @ params["lm_head"].to(x.dtype)
+    return head(params, x, tp)
 
 
-def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+def xent(logits: torch.Tensor, labels: torch.Tensor, tp=None):
+    """`layers.softmax_xent`, or its tensor-parallel form over the rank's
+    logits (`launch.tp.ModelShards.xent`)."""
+    if tp is None:
+        return L.softmax_xent(logits, labels)
+    return tp.xent(logits, labels)
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig,
+            tp=None) -> torch.Tensor:
     """Mean next-token cross-entropy on the training route (plain
-    attention under autograd)."""
-    logits = forward_train(params, batch["tokens"], cfg, route="plain")
-    return L.softmax_xent(logits, batch["labels"])
+    attention under autograd); with `tp` over model rank t's shards, the
+    same value on every rank of the model group."""
+    logits = forward_train(params, batch["tokens"], cfg, route="plain",
+                           tp=tp)
+    return xent(logits, batch["labels"], tp)
 
 
 # ---------------------------------------------------------------------------

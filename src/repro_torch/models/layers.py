@@ -268,11 +268,17 @@ def attend_auto(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def attention_train(p: dict, x: torch.Tensor, positions: torch.Tensor,
                     cfg: ModelConfig, window: int = 0,
                     theta: Optional[float] = None,
-                    route: str = "kernel") -> torch.Tensor:
+                    route: str = "kernel", tp=None) -> torch.Tensor:
     """Full-sequence attention block; `route` picks the attention
-    (`ROUTES`): the caller states it, nothing falls back."""
+    (`ROUTES`): the caller states it, nothing falls back.  With `tp` (a
+    `launch.tp.ModelShards`) p holds one tensor-parallel shard: wq / wk /
+    wv and their biases column-parallel (whole heads), wo row-parallel;
+    x enters through `tp.copy` and the partial output leaves through
+    `tp.reduce`."""
     if route not in ROUTES:
         raise ValueError(f"route={route!r}; known: {ROUTES}")
+    if tp is not None:
+        x, cfg = tp.copy(x), tp.heads(cfg)
     q, k, v = _qkv(p, x, cfg)
     th = theta if theta is not None else cfg.rope_theta
     if th > 0:
@@ -282,7 +288,8 @@ def attention_train(p: dict, x: torch.Tensor, positions: torch.Tensor,
         out = attend_plain(q, k, v, window=window)
     else:
         out = attend_auto(q, k, v, window=window)
-    return out.reshape(*x.shape[:2], -1) @ p["wo"].to(x.dtype)
+    out = out.reshape(*x.shape[:2], -1) @ p["wo"].to(x.dtype)
+    return out if tp is None else tp.reduce(out)
 
 
 def decode_slot(pos: int, C: int, window: int) -> int:
@@ -353,9 +360,15 @@ def init_swiglu(generator: torch.Generator, d: int, f: int,
             "wd": dense_init(generator, lead + (f, d), dtype, device=device)}
 
 
-def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
+def swiglu(p: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """SiLU(x Wg) * (x Wu) Wd; with `tp` (`launch.tp.ModelShards`) Wg / Wu
+    column-parallel and Wd row-parallel shards, x through `tp.copy` and
+    the partial output through `tp.reduce`."""
+    if tp is not None:
+        x = tp.copy(x)
     h = F.silu(x @ p["wg"].to(x.dtype)) * (x @ p["wu"].to(x.dtype))
-    return h @ p["wd"].to(x.dtype)
+    out = h @ p["wd"].to(x.dtype)
+    return out if tp is None else tp.reduce(out)
 
 
 def init_gelu_mlp(generator: torch.Generator, d: int, f: int,

@@ -48,7 +48,9 @@ def build_positions(n_vis: int, n_text: int, start_text_only: int = 0,
 
 
 def _mrope_attention(p: dict, x: torch.Tensor, positions3: torch.Tensor,
-                     cfg: ModelConfig, route: str) -> torch.Tensor:
+                     cfg: ModelConfig, route: str, tp=None) -> torch.Tensor:
+    if tp is not None:
+        x, cfg = tp.copy(x), tp.heads(cfg)
     q, k, v = L._qkv(p, x, cfg)
     q = L.apply_mrope(q, positions3, cfg.mrope_sections, cfg.rope_theta)
     k = L.apply_mrope(k, positions3, cfg.mrope_sections, cfg.rope_theta)
@@ -56,44 +58,49 @@ def _mrope_attention(p: dict, x: torch.Tensor, positions3: torch.Tensor,
         out = L.attend_plain(q, k, v)
     else:
         out = L.attend_auto(q, k, v)
-    return out.reshape(*x.shape[:2], -1) @ p["wo"].to(x.dtype)
+    out = out.reshape(*x.shape[:2], -1) @ p["wo"].to(x.dtype)
+    return out if tp is None else tp.reduce(out)
 
 
 def _block(lp: dict, x: torch.Tensor, positions3: torch.Tensor,
-           cfg: ModelConfig, route: str) -> torch.Tensor:
+           cfg: ModelConfig, route: str, tp=None) -> torch.Tensor:
     h = L.rms_norm(x, lp["ln1"].to(x.dtype), cfg.norm_eps)
-    x = x + _mrope_attention(lp["attn"], h, positions3, cfg, route)
+    x = x + _mrope_attention(lp["attn"], h, positions3, cfg, route, tp)
     h = L.rms_norm(x, lp["ln2"].to(x.dtype), cfg.norm_eps)
-    return x + L.swiglu(lp["mlp"], h)
+    return x + L.swiglu(lp["mlp"], h, tp=tp)
 
 
 def forward_train(params: dict, batch: dict, cfg: ModelConfig,
-                  last_only: bool = False,
-                  route: str = "kernel") -> torch.Tensor:
+                  last_only: bool = False, route: str = "kernel",
+                  tp=None) -> torch.Tensor:
     """batch: {tokens (B, S_text), vision (B, n_vis, D), labels}.  ->
     logits at the text positions (B, S_text, vocab), or at the last
     position (B, 1, vocab) with last_only, in the compute dtype.  route:
-    the attention's (`layers.ROUTES`); "plain" is the training route."""
+    the attention's (`layers.ROUTES`); "plain" is the training route.
+    With `tp` the params and logits are model rank t's, as in
+    `dense.forward_train`."""
     if route not in L.ROUTES:
         raise ValueError(f"route={route!r}; known: {L.ROUTES}")
-    tok_emb = params["embed"][batch["tokens"]].to(cfg.cdtype)
+    tok_emb = dense.embed(params, batch["tokens"], cfg, tp)
     vis = batch["vision"].to(cfg.cdtype)
     x = torch.cat([vis, tok_emb], dim=1)
     n_vis, n_text = vis.shape[1], tok_emb.shape[1]
     positions3 = build_positions(n_vis, n_text, device=x.device)[:, None, :]
     on = remat.enabled(cfg, route)
     for lp in L.unstack(params["layers"]):
-        x = remat.maybe(on, _block, lp, x, positions3, cfg, route)
+        x = remat.maybe(on, _block, lp, x, positions3, cfg, route, tp)
     x = L.rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
     x = x[:, -1:] if last_only else x[:, n_vis:]   # text positions only
-    return x @ params["lm_head"].to(x.dtype)
+    return dense.head(params, x, tp)
 
 
-def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig,
+            tp=None) -> torch.Tensor:
     """Mean next-token cross-entropy over the text positions, on the
-    training route (plain attention under autograd)."""
-    logits = forward_train(params, batch, cfg, route="plain")
-    return L.softmax_xent(logits, batch["labels"])
+    training route (plain attention under autograd); with `tp` over model
+    rank t's shards."""
+    logits = forward_train(params, batch, cfg, route="plain", tp=tp)
+    return dense.xent(logits, batch["labels"], tp)
 
 
 # ---------------------------------------------------------------------------

@@ -156,11 +156,19 @@ def test_production_mesh_descriptions(multi_pod):
     assert mesh.axis_names == tuple(want) and mesh.shape == want
 
 
-def test_host_mesh_refuses_tp_and_needs_a_group():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
-        tmesh.make_host_mesh(4, model=2)
+def test_host_mesh_refuses_tp_and_needs_a_group(tmp_path):
+    import torch.distributed as dist
     with pytest.raises(RuntimeError, match="ranks.init"):
         tmesh.make_host_mesh(4)
+    # a one-rank group cannot hold two model ranks: W % T != 0
+    tranks.init(0, 1, str(tmp_path / "rendezvous"), "cpu")
+    try:
+        with pytest.raises(ValueError, match=r"W % T == 0"):
+            tmesh.make_host_mesh(4, model=2)
+        mesh = tmesh.make_host_mesh(4, model=1)
+        assert (mesh.world, mesh.shape["model"], mesh.rows) == (1, 1, (0, 4))
+    finally:
+        dist.destroy_process_group()
 
 
 def test_one_device_layout_and_mesh_spec():
@@ -460,7 +468,8 @@ def test_train_main_joins_a_torchrun_group(tmp_path):
 
 @pytest.mark.parametrize("argv,match", [
     (["--clients", "4", "--ranks", "3"], r"m % W == 0"),
-    (["--clients", "4", "--ranks", "2", "--tp", "2"], "ROADMAP item 17"),
+    (["--arch", "recurrentgemma-9b", "--clients", "4", "--ranks", "2",
+      "--tp", "2"], "ROADMAP item 17"),
     (["--clients", "4", "--ranks", "2", "--resident", "--sample", "0.5"],
      "ROADMAP item 18"),
     (["--clients", "4", "--ranks", "2", "--resident", "--telemetry"],

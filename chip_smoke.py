@@ -4194,11 +4194,12 @@ REGIME_B_PREFILL = (1, 4096)       # (B, S) per client of the prefill step
 REGIME_B_TOL = dict(rtol=1e-4, atol=2e-5)
 
 
-def _train_main(ctx, argv) -> dict:
-    """`python -m repro_torch.launch.train` in this process, with a JSONL
-    sink: its launch counts (set to 0 just before, read just after), its
-    round records, `report --check` on them, its printed lines, the state
-    it returns and the peak device memory."""
+def _train_main(ctx, argv, mesh=None) -> dict:
+    """`python -m repro_torch.launch.train` in this process (on this
+    rank of `mesh`: its loop, `train.run_rank`), with a JSONL sink: its
+    launch counts (set to 0 just before, read just after), its round
+    records, `report --check` on them, its printed lines, the state it
+    returns and the peak device memory."""
     torch = ctx["torch"]
     import io
     import tempfile
@@ -4213,7 +4214,12 @@ def _train_main(ctx, argv) -> dict:
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
-            state = train.main(argv + ["--metrics", path])
+            if mesh is None:
+                state = train.main(argv + ["--metrics", path])
+            else:
+                ap = train.build_parser()
+                state = train.run_rank(
+                    ap.parse_args(argv + ["--metrics", path]), ap, mesh)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = ops.launch_counts()
@@ -4632,12 +4638,16 @@ def _deterministic(torch):
             torch.use_deterministic_algorithms(prev)
 
 
-def _trainer_rounds(ctx, argv, rounds: int, mesh=None) -> dict:
+def _trainer_rounds(ctx, argv, rounds: int, mesh=None,
+                    dormant: bool = False) -> dict:
     """`rounds` rounds of a Trainer on the card (every client in this
     process, or this rank's block of `mesh`): launches (counted from 0
     just before the rounds, read just after), ms per round (each ending
     in a device sync), losses reduced over the ranks, peak memory, and a
-    CPU copy of the final state."""
+    CPU copy of the final state.  dormant: each sampled round's dormant
+    rows (buffer, momentum, mu, personal leaves and their momentum) held
+    bit for bit against their copies from before the round (on the card:
+    the peak then counts them)."""
     torch = ctx["torch"]
     from repro_torch.kernels import ops
     from repro_torch.launch import train
@@ -4646,24 +4656,41 @@ def _trainer_rounds(ctx, argv, rounds: int, mesh=None) -> dict:
     ap = train.build_parser()
     run = train.Trainer(ap.parse_args(argv), ap, mesh)
     ops.reset_launch_counts()
-    ms, losses = [], []
+    ms, losses, dormant_ids = [], [], []
     for r in range(rounds):
         b = run.batches(r)
+        if dormant:
+            rows = sorted(set(range(run.m)) - set(run.topology(r)[1]))
+            before = _dormant_rows(torch, run.state, rows)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         metrics, _, _ = run.step(r, b)
-        metrics = run.reduce_metrics(metrics)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
+        if dormant:
+            after = _dormant_rows(torch, run.state, rows)
+            check(all(torch.equal(x, y) for x, y in zip(before, after)),
+                  f"round {r}: dormant rows {rows} moved")
+            dormant_ids.append(rows)
+            del before, after
         losses.append([float(metrics["loss_u"]), float(metrics["loss_v"])])
     counts = ops.launch_counts()
     out = {"launches": counts, "round_ms": ms, "loss": losses,
            "peak_bytes": torch.cuda.max_memory_allocated(),
            "remat": run.cfg.remat,
            "state": _to_card(torch, run.state, "cpu")}
+    if dormant:
+        out["dormant_clients"] = dormant_ids
     del run
     torch.cuda.empty_cache()
     return out
+
+
+def _dormant_rows(torch, state, rows) -> list:
+    """Copies of the rows `rows` of every client-stacked leaf of a
+    resident state."""
+    return [leaf[i].clone() for _, leaf in _state_leaves(state)
+            if hasattr(leaf, "dim") and leaf.dim() >= 1 for i in rows]
 
 
 def _mix_bitwise(ctx, mesh, state, gossip: str) -> dict:
@@ -4695,6 +4722,181 @@ def _mix_bitwise(ctx, mesh, state, gossip: str) -> dict:
     return {"bitwise": True, "table": P.idx.tolist()}
 
 
+# phase ranks' sampled leg: 2 of 4 clients a round; the induced table
+# has k 3 >= n_act 2, so the one-process mix densifies (no gather) while
+# the cross-rank mix gathers
+RANKS_SAMPLED_ARGS = ["--resident", "--sample", "0.5", "--topology",
+                      "random"]
+# telemetry on, and one graph record, at the last of RANKS_ROUNDS rounds
+RANKS_TELEMETRY_ARGS = ["--telemetry", "--graph-every", "3"]
+GAUGE_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def _records_close(one: list, across: list, what: str) -> int:
+    """Every number of the cross-rank run's records (times aside) within
+    GAUGE_TOL of the one-process run's, record by record -> the numbers
+    held."""
+    check([r["kind"] for r in one] == [r["kind"] for r in across],
+          f"{what}: records {[r['kind'] for r in across]}, want "
+          f"{[r['kind'] for r in one]}")
+    held = 0
+    for a, b in zip(one, across):
+        for k, x in a.items():
+            if isinstance(x, bool) or not isinstance(x, (int, float)) \
+                    or k.endswith("_s"):
+                continue
+            y = b.get(k)
+            check(isinstance(y, (int, float)) and abs(y - x)
+                  <= GAUGE_TOL["atol"] + GAUGE_TOL["rtol"] * abs(x),
+                  f"{what}: {a['kind']} record {a['step']} {k} = {y}, "
+                  f"one process {x}")
+            held += 1
+    return held
+
+
+def _compact_mix_bitwise(ctx, mesh, state) -> dict:
+    """The cross-rank compact mix (`steps.make_matrix_mix_sampled`) of
+    round 0's active rows of `state` under the round's induced table,
+    bit for bit `ops.gossip_gather` (and mu `mix_rows`) on the same
+    compact rows and table."""
+    torch = ctx["torch"]
+    from repro_torch.core import dfedpgp, gossip as gossip_mod, topology
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_mod, ranks, steps
+    from repro_torch.spec import make_algo_spec
+    m = state.flat.shape[0]
+    spec = make_algo_spec("dfedpgp", topology="random", n_neighbors=2,
+                          seed=0, resident=True, participation="uniform",
+                          participation_frac=0.5)
+    active = [int(g) for g in spec.sampler(m).active_at(0)]
+    P = topology.induced_subgraph(spec.schedule(m).at(0), active, "row")
+    act = torch.tensor(active)
+    rows = state.flat.index_select(0, act).to("cuda")
+    mu = state.mu.index_select(0, act).to("cuda")
+    mix = steps.make_matrix_mix_sampled(mesh, mesh_mod.one_device_layout(
+        m, 2))
+    got_f, got_mu = mix(rows, mu, dfedpgp.round_counter(0, "cuda"), P,
+                        ranks.compact_bounds(active, m, mesh.world))
+    idx, w = P.idx.to("cuda", torch.int32), P.w.to("cuda")
+    want_f = ops.gossip_gather(idx, w, rows)
+    want_mu = gossip_mod.mix_rows(idx, w, mu)
+    ok = torch.equal(got_f, want_f) and torch.equal(got_mu, want_mu)
+    err = max_abs(got_f, want_f)
+    del rows, got_f, want_f
+    torch.cuda.empty_cache()
+    check(ok, f"the compact mix across ranks differs from gossip_gather "
+              f"on the same rows by {err}")
+    return {"bitwise": True, "active": active, "table": P.idx.tolist()}
+
+
+def _ranks_sampled(ctx, mesh) -> dict:
+    """3 sampled rounds across ranks (`--sample 0.5`) against the
+    one-process run from the same init, batches, actives and tables
+    (telemetry on there: its state is telemetry off's, and its records
+    serve the gauges): every leaf at the Regime B tolerance, Σμ = 4,
+    dormant rows bit for bit each round, 3 gossip_gather and 3
+    gossip_scatter launches; then the same rounds across ranks with
+    telemetry and a graph record each round: the state bit for bit the
+    telemetry-off run's, every record's numbers within GAUGE_TOL of the
+    one-process records, `report --check` 0; the compact mix alone."""
+    torch = ctx["torch"]
+    t0 = time.perf_counter()
+    argv = REGIME_B_ARGS + RANKS_SAMPLED_ARGS + ["--rounds",
+                                                 str(RANKS_ROUNDS)]
+    one = _telemetry_run(ctx, argv + RANKS_TELEMETRY_ARGS, None)
+    check(_only(one["launches"], gossip_scatter=RANKS_ROUNDS),
+          f"one-process sampled rounds launched {one['launches']}")
+    one_state = one.pop("state")
+    off = _trainer_rounds(ctx, argv + ["--gossip", "matrix"], RANKS_ROUNDS,
+                          mesh, dormant=True)
+    check(_only(off["launches"], gossip_gather=RANKS_ROUNDS,
+                gossip_scatter=RANKS_ROUNDS),
+          f"sampled rounds across ranks launched {off['launches']}; want "
+          f"{RANKS_ROUNDS} gossip_gather and gossip_scatter")
+    a, b = dict(_state_leaves(off["state"])), dict(_state_leaves(one_state))
+    check(a.keys() == b.keys(), f"sampled states' leaves differ: "
+                                f"{sorted(set(a) ^ set(b))}")
+    gaps = {k: _host_gap(torch, a[k], b[k], what="sampled rounds across "
+                                                 "ranks")
+            for k in a if hasattr(a[k], "dim") and a[k].dim()}
+    del one_state, a, b
+    mu_sum = float(off["state"].mu.sum())
+    check(abs(mu_sum - 4) <= 4e-5, f"sum mu = {mu_sum}")
+    on = _telemetry_run(ctx, argv + RANKS_TELEMETRY_ARGS
+                        + ["--gossip", "matrix"], mesh)
+    for run in (one, on):
+        check(run["report_check_rc"] == 0,
+              f"report --check exited {run['report_check_rc']}")
+    check(_only(on["launches"], gossip_gather=RANKS_ROUNDS,
+                gossip_scatter=RANKS_ROUNDS),
+          f"sampled telemetry rounds across ranks launched "
+          f"{on['launches']}")
+    leaves = _hold_bitwise(torch, on.pop("state"), off["state"],
+                           "sampled telemetry on vs off")
+    held = _records_close(one["records"], on["records"],
+                          "sampled telemetry across ranks")
+    mix = _compact_mix_bitwise(ctx, mesh, off["state"])
+    for run in (off, on):
+        check(run["peak_bytes"] < 80e9, f"peak {run['peak_bytes']} B")
+    out = {"rounds": RANKS_ROUNDS, "max_abs_gap": max(gaps.values()),
+           "tolerance": REGIME_B_TOL, "mu_sum": mu_sum,
+           "dormant_clients": off["dormant_clients"],
+           "dormant_rows_bitwise": True, "launches": off["launches"],
+           "round_ms": off["round_ms"], "loss": off["loss"],
+           "peak_bytes": off["peak_bytes"],
+           "one_process_round_ms": one["round_ms"],
+           "telemetry": {"launches": on["launches"],
+                         "bitwise_off_leaves": leaves,
+                         "numbers_within_tol": held,
+                         "tolerance": GAUGE_TOL,
+                         "graph_records": sum(r["kind"] == "graph"
+                                              for r in on["records"]),
+                         "report_check_rc": on["report_check_rc"],
+                         "round_ms": on["round_ms"],
+                         "peak_bytes": on["peak_bytes"],
+                         "one_process_peak_bytes": one["peak_bytes"]},
+           "mix_alone": mix, "seconds": time.perf_counter() - t0}
+    del one, off, on
+    torch.cuda.empty_cache()
+    return out
+
+
+def _telemetry_records(ctx, argv, across) -> dict:
+    """A cross-rank telemetry run's (`across`, `_train_main`) records
+    held against the one-process telemetry run of `argv`: every number
+    within GAUGE_TOL, `report --check` 0 on both JSONLs."""
+    torch = ctx["torch"]
+    one = _train_main(ctx, argv)
+    del one["state"]
+    torch.cuda.empty_cache()
+    for run in (one, across):
+        check(run["report_check_rc"] == 0,
+              f"report --check exited {run['report_check_rc']}")
+    return {"numbers_within_tol": _records_close(
+                one["records"], across["records"], "telemetry across ranks"),
+            "tolerance": GAUGE_TOL,
+            "graph_records": sum(r["kind"] == "graph"
+                                 for r in across["records"]),
+            "one_process_round_ms": [r["round_s"] * 1e3
+                                     for r in one["records"]
+                                     if r["kind"] == "round"],
+            "one_process_peak_bytes": one["peak_bytes"],
+            "report_check_rc": across["report_check_rc"]}
+
+
+def _telemetry_run(ctx, argv, mesh) -> dict:
+    """`_train_main` across ranks, shaped as `_trainer_rounds`' result
+    (the state on the host, ms per round and losses from the records)."""
+    torch = ctx["torch"]
+    run = _train_main(ctx, argv, mesh)
+    run["state"] = _to_card(torch, run["state"], "cpu")
+    torch.cuda.empty_cache()
+    recs = [r for r in run["records"] if r["kind"] == "round"]
+    run["round_ms"] = [r["round_s"] * 1e3 for r in recs]
+    run["loss"] = [[r["loss_u"], r["loss_v"]] for r in recs]
+    return run
+
+
 def phase_ranks(ctx):
     """Regime B across ranks on one card: a one-rank NCCL group
     (launch/ranks.py, a file rendezvous), its client mesh of the 4
@@ -4704,7 +4906,12 @@ def phase_ranks(ctx):
     schedule's matrix mix for ppermute) from the same init, batches and
     tables; gossip_gather launches 0 and 3; each cross-rank mix alone
     bitwise the one-process mix on the same buffer; peak memory; the dry
-    run `--all --mesh single` as a subprocess (exit 0)."""
+    run `--all --mesh single` as a subprocess (exit 0).  The matrix leg's
+    rounds across ranks run with telemetry and a graph record
+    (`RANKS_TELEMETRY_ARGS`), so they are held bit for bit against the
+    one-process rounds with telemetry off, and their records against the
+    one-process telemetry run's (`_telemetry_records`).  Then the sampled
+    round across ranks (`_ranks_sampled`)."""
     torch = ctx["torch"]
     import tempfile
     import torch.distributed as dist
@@ -4734,9 +4941,19 @@ def phase_ranks(ctx):
             for gossip, topo, want in (("ppermute", "exponential", 0),
                                        ("matrix", "random", 3)):
                 argv = base + ["--topology", topo]
+                t_leg = time.perf_counter()
                 single = _trainer_rounds(ctx, argv, RANKS_ROUNDS)
-                across = _trainer_rounds(ctx, argv + ["--gossip", gossip],
-                                         RANKS_ROUNDS, mesh)
+                if gossip == "matrix":
+                    # with its gauges and a graph record: bitwise the
+                    # one-process run with telemetry off
+                    tele = argv + ["--rounds", str(RANKS_ROUNDS)] \
+                        + RANKS_TELEMETRY_ARGS
+                    across = _telemetry_run(
+                        ctx, tele + ["--gossip", gossip], mesh)
+                else:
+                    across = _trainer_rounds(
+                        ctx, argv + ["--gossip", gossip], RANKS_ROUNDS,
+                        mesh)
                 leaves = _hold_bitwise(torch, across["state"],
                                        single["state"],
                                        f"{gossip} rounds across ranks")
@@ -4747,6 +4964,7 @@ def phase_ranks(ctx):
                       f"peak {across['peak_bytes']} B")
                 mix = _mix_bitwise(ctx, mesh, single["state"], gossip)
                 out[gossip] = {
+                    "seconds": time.perf_counter() - t_leg,
                     "rounds": RANKS_ROUNDS, "bitwise_leaves": leaves,
                     "launches": across["launches"],
                     "one_process_launches": single["launches"],
@@ -4756,9 +4974,15 @@ def phase_ranks(ctx):
                     "peak_bytes": across["peak_bytes"],
                     "one_process_peak_bytes": single["peak_bytes"],
                     "mix_alone": mix}
+                if gossip == "matrix":
+                    out[gossip]["telemetry"] = _telemetry_records(
+                        ctx, tele, across)
+                ctx.setdefault("ranks_legs", {})[gossip] = out[gossip]
                 del single, across
+            out["sampled"] = _ranks_sampled(ctx, mesh)
     finally:
         ranks.shutdown()
+    t_wait = time.perf_counter()
     try:
         log, _ = dry.communicate(timeout=DRYRUN_TIMEOUT_S)
     except subprocess.TimeoutExpired:
@@ -4772,12 +4996,16 @@ def phase_ranks(ctx):
                                f"{log[-800:]}")
     out["dryrun"] = {"rc": dry.returncode, "records": len(written),
                      "seconds": time.perf_counter() - t_dry,
+                     "waited_s": time.perf_counter() - t_wait,
                      "tail": log.strip().splitlines()[-3:]}
     import shutil
     shutil.rmtree(tmp, ignore_errors=True)
+    runs = [out["ppermute"]["launches"], out["matrix"]["launches"],
+            out["sampled"]["launches"],
+            out["sampled"]["telemetry"]["launches"]]
     ctx["ranks_launches"] = {
-        "gossip_gather": sum(out[g]["launches"]["gossip_gather"]
-                             for g in ("ppermute", "matrix"))}
+        k: sum(c.get(k, 0) for c in runs)
+        for k in ("gossip_gather", "gossip_scatter")}
     emit("ranks", card=ctx["smi"], arch="qwen2-0.5b", clients=4, batch=2,
          seq=128, d_flat=REGIME_B_D, deterministic_algorithms=True, **out)
 
@@ -4869,7 +5097,11 @@ def phase_tp(ctx):
     rounds through `train.Trainer` on the mesh, each bitwise the
     one-process run from the same init, batches and tables (deterministic
     algorithms on); gossip_gather launches 3 / 0 / 0; peak memory beside
-    phase ranks' before the executor; ms per round."""
+    phase ranks' before the executor; ms per round.  The two resident
+    legs are the very runs of phase ranks' legs (the same flags: `--tp 1`
+    is the default, and both go through the executor); where phase ranks
+    ran in this invocation its legs stand for them (`ctx["ranks_legs"]`)
+    instead of running twice."""
     torch = ctx["torch"]
     import tempfile
     import torch.distributed as dist
@@ -4887,6 +5119,10 @@ def phase_tp(ctx):
         with _deterministic(torch):
             out["loss_gradients"] = _tp_loss_gradients(ctx, mesh)
             for name, extra, rounds, want in TP_ROUNDS:
+                if name in ctx.get("ranks_legs", {}):
+                    out[name] = dict(ctx["ranks_legs"][name],
+                                     run_by_phase="ranks")
+                    continue
                 argv = REGIME_B_ARGS + extra
                 gossip = "matrix" if name == "matrix" else "ppermute"
                 single = _trainer_rounds(ctx, argv, rounds)
@@ -4924,7 +5160,8 @@ def phase_tp(ctx):
          backend="nccl", deterministic_algorithms=True, **out)
 
 
-def _host_gap(torch, a, b, chunk: int = 1 << 27) -> float:
+def _host_gap(torch, a, b, chunk: int = 1 << 27, what: str = "remat"
+              ) -> float:
     """max |a - b| over two CPU tensors, checked against the Regime B
     tolerance, `chunk` elements at a time on the card (a full-width leaf
     is 7.9 GB: host temporaries of whole leaves do not fit beside the two
@@ -4937,7 +5174,7 @@ def _host_gap(torch, a, b, chunk: int = 1 << 27) -> float:
         x, y = (t[i:i + chunk].to("cuda", torch.float64) for t in (fa, fb))
         worst = max(worst, float((x - y).abs().max()))
         check(torch.allclose(x, y, **REGIME_B_TOL),
-              f"remat: a leaf differs by {worst}")
+              f"{what}: a leaf differs by {worst}")
         del x, y
     return worst
 
@@ -5876,6 +6113,7 @@ def phase_timings(ctx):
         "obs_launches": ctx["obs_launches"]["gossip_scatter"],
         "analysis_launches": ctx["analysis_launches"]["gossip_scatter"],
         "regime_b_launches": ctx["regime_b_launches"]["gossip_scatter"],
+        "ranks_launches": ctx["ranks_launches"]["gossip_scatter"],
         "regime_b": ctx["regime_b_kernels"]["gossip_scatter"]})
 
     # pushsum_mix at the kernel-mix path's shape (m=100, d=13,328, f32)

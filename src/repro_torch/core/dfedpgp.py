@@ -27,6 +27,12 @@ metrics (`_round_gauges`: consensus gap, mass ledger, update and gradient
 norms, wire edges, moved mass, the EF ratio): pure reads of the post-round
 buffer, so the state that flows on is bit for bit the telemetry-off
 state, and telemetry off runs exactly the uninstrumented round.
+
+On a client mesh (`launch/`) each rank runs its block of the clients:
+the rounds mix through a cross-rank `mix_fn` / `mix_fn_flat`, and
+`across_ranks` (a `launch.steps.RankRound`) gives the sampled round its
+ownership of the active rows and their compact mix across ranks, and
+reduces every round's metrics and gauges over the mesh.
 """
 from __future__ import annotations
 
@@ -161,6 +167,11 @@ class DFedPGP:
     # gathered over its model group, the gradient reduce-scattered); the
     # tree form's leaves are already the rank's shards
     tp: Optional[Any] = None
+    # a client mesh rank's part beyond its mix (`launch.steps.RankRound`):
+    # the sampled round's own active rows and their compact mix across the
+    # data group (`across_ranks.mix_sampled`), the metrics and gauges
+    # reduced over the mesh.  None: one device holds every client
+    across_ranks: Optional[Any] = None
 
     def __post_init__(self):
         if self.gossip not in gossip.MODES:
@@ -288,9 +299,7 @@ class DFedPGP:
                 wire_dtype=self.gossip_dtype)
         new_state = DFedPGPState(params, mu, opt_u, opt_v,
                                  _next_round(state.round))
-        metrics = {"loss_v": loss_v.mean(), "loss_u": loss_u.mean(),
-                   "mu_min": mu.min(), "mu_max": mu.max()}
-        return new_state, metrics
+        return new_state, self._metrics(loss_v, loss_u, mu)
 
     def eval_params(self, state: DFedPGPState) -> dict:
         """Personalized models: de-biased shared part + personal part."""
@@ -430,8 +439,8 @@ class DFedPGP:
             g = vmap(self._apply_flat_grad_hook)(g)
         flat2, s2 = self.opt_u.update(g, opt_u, flat, lr_scale[:, None])
         if grad_norm:
-            return flat2, s2, loss, torch.linalg.vector_norm(
-                g.to(torch.float32), dim=1)
+            return flat2, s2, loss, (gauges.l2_norm(g, dim=1)
+                                     if tp is None else tp.row_norms(g))
         return flat2, s2, loss
 
     def _z(self, flat, mu):
@@ -570,27 +579,53 @@ class DFedPGP:
                                        wire_dtype=self.gossip_dtype)
         new_state = FlatDFedPGPState(flat, personal, mu, opt_u, opt_v,
                                      _next_round(state.round), ef, ref)
-        metrics = {"loss_v": loss_v.mean(), "loss_u": loss_u.mean(),
-                   "mu_min": mu.min(), "mu_max": mu.max()}
+        metrics = self._metrics(loss_v, loss_u, mu)
         if self.telemetry:
             metrics.update(self._round_gauges(
                 flat=flat, mu=mu, mu_pre=state.mu, upd_before=state.flat,
-                upd_after=flat_local, ef_pre=state.ef,
-                grad_norm=aux[2].mean(), P=P))
+                upd_after=flat_local, ef_pre=state.ef, grad_norms=aux[2],
+                P=P))
         return new_state, metrics
 
+    def _metrics(self, loss_v, loss_u, mu, n: Optional[int] = None) -> dict:
+        """A round's mean losses over its clients' (n,) losses and the mu
+        range of the whole buffer; on a client mesh over every rank's
+        clients (`across_ranks.metrics`; n of them, default all)."""
+        if self.across_ranks is None:
+            return {"loss_v": loss_v.mean(), "loss_u": loss_u.mean(),
+                    "mu_min": mu.min(), "mu_max": mu.max()}
+        return self.across_ranks.metrics(
+            loss_v, loss_u, mu, self.across_ranks.m if n is None else n)
+
     def _round_gauges(self, *, flat, mu, mu_pre, upd_before, upd_after,
-                      ef_pre, grad_norm, P, active_mask=None) -> dict:
+                      ef_pre, grad_norms, P, active=None, n=None,
+                      counts=None) -> dict:
         """The telemetry pack of the resident rounds: 0-d reductions over
         the post-round buffer — consensus gap, mass ledger, update and
-        gradient norms, wire edges, moved mass (over the PRE-mix mu, the
-        mass in motion this round), and with codec memory the EF signal
-        ratio of the post-local buffer against the residual the mix is
-        about to drain.  Never touches the state that flows on."""
+        gradient norms (`grad_norms`: each stepped client's), wire edges,
+        moved mass (over the PRE-mix mu, the mass in motion this round),
+        and with codec memory the EF signal ratio of the post-local buffer
+        against the residual the mix is about to drain.  Never touches the
+        state that flows on.  `active`: a sampled round's active rows (the
+        ledger's active mask).  On a client mesh
+        `across_ranks.round_gauges` reduces them over the ranks (`active`
+        then the round's global ids, `n` its clients, `counts` its compact
+        rows per rank)."""
+        if self.across_ranks is not None:
+            r = self.across_ranks
+            return r.round_gauges(
+                flat=flat, mu=mu, mu_pre=mu_pre, upd_before=upd_before,
+                upd_after=upd_after, grad_norms=grad_norms, P=P,
+                n=r.m if n is None else n, active=active, counts=counts)
+        active_mask = None
+        if active is not None:
+            active_mask = torch.zeros(mu.shape, dtype=torch.bool,
+                                      device=mu.device).index_fill_(
+                0, active, True)
         g = dict(gauges.consensus_gap(flat, mu))
         g.update(gauges.mass_ledger(mu, active_mask))
         g["update_norm"] = gauges.buffer_update_norm(upd_before, upd_after)
-        g["grad_norm"] = grad_norm
+        g["grad_norm"] = grad_norms.mean()
         g["wire_edges"] = gauges.wire_edges(P)
         g["moved_mass"] = obs_graph.moved_mass(P, mu_pre)
         if ef_pre is not None:
@@ -611,6 +646,15 @@ class DFedPGP:
         sampler's output).  batches and step_gate_u are compact: leaves
         lead with (n_active, K, ...).
 
+        On a client mesh (`across_ranks`) the state is the rank's block
+        and P_act and active are the round's whole host table and ids, the
+        same on every rank; batches and step_gate_u hold the rank's own
+        compact rows, [a_q, a_{q+1}) of `launch.ranks.compact_bounds`
+        (perhaps none).  The rank steps the active rows of its block, mixes
+        them across its data group (`across_ranks.mix_sampled`, which never
+        densifies) and writes them back into its block; the metrics and
+        gauges reduce over the mesh.
+
         IN PLACE: `state.flat`, `state.opt_u.momentum` and, with a lossy
         codec, `state.ef` and `state.ref` are written through one
         `kernels.ops.gossip_scatter_many` call (one launch of the CUDA
@@ -621,15 +665,29 @@ class DFedPGP:
         small and are copied (`index_copy`).  Dormant rows never move.
         Metrics are means over the active clients; the mu range spans the
         whole buffer."""
-        if self.mix_fn is not None or self.mix_fn_flat is not None:
+        across = self.across_ranks
+        if self.mix_fn is not None or (self.mix_fn_flat is not None
+                                       and across is None):
             raise ValueError(
                 "mix overrides operate on the full resident buffer; the "
                 "sampled round mixes the compact working set — drop the "
                 "override or use round_fn_flat")
+        if across is not None and self.codec is not None:
+            raise ValueError("no wire codec runs across ranks: the sampled "
+                             "round across ranks mixes uncompressed")
         self._check_flat_hooks()
         dev = state.flat.device
         lr_scale = self._lr_scale(state.round)
-        active = torch.as_tensor(active, device=dev).to(torch.int32)
+        bounds = counts = None
+        if across is None:
+            active = torch.as_tensor(active, device=dev).to(torch.int32)
+            n_act = int(active.shape[0])
+        else:
+            global_ids = active
+            bounds, own = across.own(active)
+            counts = [b - a for a, b in zip(bounds, bounds[1:])]
+            n_act = bounds[-1]
+            active = torch.tensor(own, dtype=torch.int32, device=dev)
         idx = active.long()
         if step_gate_u is None:
             shp = next(iter(batches["u"].values())).shape[:2]
@@ -640,12 +698,21 @@ class DFedPGP:
 
         flat_pre = take(state.flat)     # gathered pre-local rows
         mu_pre = take(state.mu)
-        flat_a, personal_a, opt_u_a, opt_v_a, aux = \
-            self.local_update_flat(
-                flat_pre, tree.tree_map(take, state.personal),
-                mu_pre, SGDState(take(state.opt_u.momentum)),
-                SGDState(tree.tree_map(take, state.opt_v.momentum)),
-                batches["v"], batches["u"], lr_scale, step_gate_u, layout)
+        personal_a = tree.tree_map(take, state.personal)
+        opt_u_a = SGDState(take(state.opt_u.momentum))
+        opt_v_a = SGDState(tree.tree_map(take, state.opt_v.momentum))
+        if idx.shape[0]:
+            flat_a, personal_a, opt_u_a, opt_v_a, aux = \
+                self.local_update_flat(
+                    flat_pre, personal_a, mu_pre, opt_u_a, opt_v_a,
+                    batches["v"], batches["u"], lr_scale, step_gate_u,
+                    layout)
+        else:
+            # a rank whose block holds no active client steps nothing
+            # (every model rank of its data index alike) but still enters
+            # the mix and the reductions of its data group
+            flat_a = flat_pre
+            aux = (torch.zeros((0,), dtype=torch.float32, device=dev),) * 3
         loss_v, loss_u = aux[0], aux[1]
         flat_local = flat_a   # post-local / pre-mix compact rows
         if self.codec is not None:
@@ -654,6 +721,10 @@ class DFedPGP:
                              for t in (state.ef, state.ref))
             flat_a, mu_a, ef_a, ref_a = self._codec_mix(
                 P_act, flat_a, mu_pre, ef_pre, ref_a, state.round)
+        elif across is not None:
+            ef_pre = ef_a = ref_a = None
+            flat_a, mu_a = across.mix_sampled(flat_a, mu_pre, state.round,
+                                              P_act, bounds)
         else:
             ef_pre = ef_a = ref_a = None
             flat_a, mu_a = gossip.mix_flat(P_act, flat_a, mu_pre,
@@ -681,19 +752,17 @@ class DFedPGP:
                                        opt_v_a.momentum))
         new_state = FlatDFedPGPState(flat, personal, mu, opt_u, opt_v,
                                      _next_round(state.round), ef, ref)
-        metrics = {"loss_v": loss_v.mean(), "loss_u": loss_u.mean(),
-                   "mu_min": mu.min(), "mu_max": mu.max(),
-                   "n_active": int(idx.shape[0])}
+        metrics = self._metrics(loss_v, loss_u, mu, n_act)
+        metrics["n_active"] = n_act
         if self.telemetry:
             # the ledger and the consensus gap span the FULL buffer, the
             # dormant rows' share visible
-            active_mask = torch.zeros(mu.shape, dtype=torch.bool,
-                                      device=dev).index_fill_(0, idx, True)
+            gauge_kw = dict(active=idx) if across is None else \
+                dict(active=global_ids, n=n_act, counts=counts)
             metrics.update(self._round_gauges(
                 flat=flat, mu=mu, mu_pre=mu_pre, upd_before=flat_pre,
-                upd_after=flat_local, ef_pre=ef_pre,
-                grad_norm=aux[2].mean(), P=P_act,
-                active_mask=active_mask))
+                upd_after=flat_local, ef_pre=ef_pre, grad_norms=aux[2],
+                P=P_act, **gauge_kw))
         return new_state, metrics
 
     def eval_params_flat(self, state: FlatDFedPGPState,

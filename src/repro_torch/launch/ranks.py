@@ -19,10 +19,14 @@ one model index t mix their shards among themselves:
   locally) and sends the rows its peers combine in the same step, so a
   rank never holds more than one received row;
 - `gather_plan`: the matrix mix's halo, the neighbor rows a rank's
-  clients read that live on other ranks, and who sends which.
+  clients read that live on other ranks, and who sends which; over equal
+  blocks of the m clients, or over explicit bounds (`compact_bounds`: the
+  sampled round's compact working set, whose rows a data index owns
+  unevenly and may not own at all).
 """
 from __future__ import annotations
 
+import bisect
 import os
 from typing import NamedTuple, Sequence, Tuple
 
@@ -147,22 +151,54 @@ def _needs(idx_rows: Sequence[Sequence[int]], lo: int, hi: int):
                         - set(range(lo, hi))))
 
 
+def equal_bounds(m: int, world: int) -> Tuple[int, ...]:
+    """The world + 1 row bounds of equal blocks: rank q holds [b[q],
+    b[q + 1])."""
+    return tuple(row_range(m, world, q)[0] for q in range(world)) + (m,)
+
+
+def compact_bounds(active: Sequence[int], m: int,
+                   world: int) -> Tuple[int, ...]:
+    """The world + 1 bounds of the compact ids each data index owns in a
+    sampled round: `active` are the round's sorted global ids, so the
+    compact ids whose rows lie in rank q's block [q m / W, (q + 1) m / W)
+    are the range [a_q, a_{q+1}), a_q = searchsorted(active, q m / W).  A
+    rank may own none."""
+    active = [int(g) for g in active]
+    if any(b <= a for a, b in zip(active, active[1:])):
+        raise ValueError("compact_bounds wants the sampler's sorted, "
+                         "unique ids")
+    return tuple(bisect.bisect_left(active, lo)
+                 for lo in equal_bounds(m, world)[:-1]) + (len(active),)
+
+
 def gather_plan(idx: Sequence[Sequence[int]], m: int, world: int,
-                rank: int) -> GatherPlan:
+                rank: int, bounds: Sequence[int] | None = None
+                ) -> GatherPlan:
     """idx: the round's full (m, k) neighbor table (global ids, the same
-    on every rank)."""
-    n = m // world
-    lo, hi = row_range(m, world, rank)
+    on every rank).  bounds: the world + 1 row bounds of the ranks' blocks
+    (`compact_bounds`; default `equal_bounds(m, world)`); row g belongs to
+    the q with bounds[q] <= g < bounds[q + 1]."""
+    b = tuple(equal_bounds(m, world) if bounds is None else bounds)
+    if len(b) != world + 1 or b[0] != 0 or b[-1] != m or \
+            any(y < x for x, y in zip(b, b[1:])):
+        raise ValueError(f"bounds {b}: want {world + 1} ascending row "
+                         f"bounds from 0 to {m}")
+
+    def owner(g):
+        return bisect.bisect_right(b, g) - 1
+
+    lo, hi = b[rank], b[rank + 1]
     halo = _needs(idx[lo:hi], lo, hi)
-    recv = tuple((q, tuple(g for g in halo if g // n == q))
+    recv = tuple((q, tuple(g for g in halo if owner(g) == q))
                  for q in range(world) if q != rank
-                 and any(g // n == q for g in halo))
+                 and any(owner(g) == q for g in halo))
     send = []
     for q in range(world):
         if q == rank:
             continue
-        want = tuple(g for g in _needs(idx[q * n:(q + 1) * n], q * n,
-                                       (q + 1) * n) if lo <= g < hi)
+        want = tuple(g for g in _needs(idx[b[q]:b[q + 1]], b[q], b[q + 1])
+                     if lo <= g < hi)
         if want:
             send.append((q, want))
     return GatherPlan(lo, hi, halo, recv, tuple(send))
@@ -180,12 +216,22 @@ def exchange(sends, recvs) -> None:
             req.wait()
 
 
-def all_gather_rows(x: torch.Tensor, world: int, group=None) -> torch.Tensor:
+def all_gather_rows(x: torch.Tensor, world: int, group=None,
+                    counts: Sequence[int] | None = None) -> torch.Tensor:
     """The (m, ...) concatenation of the (m / D, ...) blocks of the `world`
     ranks of `group` (a client mesh's data group; None: the default
     group), a collective even on one rank (so a one-rank group runs its
-    backend)."""
+    backend).  counts: each rank's row count where they differ (a sampled
+    round's compact rows, 0 included): every block travels padded to the
+    largest."""
     import torch.distributed as dist
-    parts = [torch.empty_like(x) for _ in range(world)]
-    dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts)
+    if counts is None:
+        parts = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts)
+    top = max(counts)
+    pad = x.new_zeros((top,) + tuple(x.shape[1:]))
+    pad[:x.shape[0]] = x
+    parts = [torch.empty_like(pad) for _ in range(world)]
+    dist.all_gather(parts, pad, group=group)
+    return torch.cat([p[:c] for p, c in zip(parts, counts)])

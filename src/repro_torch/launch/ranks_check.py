@@ -1,7 +1,9 @@
 """Cross-rank mixes and rounds on arrays from files, over W spawned ranks.
 
-    python -m repro_torch.launch.ranks_check --world W [--device cpu|cuda] \\
+    python -m repro_torch.launch.ranks_check --world W [--device cuda|cpu] \\
         --job JOB IN.npz OUT.npz [--job JOB IN.npz OUT.npz ...]
+
+The ranks run on the card (NCCL) unless `--device cpu` asks for gloo.
 
 Every rank joins one process group (`ranks.init`, a file rendezvous in a
 fresh temporary directory) and runs the jobs in turn on the client mesh
@@ -24,7 +26,18 @@ Jobs (m clients, every array leading with m):
   `reduced()` meta.arch (gossip meta.gossip, topology meta.topology) from
   the state "flat", "mu", "mom_u", "personal/<path>", "mom_v/<path>",
   with batches "b/t/{v,u}/{tokens,labels}" and (matrix) tables "idx/t",
-  "w/t" -> the final state's leaves under the same names;
+  "w/t" -> the final state's leaves under the same names, and with
+  meta.telemetry each round's scalar metrics (the gauges among them) as
+  "metrics/t/<name>"; meta.graph_seed adds one collaboration-graph record
+  of the final state (`obs.graph.emit_graph_record`, seed graph_seed, t0
+  meta.rounds - 1, the last round's actives when sampled) as
+  "graph/<field>"; meta.trace adds each round's whole "flat/t", "mom_u/t"
+  and "mu/t";
+- `sampled_rounds`: the same from the same state with the round's sorted
+  active ids "active/t" and its induced compact tables "idx/t", "w/t"
+  (n_active rows; batches "b/t/..." compact too, each rank keeping its
+  own compact rows), `round_fn_sampled` across ranks (topology
+  meta.topology names the spec's schedule only);
 - `tree_rounds`: meta.rounds tree-form rounds (gossip "ppermute", the
   exponential schedule) from "params/<path>", "mu", "mom_u/<path>",
   "mom_v/<path>" (the momentum trees' placeholder leaves (m,)) and the
@@ -53,8 +66,8 @@ from ..core import dfedpgp, topology
 from . import mesh as mesh_mod
 from . import ranks, steps, tp
 
-JOBS = ("mix_flat", "mix_tree", "matrix", "rounds", "tree_rounds",
-        "tp_loss")
+JOBS = ("mix_flat", "mix_tree", "matrix", "rounds", "sampled_rounds",
+        "tree_rounds", "tp_loss")
 
 
 def _tensor(a: np.ndarray, dev) -> torch.Tensor:
@@ -144,14 +157,17 @@ def _mix_job(job: str, meta: dict, data: dict, mesh) -> dict:
 
 
 def _rounds_job(job: str, meta: dict, data: dict, mesh) -> dict:
+    from ..obs import gauges
     from ..spec import make_algo_spec
     lo, hi = mesh.rows
     dev, m = mesh.device, mesh.n_clients
-    resident = job == "rounds"
+    resident = job != "tree_rounds"
+    sampled = job == "sampled_rounds"
     cfg = _config(meta)
     spec = make_algo_spec("dfedpgp", topology=meta["topology"],
                           n_neighbors=meta.get("n_neighbors", 2), seed=0,
-                          gossip=meta["gossip"], resident=resident)
+                          gossip=meta["gossip"], resident=resident,
+                          telemetry=bool(meta.get("telemetry")))
     algo, _, _, flat_layout = steps.build_train_algo(
         cfg, mesh, _layout(m), spec=spec, lr=0.02)
     shards = algo.tp
@@ -174,18 +190,37 @@ def _rounds_job(job: str, meta: dict, data: dict, mesh) -> dict:
             opt_u=dfedpgp.SGDState(shards.shard(rows("mom_u"))),
             opt_v=dfedpgp.SGDState(shards.shard(rows("mom_v"))),
             round=rnd)
+    out, active = {}, None
     for t in range(meta["rounds"]):
-        b = {part: _batch(data, f"b/{t}/{part}/", dev, lo, hi)
+        a, b_ = lo, hi
+        if sampled:
+            active = data[f"active/{t}"].tolist()
+            bounds = ranks.compact_bounds(active, m, mesh.world)
+            a, b_ = bounds[mesh.data_index], bounds[mesh.data_index + 1]
+        b = {part: _batch(data, f"b/{t}/{part}/", dev, a, b_)
              for part in "vu"}
         P = None
         if meta["gossip"] == "matrix":
             P = topology.SparseTopology(torch.from_numpy(data[f"idx/{t}"]),
                                         torch.from_numpy(data[f"w/{t}"]))
-        if resident:
-            state, _ = algo.round_fn_flat(state, P, b, flat_layout)
+        if sampled:
+            state, metrics = algo.round_fn_sampled(state, P, active, b,
+                                                   flat_layout)
+        elif resident:
+            state, metrics = algo.round_fn_flat(state, P, b, flat_layout)
         else:
-            state, _ = algo.round_fn(state, P, b)
-    out = {"mu": _gathered(state.mu, mesh)}
+            state, metrics = algo.round_fn(state, P, b)
+        if meta.get("telemetry"):
+            for k, v in gauges.to_host(metrics).items():
+                out[f"metrics/{t}/{k}"] = np.asarray(v)
+        if meta.get("trace"):
+            whole = shards.unshard_state(state)
+            out[f"flat/{t}"] = _gathered(whole.flat, mesh)
+            out[f"mom_u/{t}"] = _gathered(whole.opt_u.momentum, mesh)
+            out[f"mu/{t}"] = _gathered(state.mu, mesh)
+    if meta.get("graph_seed") is not None:
+        out.update(_graph(meta, state, algo, mesh, active))
+    out["mu"] = _gathered(state.mu, mesh)
     if resident:
         state = shards.unshard_state(state)
         out["flat"] = _gathered(state.flat, mesh)
@@ -199,6 +234,26 @@ def _rounds_job(job: str, meta: dict, data: dict, mesh) -> dict:
     for name, t in trees:
         _tree_out(out, name, t, mesh)
     return out
+
+
+def _graph(meta: dict, state, algo, mesh, active) -> dict:
+    """One graph record of the rank's block of the final state, emitted on
+    every rank (only rank 0's sink keeps it) -> {"graph/<field>": value}
+    of its numbers."""
+    from ..obs import graph, sink as sink_mod
+    from ..spec import make_algo_spec
+    spec = make_algo_spec("dfedpgp", topology=meta["topology"],
+                          n_neighbors=meta.get("n_neighbors", 2), seed=0)
+    ring = sink_mod.RingSink()
+    t0 = meta["rounds"] - 1
+    graph.emit_graph_record(
+        ring, run_id="ranks_check", algo="dfedpgp", m=mesh.n_clients,
+        seed=meta["graph_seed"], schedule=spec.schedule(mesh.n_clients),
+        step=t0, t0=t0, flat=state.flat, mu=state.mu,
+        personal=state.personal, active=active, ranks=algo.across_ranks)
+    rec = ring.last("graph")
+    return {f"graph/{k}": np.asarray(v) for k, v in rec.items()
+            if isinstance(v, (int, float)) and not isinstance(v, bool)}
 
 
 def _loss_job(meta: dict, data: dict, mesh) -> dict:
@@ -229,7 +284,7 @@ def _rank(rank: int, jobs, world: int, init_file: str, device: str) -> None:
             meta = json.loads(str(data.pop("meta")))
             mesh = mesh_mod.make_host_mesh(meta["m"],
                                            model=meta.get("tp", 1))
-            if job in ("rounds", "tree_rounds"):
+            if job in ("rounds", "sampled_rounds", "tree_rounds"):
                 res = _rounds_job(job, meta, data, mesh)
             elif job == "tp_loss":
                 res = _loss_job(meta, data, mesh)
@@ -245,7 +300,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch."
                                       "ranks_check", description=__doc__)
     ap.add_argument("--world", type=int, required=True)
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--device", default="cuda",
+                    help="'cuda' (default: NCCL, a rank a card) or 'cpu' "
+                         "(gloo)")
     ap.add_argument("--job", nargs=3, action="append", required=True,
                     metavar=("JOB", "IN", "OUT"))
     args = ap.parse_args(argv)

@@ -15,9 +15,11 @@ rows, and its T model ranks split those clients' models (tensor
 parallelism, executed by `launch/tp.py`: each rank holds its shard of
 every leaf, or its columns of the resident buffer).  The permutation mix
 (`make_ppermute_mix_flat`, `make_ppermute_mix`) and the matrix mix
-(`make_matrix_mix_flat`) exchange the rows that cross data indices with
+(`make_matrix_mix_flat`, and `make_matrix_mix_sampled` for a sampled
+round's compact set) exchange the rows that cross data indices with
 point-to-point operations among the ranks of one model index (its data
-group; `launch/ranks.py` plans them), each mixing its own shard.
+group; `launch/ranks.py` plans them), each mixing its own shard; a
+`RankRound` reduces the rounds' metrics and gauges over the mesh.
 The placements of the reference's `NamedSharding`s are tuples of
 `launch/sharding.py`, derived from any mesh object (a `MeshSpec` of the
 production meshes included); with `mesh` None the `build_*_step` tuples
@@ -46,6 +48,8 @@ from ..core.gossip import FlatLayout
 from ..kernels import ops
 from ..models import get_model, prefill_logits
 from ..models.config import ModelConfig
+from ..obs import gauges as obs_gauges
+from ..obs import graph as obs_graph
 from ..optim import SGD, SGDState
 from ..tree import from_paths, paths, tree_map
 from ..tree import get as tree_get
@@ -363,50 +367,152 @@ def make_ppermute_mix_flat(mesh, layout: Layout, d_flat: int,
     return mix
 
 
+def _mix_halo(mesh, plan, P, flat, mu_all, wire_dtype):
+    """The rows [plan.lo, plan.hi) of the matrix mix under the table P
+    (global ids of the plan's row space): the rank receives the halo rows
+    its rows read from the other ranks of its data group into a buffer
+    after its own rows (one batch of point-to-point operations; without a
+    halo the block itself, no copy), then mixes its rows in one
+    `ops.gossip_gather` call (the kernel on the card; `mix_rows` for a
+    narrowed payload, as `gossip.mix_flat`'s "sparse" mode), and mu by
+    `mix_rows` over `mu_all`, the mu of every row of the space.  Wide
+    tables (k >= rows) gather too: the cross-rank mix never densifies."""
+    lo, hi, dev = plan.lo, plan.hi, flat.device
+    x = _narrow(flat, wire_dtype)
+    if plan.halo:
+        ext = torch.empty((hi - lo + len(plan.halo),) + x.shape[1:],
+                          dtype=x.dtype, device=dev)
+        ext[:hi - lo].copy_(x)
+    else:
+        ext = x
+    ranks.exchange(
+        [(x[g - lo], mesh.peer(q)) for q, rows in plan.send for g in rows],
+        [(ext[plan.position(g)], mesh.peer(q)) for q, rows in plan.recv
+         for g in rows])
+    idx = torch.tensor([[plan.position(int(g)) for g in row]
+                        for row in P.idx[lo:hi].tolist()],
+                       dtype=torch.int32).reshape(hi - lo,
+                                                  P.idx.shape[1]).to(dev)
+    w = P.w[lo:hi].to(dev)
+    if ext.dtype == torch.float32:
+        mixed = ops.gossip_gather(idx, w, ext)
+    else:
+        mixed = gossip.mix_rows(idx, w, ext)
+    return (mixed.to(flat.dtype),
+            gossip.mix_rows(P.idx[lo:hi].to(dev), w, mu_all))
+
+
 def make_matrix_mix_flat(mesh, layout: Layout, wire_dtype=None):
     """The resident matrix mix across the ranks of a client mesh, under a
     SparseTopology.  mix(flat, mu, rnd, P): P is the round's FULL (m, k)
     table in global ids, on the host (every rank holds the same one, so
     each plans its peers' side, `ranks.gather_plan`).  The rank holds its
-    columns of its clients' rows (`launch/tp.py`); it receives those
-    columns of the neighbor rows its clients read from the other ranks of
-    its data group into a buffer after its own rows (one batch of
-    point-to-point operations; on one rank the block itself, no copy),
-    then mixes its rows in one
-    `ops.gossip_gather` call (the kernel on the card; `mix_rows` for a
-    narrowed payload, as `gossip.mix_flat`'s "sparse" mode), and mu by
-    `mix_rows` over the gathered mu.  Wide tables (k >= m) gather too: the
-    cross-rank mix never densifies."""
+    columns of its clients' rows (`launch/tp.py`) and mixes them through
+    `_mix_halo`, mu over the mu gathered from its data group."""
     m, world = layout.n_clients, mesh.world
 
     def mix(flat, mu, rnd, P):
         plan = ranks.gather_plan(P.idx.tolist(), m, world, mesh.data_index)
-        lo, hi, dev = plan.lo, plan.hi, flat.device
-        x = _narrow(flat, wire_dtype)
-        if plan.halo:
-            ext = torch.empty((hi - lo + len(plan.halo),) + x.shape[1:],
-                              dtype=x.dtype, device=dev)
-            ext[:hi - lo].copy_(x)
-        else:
-            ext = x
-        ranks.exchange(
-            [(x[g - lo], mesh.peer(q)) for q, rows in plan.send
-             for g in rows],
-            [(ext[plan.position(g)], mesh.peer(q)) for q, rows in plan.recv
-             for g in rows])
-        idx = torch.tensor([[plan.position(int(g)) for g in row]
-                            for row in P.idx[lo:hi].tolist()],
-                           dtype=torch.int32).to(dev)
-        w = P.w[lo:hi].to(dev)
-        if ext.dtype == torch.float32:
-            mixed = ops.gossip_gather(idx, w, ext)
-        else:
-            mixed = gossip.mix_rows(idx, w, ext)
         mu_all = ranks.all_gather_rows(mu, world, mesh.data_group)
-        return (mixed.to(flat.dtype),
-                gossip.mix_rows(P.idx[lo:hi].to(dev), w, mu_all))
+        return _mix_halo(mesh, plan, P, flat, mu_all, wire_dtype)
 
     return mix
+
+
+def make_matrix_mix_sampled(mesh, layout: Layout, wire_dtype=None):
+    """The compact-set counterpart of `make_matrix_mix_flat`: the sampled
+    round's mix across the ranks of a client mesh.  mix(flat, mu, rnd,
+    P_act, bounds): P_act is the round's FULL (n_active, k) induced table
+    in compact ids, on the host; bounds (`ranks.compact_bounds`) say which
+    compact rows each data index owns, flat and mu are the rank's own
+    compact rows (its columns of them; none at all on a rank whose block
+    holds no active client).  Only the active rows P_act reads cross ranks;
+    mu travels as the compact mu gathered from the data group."""
+    world = mesh.world
+
+    def mix(flat, mu, rnd, P_act, bounds):
+        plan = ranks.gather_plan(P_act.idx.tolist(), bounds[-1], world,
+                                 mesh.data_index, bounds)
+        counts = [b - a for a, b in zip(bounds, bounds[1:])]
+        mu_all = ranks.all_gather_rows(mu, world, mesh.data_group, counts)
+        return _mix_halo(mesh, plan, P_act, flat, mu_all, wire_dtype)
+
+    return mix
+
+
+class RankRound:
+    """A client-mesh rank's part in a Regime B round beyond its resident
+    mix (`DFedPGP.across_ranks`): which active clients of a sampled round
+    it owns and their compact mix across its data group
+    (`make_matrix_mix_sampled`), and the reductions of the round's metrics
+    and gauges over the mesh: rows over the data group, split columns over
+    the model group (`obs.gauges.RankGroups`), each exactly once."""
+
+    def __init__(self, mesh, layout: Layout, executor, wire_dtype=None):
+        self.mesh, self.m = mesh, layout.n_clients
+        self.mix_sampled = make_matrix_mix_sampled(mesh, layout, wire_dtype)
+        T = mesh.shape["model"]
+        self.groups = obs_gauges.RankGroups(
+            data=mesh.data_group, model=mesh.model_group if T > 1 else None,
+            columns=executor.split_columns, world=mesh.world,
+            index=mesh.data_index, n_rows=mesh.n_local,
+            peers=tuple(mesh.peer(q) for q in range(mesh.world)),
+            first=mesh.model_index == 0,
+            replicated=frozenset(p for p, dim in executor.plan.items()
+                                 if dim is None) if T > 1 else frozenset())
+
+    def own(self, active):
+        """-> (bounds, local rows): the sampled round's compact bounds
+        (`ranks.compact_bounds`) and the rows of this rank's block that
+        hold its active clients, ascending."""
+        active = [int(g) for g in active]
+        bounds = ranks.compact_bounds(active, self.m, self.mesh.world)
+        q, lo = self.mesh.data_index, self.mesh.rows[0]
+        return bounds, [g - lo for g in active[bounds[q]:bounds[q + 1]]]
+
+    def gather_mu(self, mu: torch.Tensor, counts=None) -> torch.Tensor:
+        """Every rank's mu rows in order (a collective over the data
+        group; `counts` where the ranks hold unequal compact rows)."""
+        return ranks.all_gather_rows(mu, self.mesh.world,
+                                     self.mesh.data_group, counts)
+
+    def metrics(self, loss_v, loss_u, mu, n: int) -> dict:
+        """The round's mean losses over its n clients (the ranks' sums,
+        0 where a rank has none, over n) and mu's range over the whole
+        buffer."""
+        g = self.groups
+        losses = obs_gauges.mean_ranks(torch.stack(
+            [loss_v.sum(), loss_u.sum()]), n, g)
+        lo_hi = obs_gauges.max_ranks(torch.stack([-mu.min(), mu.max()]), g)
+        return {"loss_v": losses[0], "loss_u": losses[1],
+                "mu_min": -lo_hi[0], "mu_max": lo_hi[1]}
+
+    def round_gauges(self, *, flat, mu, mu_pre, upd_before, upd_after,
+                     grad_norms, P, n: int, active=None,
+                     counts=None) -> dict:
+        """`DFedPGP._round_gauges` over the mesh: the consensus gap over
+        the whole buffer (`consensus_gap_ranks`), the mass ledger of the
+        gathered mu (`active`: the sampled round's global ids), the update
+        and gradient norms over the mesh, wire edges and moved mass of the
+        host table P against the gathered pre-mix mu (`counts`: its
+        compact rows per rank).  No codec runs across ranks, so no EF
+        ratio."""
+        g = self.groups
+        dev = flat.device
+        out = dict(obs_gauges.consensus_gap_ranks(flat, mu, g))
+        mask = None
+        if active is not None:
+            mask = torch.zeros((self.m,), dtype=torch.bool, device=dev)
+            mask[torch.as_tensor(active, device=dev).long()] = True
+        out.update(obs_gauges.mass_ledger(self.gather_mu(mu), mask))
+        out["update_norm"] = obs_gauges.update_norm_ranks(upd_before,
+                                                          upd_after, g)
+        out["grad_norm"] = obs_gauges.mean_ranks(grad_norms.sum(), n, g)
+        P = P.to(dev)
+        out["wire_edges"] = obs_gauges.wire_edges(P)
+        out["moved_mass"] = obs_graph.moved_mass(
+            P, self.gather_mu(mu_pre, counts))
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -478,8 +584,11 @@ def build_train_algo(cfg: ModelConfig, mesh, layout: Layout,
     caller shards the init with `algo.tp.shard` / `.shard_state`):
     gossip="ppermute" then mixes through
     `make_ppermute_mix_flat` (resident) or `make_ppermute_mix` (tree
-    form), gossip="matrix" through `make_matrix_mix_flat` (resident only).
-    gossip="ppermute" needs a client mesh."""
+    form), gossip="matrix" through `make_matrix_mix_flat` (resident only),
+    and a sampled round's compact set through `make_matrix_mix_sampled`
+    (`algo.across_ranks`, a `RankRound`, which also reduces the round's
+    metrics and gauges over the mesh).  gossip="ppermute" needs a client
+    mesh."""
     knobs = _resolve_regime_b(layout, spec, gossip, schedule, resident,
                               "build_train_algo")
     return _train_algo(cfg, mesh, layout, knobs, spec, k_u, k_v, bf16_grads,
@@ -535,14 +644,15 @@ def _train_algo(cfg: ModelConfig, mesh, layout: Layout, knobs, spec,
         raise AssertionError(f"schedule.m={schedule.m} != "
                              f"layout.n_clients={layout.n_clients}")
     flat_layout = FlatLayout.build(params_struct, mask) if resident else None
-    executor = None
+    opt = SGD(lr=lr, momentum=0.9, weight_decay=5e-4)
+    wire_dtype = getattr(torch, gossip_dtype) if gossip_dtype else None
+    executor = across = None
     if isinstance(mesh, ClientMesh):
         # the cross-rank path always runs through the executor (at T = 1
         # its shards are whole leaves and its collectives one-rank copies)
         executor = tp.Executor(cfg, mesh, template, flat_layout)
         loss_fn = executor.loss_fn(api, cfg)
-    opt = SGD(lr=lr, momentum=0.9, weight_decay=5e-4)
-    wire_dtype = getattr(torch, gossip_dtype) if gossip_dtype else None
+        across = RankRound(mesh, layout, executor, wire_dtype)
     mix_fn, mix_fn_flat = _cross_rank_mixes(
         mesh, layout, gossip, schedule, resident, mask, params_struct,
         flat_layout, wire_dtype)
@@ -553,7 +663,8 @@ def _train_algo(cfg: ModelConfig, mesh, layout: Layout, knobs, spec,
         loss_fn=loss_fn, mask=mask, opt_u=opt, opt_v=opt, k_v=k_v, k_u=k_u,
         mix_fn=mix_fn, mix_fn_flat=mix_fn_flat,
         grad_hook=grad_hook, grad_hook_flat=grad_hook_flat,
-        gossip_dtype=wire_dtype, telemetry=telemetry, tp=executor)
+        gossip_dtype=wire_dtype, telemetry=telemetry, tp=executor,
+        across_ranks=across)
     return algo, mask, params_struct, flat_layout
 
 
@@ -614,7 +725,10 @@ def build_train_step(cfg: ModelConfig, mesh, layout: Layout,
     train_step(state, P_act, active, batches) runs `round_fn_sampled` on
     the compact working set and writes back in place (one `gossip_scatter`
     launch on the card).  It needs resident=True and a schedule, and
-    refuses gossip='ppermute'.
+    refuses gossip='ppermute'.  On a client mesh the step runs the rank's
+    share: P_act and active are the round's full host table and ids, the
+    batches the rank's own compact rows (`ranks.compact_bounds`), and the
+    metrics come back reduced over the mesh.
 
     The shardings are `sharding.py` placements on `mesh` (None when
     `mesh` is None: one device); arg_structs are meta tensors of the

@@ -401,6 +401,13 @@ class Executor:
         rank holds whole rows."""
         return self.T > 1 and self.cols[1] - self.cols[0] == self.d_flat
 
+    @property
+    def split_columns(self) -> bool:
+        """The rank holds a split of each buffer row (T > 1 and d_flat %
+        T == 0): a row's terms sum over the model group."""
+        return self.cols is not None and \
+            self.cols[1] - self.cols[0] < self.d_flat
+
     def loss_fn(self, api, cfg):
         """(params, batch) -> one client's loss on the rank's shards."""
         model = self.model
@@ -475,6 +482,17 @@ class Executor:
         for i in range(z.shape[0]):
             gather(z[i], z[i, lo:hi], group=self.group)
         return z
+
+    def row_norms(self, g: torch.Tensor) -> torch.Tensor:
+        """(n,) f32 norms of the whole gradient rows from the rank's
+        columns of them (`finish_grad`'s output): the squares summed over
+        the model group where the columns are split (`obs.gauges.l2_norm`
+        otherwise)."""
+        import torch.distributed as dist
+        sq = torch.sum(torch.square(g.to(torch.float32)), dim=1)
+        if self.split_columns:
+            dist.all_reduce(sq, group=self.group)
+        return torch.sqrt(sq)
 
     def finish_grad(self, g: torch.Tensor) -> torch.Tensor:
         """The (n, d_flat) row gradients of the rank's shards -> the

@@ -25,10 +25,12 @@ split those clients' models (`launch/tp.py`: the dense and vlm families;
 the others run at T = 1, ROADMAP item 17b).  The schedule and the batch
 draws are the same on every rank, each slicing its rows.  The mix
 crosses data indices: `--gossip ppermute` the permutation mix (tree form
-or --resident), `--gossip matrix` the resident matrix mix.  Rank 0
-prints and emits the records, their losses and mu range reduced over its
-data group.  The sampled round and the gauges across ranks are refused
-(ROADMAP item 18).
+or --resident), `--gossip matrix` the resident matrix mix.  With
+`--sample f` each rank steps the round's active clients of its block,
+their compact mix crosses ranks (`--gossip matrix`) and each row goes
+back on its owner.  The rounds reduce their losses, mu range and
+`--telemetry` gauges over the mesh; `--graph-every` snapshots the buffer
+where its rows live.  Rank 0 prints and emits the records.
 
 Usage (the reduced smoke config on the CPU, a few rounds, synthetic LM
 data):
@@ -42,7 +44,8 @@ and over two gloo ranks on the CPU, or four as (data 2, model 2):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
       --reduced --clients 4 --resident --ranks 2 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
-      --reduced --clients 4 --resident --ranks 4 --tp 2 --device cpu
+      --reduced --clients 8 --resident --sample 0.5 --telemetry \\
+      --ranks 4 --tp 2 --device cpu
 """
 from __future__ import annotations
 
@@ -206,15 +209,30 @@ def check_ranks_args(ap, args, world: int) -> None:
         tp.check_tp(cfg, T)
     except (ValueError, NotImplementedError) as e:
         ap.error(f"--tp {T}: {e}")
-    if args.sample < 1.0:
-        ap.error(f"--sample {args.sample} with --ranks: the sampled round "
-                 f"across ranks is not ported yet (ROADMAP item 18)")
-    if args.telemetry:
-        ap.error("--telemetry with --ranks: the round gauges across ranks "
-                 "are not ported yet (ROADMAP item 18)")
+    check_flags(ap, args, args.gossip)
     if args.gossip == "matrix" and not args.resident:
         ap.error("--gossip matrix with --ranks mixes the resident buffer: "
                  "add --resident (or use --gossip ppermute)")
+
+
+def check_flags(ap, args, gossip: str) -> None:
+    """The reference's refusals of participation and telemetry flags, for
+    the mix `gossip` the run takes (one device falls back to "matrix")."""
+    if not 0.0 < args.sample <= 1.0:
+        ap.error(f"--sample {args.sample}: want a fraction in (0, 1]")
+    sampled = args.sample < 1.0
+    if sampled and not args.resident:
+        ap.error("--sample < 1 gathers/scatters the resident flat "
+                 "buffer; add --resident")
+    if sampled and gossip == "ppermute":
+        ap.error("--sample < 1 mixes the compact working set; ppermute "
+                 "offsets address all m shards — use --gossip matrix")
+    if args.telemetry and not args.resident:
+        ap.error("--telemetry gauges read the resident flat buffer; "
+                 "add --resident")
+    if args.graph_every and not args.telemetry:
+        ap.error("--graph-every emits through the telemetry spine; "
+                 "add --telemetry")
 
 
 class Trainer:
@@ -246,18 +264,7 @@ class Trainer:
                 print("[train] note: ppermute needs the client mesh; "
                       "falling back to matrix gossip")
                 gossip = "matrix"
-        if not 0.0 < args.sample <= 1.0:
-            ap.error(f"--sample {args.sample}: want a fraction in (0, 1]")
-        sampled = args.sample < 1.0
-        if sampled and not args.resident:
-            ap.error("--sample < 1 gathers/scatters the resident flat "
-                     "buffer; add --resident")
-        if args.telemetry and not args.resident:
-            ap.error("--telemetry gauges read the resident flat buffer; "
-                     "add --resident")
-        if args.graph_every and not args.telemetry:
-            ap.error("--graph-every emits through the telemetry spine; "
-                     "add --telemetry")
+        check_flags(ap, args, gossip)
         self.args, self.cfg, self.m = args, cfg, m
         self.spec = make_cli_spec(args, gossip)
         # the schedule the loop mixes over and the sampler it draws from
@@ -290,7 +297,9 @@ class Trainer:
 
     def batches(self, r: int) -> dict:
         """Round r's synthetic batches on the device: {'v': (n, K_v, B,
-        S), 'u': (n, K_u, B, S)} for the round's n clients."""
+        S), 'u': (n, K_u, B, S)} for the round's n clients (on a client
+        mesh the rank's own: its block, or under sampling its compact
+        rows [a_q, a_{q+1}) of `ranks.compact_bounds`)."""
         gen = seeded_generator(0, DATA_STREAM, r + 1, self.device)
         a = self.args
         b = {"v": synth_lm_batch(gen, self.cfg,
@@ -299,8 +308,13 @@ class Trainer:
                                  (self.n_lead, a.k_u, a.batch), a.seq)}
         if self.mesh is None:
             return b
-        # every rank draws every client's batch and keeps its block
+        # every rank draws every client's batch and keeps its own rows
         lo, hi = self.mesh.rows
+        if self.sampler is not None:
+            q = self.mesh.data_index
+            bounds = ranks.compact_bounds(self.sampler.active_at(r), self.m,
+                                          self.mesh.world)
+            lo, hi = bounds[q], bounds[q + 1]
         return tree_map(lambda x: x[lo:hi], b)
 
     def topology(self, r: int):
@@ -319,10 +333,11 @@ class Trainer:
         another run's)."""
         P, active = self.topology(r)
         b = self.batches(r) if batches is None else batches
-        # the cross-rank mixes plan from the full table on the host
+        # the cross-rank mixes plan from the full table and ids on the host
         dev_P = P.to(self.device) if self.mesh is None else P
         if active is not None:
-            act = torch.as_tensor(active, device=self.device)
+            act = torch.as_tensor(active, device=self.device) \
+                if self.mesh is None else active
             self.state, metrics = self.algo.round_fn_sampled(
                 self.state, dev_P, act, b, self.flat_layout)
         elif self.args.resident:
@@ -331,24 +346,6 @@ class Trainer:
         else:
             self.state, metrics = self.algo.round_fn(self.state, dev_P, b)
         return metrics, P, active
-
-    def reduce_metrics(self, metrics: dict) -> dict:
-        """A round's metrics over the client mesh: the mean losses over all
-        clients, mu's min and max over all rows (the rank's own on one
-        device).  They reduce over the data group: the model ranks of a
-        data index hold the same clients' losses and mu, which a reduction
-        over every rank would count T times."""
-        if self.mesh is None:
-            return metrics
-        import torch.distributed as dist
-        n, group = self.mesh.n_local, self.mesh.data_group
-        losses = torch.stack([metrics["loss_v"], metrics["loss_u"]]) * n
-        lo_hi = torch.stack([-metrics["mu_min"], metrics["mu_max"]])
-        dist.all_reduce(losses, group=group)
-        dist.all_reduce(lo_hi, op=dist.ReduceOp.MAX, group=group)
-        losses = losses / self.m
-        return dict(metrics, loss_v=losses[0], loss_u=losses[1],
-                    mu_min=-lo_hi[0], mu_max=lo_hi[1])
 
 
 def main(argv=None):
@@ -434,7 +431,6 @@ def run_rank(args, ap, mesh=None):
                 batches = run.batches(r)
             with timer.phase("round", block=True) as ph:
                 metrics, P_r, active = run.step(r, batches)
-                metrics = run.reduce_metrics(metrics)
                 ph.out = metrics
             host = obs_gauges.to_host(metrics)
             wire_total += obs_gauges.edge_count(P_r) * wire_rb
@@ -451,7 +447,7 @@ def run_rank(args, ap, mesh=None):
                     sink, run_id=run_id, algo="dfedpgp", m=m,
                     seed=args.seed, schedule=run.schedule, step=r, t0=r,
                     flat=s.flat, mu=s.mu, personal=s.personal,
-                    active=active)
+                    active=active, ranks=run.algo.across_ranks)
             say(f"[train] {obs.record.render(rec)} "
                 f"loss_v={rec['loss_v']:.4f} "
                 f"mu=[{rec['mu_min']:.3f},{rec['mu_max']:.3f}]")

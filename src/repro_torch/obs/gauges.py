@@ -6,12 +6,18 @@ device, never touching the state that flows on, so a round with
 telemetry on leaves its state bit for bit what it is with telemetry off.
 `to_host` fetches a round's gauges in one device sync.
 
+Across the ranks of a client mesh (`launch/`) each rank holds a block of
+the buffer's rows, or its columns of them; the `*_ranks` gauges take a
+rank's share and its `RankGroups` and reduce each term where it is split:
+rows over the data group, split columns over the model group, each
+exactly once.
+
 The host-side meters at the bottom (wire-byte arithmetic, device memory)
 are the one source both runtimes' accounting reads.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -63,11 +69,20 @@ def ef_signal_ratio(flat: torch.Tensor, ef: torch.Tensor) -> torch.Tensor:
     return (un + eps) / (un + en + eps)
 
 
+def l2_norm(x: torch.Tensor, dim=None) -> torch.Tensor:
+    """sqrt of the f32 sum of squares (over `dim`, default all), as the
+    reference's `jnp.linalg.norm`: torch's CPU `vector_norm` accumulates
+    less exactly (1.2e-4 relative at 1.3M elements, reduced()
+    qwen2-0.5b's update of four clients)."""
+    sq = torch.square(x.to(torch.float32))
+    return torch.sqrt(torch.sum(sq) if dim is None else torch.sum(sq, dim))
+
+
 def buffer_update_norm(flat_before: torch.Tensor,
                        flat_after: torch.Tensor) -> torch.Tensor:
     """Frobenius norm of the local-phase displacement of the buffer, f32."""
     d = flat_after.to(torch.float32) - flat_before.to(torch.float32)
-    return torch.linalg.vector_norm(d)
+    return l2_norm(d)
 
 
 def wire_edges(P, fired: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -107,6 +122,93 @@ def mailbox_gauges(slots_mu: torch.Tensor, inbox_mu: torch.Tensor) -> dict:
         "mailbox_slot_mass": torch.sum(slots_mu),
         "mailbox_inbox_mass": torch.sum(inbox_mu),
     }
+
+
+# ---------------------------------------------------------------------------
+# gauges across the ranks of a client mesh (pure reads, then collectives)
+# ---------------------------------------------------------------------------
+class RankGroups(NamedTuple):
+    """Where a client-mesh rank's share of a gauge reduces
+    (`launch.steps.RankRound`).  The rank is data index `index` of the
+    data group `data` (`world` data indices, index q at global rank
+    peers[q]), holding the rows [index n_rows, (index + 1) n_rows) of
+    the buffer.  `model`: its model group (None at T = 1); the buffer's
+    terms sum over it only where `columns` (the rank holds a split of each
+    row; with whole rows a sum would count every term T times).  Personal
+    leaves are shards or, where the plan keeps them whole (`replicated`
+    paths), counted on model index 0 alone (`first`)."""
+    data: Any
+    model: Any
+    columns: bool
+    world: int
+    index: int
+    n_rows: int
+    peers: tuple
+    first: bool
+    replicated: frozenset
+
+
+def _reduced(x: torch.Tensor, group, op=None) -> torch.Tensor:
+    """A reduced copy of x over `group` (sum, or `op`)."""
+    import torch.distributed as dist
+    out = x.contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM if op is None else op,
+                    group=group)
+    return out
+
+
+def sum_rows(x: torch.Tensor, groups: RankGroups) -> torch.Tensor:
+    """x summed over the data group (terms of every rank's rows)."""
+    return _reduced(x, groups.data)
+
+
+def sum_columns(x: torch.Tensor, groups: RankGroups) -> torch.Tensor:
+    """Sums over the rank's buffer columns -> over the whole rows."""
+    return _reduced(x, groups.model) if groups.columns else x
+
+
+def sum_shards(x: torch.Tensor, groups: RankGroups) -> torch.Tensor:
+    """Sums over the rank's personal shards -> over the whole leaves."""
+    return x if groups.model is None else _reduced(x, groups.model)
+
+
+def mean_ranks(x: torch.Tensor, n: int, groups: RankGroups) -> torch.Tensor:
+    """The data group's sum of x (each rank's sum over its clients) over
+    n, the clients of all ranks."""
+    return sum_rows(x, groups) / n
+
+
+def max_ranks(x: torch.Tensor, groups: RankGroups) -> torch.Tensor:
+    """The elementwise max of x over the data group."""
+    import torch.distributed as dist
+    return _reduced(x, groups.data, dist.ReduceOp.MAX)
+
+
+def consensus_gap_ranks(flat: torch.Tensor, mu: torch.Tensor,
+                        groups: RankGroups) -> dict:
+    """`consensus_gap` of the whole buffer from a rank's block: z_bar from
+    the data group's column sums of u and its sum of mu; each row's
+    squared distance summed over the split columns before the square
+    root; the mean and max over the data group."""
+    u = flat.to(torch.float32)
+    z = u / mu[:, None].to(torch.float32)
+    z_bar = sum_rows(torch.sum(u, dim=0), groups) / \
+        sum_rows(torch.sum(mu).to(torch.float32), groups)
+    d = torch.sqrt(sum_columns(torch.sum(torch.square(z - z_bar[None, :]),
+                                         dim=1), groups))
+    return {"consensus_gap_mean": mean_ranks(torch.sum(d),
+                                             groups.world * groups.n_rows,
+                                             groups),
+            "consensus_gap_max": max_ranks(torch.max(d), groups)}
+
+
+def update_norm_ranks(flat_before: torch.Tensor, flat_after: torch.Tensor,
+                      groups: RankGroups) -> torch.Tensor:
+    """`buffer_update_norm` of the rows of every rank (none on some, in a
+    sampled round): the squares summed over both groups."""
+    d = flat_after.to(torch.float32) - flat_before.to(torch.float32)
+    return torch.sqrt(sum_columns(sum_rows(torch.sum(torch.square(d)),
+                                           groups), groups))
 
 
 def to_host(values: dict) -> dict:

@@ -23,6 +23,11 @@ Randomness: the reference draws its probes and client pairs from
 `device.seeded_generator(seed, GRAPH_STREAM, t0)` on the buffer's device,
 and every random gauge takes the draw as an argument (`probes=`,
 `pairs=`) so a test can inject the reference's.
+
+Across the ranks of a client mesh no rank materializes the whole buffer:
+`emit_graph_record(ranks=...)` computes row norms, the pairs' dot
+products and the personal-head distances where the rows live, sending a
+pair the row it lacks point to point (`_snapshot_ranks`).
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ import torch
 from .. import tree
 from ..core.topology import SparseTopology
 from ..device import seeded_generator
+from ..launch import ranks as _ranks
 from . import gauges as _gauges
 from . import record as _record
 
@@ -134,7 +140,11 @@ def edge_delta_attribution(P: SparseTopology, flat: torch.Tensor,
     _EPS, since a just-fired async client holds (0, 0))."""
     z = flat.to(torch.float32) / torch.clamp(
         mu[:, None].to(torch.float32), min=_EPS)
-    znorm = torch.sqrt(torch.sum(torch.square(z), dim=1))
+    return _attribution(P, torch.sqrt(torch.sum(torch.square(z), dim=1)))
+
+
+def _attribution(P: SparseTopology, znorm: torch.Tensor) -> torch.Tensor:
+    """w[i, p] * znorm[idx[i, p]], self edges zero."""
     idx = P.idx.long()
     att = P.w * znorm[idx]
     return torch.where(idx == _rows(P), 0.0, att)
@@ -179,19 +189,30 @@ def row_cosine(flat: torch.Tensor, mu: torch.Tensor,
                n_pairs: int = 64, *, pairs=None) -> dict:
     """Sampled pairwise cosine similarity of the de-biased shared rows
     z_i = u_i / mu_i over `pairs` (drawn from `generator` when not
-    given): mean and min."""
+    given): mean and min.  One pair's rows at a time: the pairs' rows
+    stacked would take 64 rows of the buffer (118 GiB of f32 at
+    qwen2-0.5b's width)."""
     m = flat.shape[0]
     z = flat.to(torch.float32) / torch.clamp(
         mu[:, None].to(torch.float32), min=_EPS)
     i, j = pairs if pairs is not None else \
         draw_pairs(generator, m, n_pairs)
-    zi, zj = z[torch.as_tensor(i, device=z.device).long()], \
-        z[torch.as_tensor(j, device=z.device).long()]
-    dot = torch.sum(zi * zj, dim=1)
-    nn = torch.linalg.vector_norm(zi, dim=1) * \
-        torch.linalg.vector_norm(zj, dim=1)
-    cos = dot / torch.clamp(nn, min=_EPS)
+    i = torch.as_tensor(i, device=z.device).long()
+    j = torch.as_tensor(j, device=z.device).long()
+    dot = _pair_sums(z, i, j, torch.mul)
+    norms = _gauges.l2_norm(z, dim=1)
+    cos = dot / torch.clamp(norms[i] * norms[j], min=_EPS)
     return {"row_cos_mean": torch.mean(cos), "row_cos_min": torch.min(cos)}
+
+
+def _pair_sums(rows: torch.Tensor, i: torch.Tensor, j: torch.Tensor,
+               op) -> torch.Tensor:
+    """(n_pairs,) sums over the columns of op(rows[i[p]], rows[j[p]]),
+    one pair's two rows at a time."""
+    return torch.stack([
+        torch.sum(op(rows.index_select(0, i[p:p + 1]),
+                     rows.index_select(0, j[p:p + 1])))
+        for p in range(i.shape[0])])
 
 
 def pairwise_distance(rows: torch.Tensor,
@@ -200,14 +221,15 @@ def pairwise_distance(rows: torch.Tensor,
                       pairs=None) -> dict:
     """Sampled pairwise L2 distance over per-client rows (m, d): mean and
     max — on the stacked personal heads, how far they have
-    specialized."""
+    specialized.  One pair's rows at a time, as `row_cosine`."""
     m = rows.shape[0]
     r = rows.to(torch.float32)
     i, j = pairs if pairs is not None else \
         draw_pairs(generator, m, n_pairs)
     i = torch.as_tensor(i, device=r.device).long()
     j = torch.as_tensor(j, device=r.device).long()
-    d = torch.sqrt(torch.sum(torch.square(r[i] - r[j]), dim=1))
+    d = torch.sqrt(_pair_sums(r, i, j,
+                              lambda a, b: torch.square(a - b)))
     return {f"{prefix}_mean": torch.mean(d), f"{prefix}_max": torch.max(d)}
 
 
@@ -277,9 +299,101 @@ def _snapshot(flat, mu, personal, P, window, *, probes, pairs) -> tuple:
     return g, edge_delta_attribution(P, flat, mu)
 
 
+def _personal_row(personal: dict, i: int, groups) -> torch.Tensor:
+    """Client i's personal leaves as one f32 row of the rank's share: the
+    shards, and the leaves every model rank holds whole on model index 0
+    alone (a sum over the model group then counts each term once)."""
+    return torch.cat([a[i].reshape(-1).to(torch.float32)
+                      for p, a in tree.paths(personal)
+                      if a is not None and (groups.first
+                                            or p not in groups.replicated)])
+
+
+def _snapshot_ranks(flat, mu, personal, P, window, ids, ranks, *, probes,
+                    pairs) -> tuple:
+    """`_snapshot` of a buffer spread over a client mesh: `flat` and
+    `personal` are the rank's block (its columns and shards), `mu` the
+    gathered mu of the snapshot's rows, whose global rows are `ids` (all
+    m, or the round's active clients).  Each rank takes the squared norms
+    of its own rows and, for every pair whose first row it owns, the dot
+    product and the personal rows' squared distance; where the pair's
+    second row lives on another rank, its owner sends it (one row at a
+    time, the same transfer list on every rank).  The terms reduce over
+    the data group and, where split, the model group."""
+    g = ranks.groups
+    dev, f32 = flat.device, torch.float32
+    lo = g.index * g.n_rows
+    ids = [int(x) for x in ids]
+    owner = [x // g.n_rows for x in ids]
+    mu32 = torch.clamp(mu.to(f32), min=_EPS)
+    heads = bool(tree.leaves(personal))
+    mine = [c for c in range(len(ids)) if owner[c] == g.index]
+
+    def z_row(c, row=None):
+        row = flat[ids[c] - lo] if row is None else row
+        return row.to(f32) / mu32[c]
+
+    def head_row(c):
+        return _personal_row(personal, ids[c] - lo, g)
+
+    sq = torch.zeros((len(ids),), dtype=f32, device=dev)
+    if mine:
+        loc = torch.tensor([ids[c] - lo for c in mine], device=dev)
+        z = flat.index_select(0, loc).to(f32) / mu32[mine][:, None]
+        sq[mine] = torch.sum(torch.square(z), dim=1)
+        del z
+    pi, pj = (torch.as_tensor(x).tolist() for x in pairs)
+    dots = torch.zeros((len(pi),), dtype=f32, device=dev)
+    hd2 = torch.zeros_like(dots)
+
+    def pair_terms(p, zj, hj):
+        zi = z_row(pi[p])
+        dots[p] = torch.sum(zi * zj)
+        if heads:
+            hd2[p] = torch.sum(torch.square(head_row(pi[p]) - hj))
+
+    for p in range(len(pi)):
+        if owner[pi[p]] == g.index and owner[pj[p]] == g.index:
+            pair_terms(p, z_row(pj[p]), head_row(pj[p]) if heads else None)
+    for r, j in sorted({(owner[i], j) for i, j in zip(pi, pj)
+                        if owner[i] != owner[j]}):
+        if owner[j] == g.index:
+            sends = [(flat[ids[j] - lo].contiguous(), g.peers[r])]
+            if heads:
+                sends.append((head_row(j), g.peers[r]))
+            _ranks.exchange(sends, [])
+        elif r == g.index:
+            row = torch.empty_like(flat[0])
+            recvs = [(row, g.peers[owner[j]])]
+            if heads:
+                hj = torch.empty_like(head_row(mine[0]))
+                recvs.append((hj, g.peers[owner[j]]))
+            _ranks.exchange([], recvs)
+            zj = z_row(j, row)
+            for p in range(len(pi)):
+                if pj[p] == j and owner[pi[p]] == g.index:
+                    pair_terms(p, zj, hj if heads else None)
+    terms = _gauges.sum_columns(_gauges.sum_rows(torch.cat([sq, dots]), g),
+                                g)
+    znorm = torch.sqrt(terms[:len(ids)])
+    i_t = torch.tensor(pi, device=dev)
+    j_t = torch.tensor(pj, device=dev)
+    cos = terms[len(ids):] / torch.clamp(znorm[i_t] * znorm[j_t], min=_EPS)
+    out = {"contraction": contraction_estimate(window, probes=probes),
+           "moved_mass": moved_mass(P, mu)}
+    out.update(degree_utilization(P))
+    out.update({"row_cos_mean": torch.mean(cos),
+                "row_cos_min": torch.min(cos)})
+    if heads:
+        d = torch.sqrt(_gauges.sum_shards(_gauges.sum_rows(hd2, g), g))
+        out.update({"head_dist_mean": torch.mean(d),
+                    "head_dist_max": torch.max(d)})
+    return out, _attribution(P, znorm)
+
+
 def emit_graph_record(sink, *, run_id, algo, m, seed, schedule, step, t0,
                       flat, mu, personal, active=None, extra=None,
-                      probes=None, pairs=None):
+                      probes=None, pairs=None, ranks=None):
     """Emit one kind="graph" record (schema v2): the window [t0, t0+W) of
     the run's schedule (W = schedule.period, or GRAPH_WINDOW for the
     aperiodic kinds), snapshotted against the CURRENT buffer.  The CPU
@@ -292,28 +406,43 @@ def emit_graph_record(sink, *, run_id, algo, m, seed, schedule, step, t0,
     (flat + mail, mu + mail).  `extra` carries regime-specific gauges onto
     the record.  probes / pairs replace the draws from
     `seeded_generator(seed, GRAPH_STREAM, t0)` (tests inject the
-    reference's)."""
+    reference's).
+
+    ranks: a client-mesh rank's `launch.steps.RankRound` (its `groups`
+    and `gather_mu`): flat, mu and personal are then the rank's
+    block, every rank of the mesh calls this with the same draws, and
+    only rank 0 holds a sink that writes (`_snapshot_ranks`)."""
     dev = flat.device
     W = schedule.period or GRAPH_WINDOW
+    if ranks is not None:
+        mu = ranks.gather_mu(mu)
     # the conserved ledger spans the FULL buffer, before any gather
     mass_total = torch.sum(mu.to(torch.float32))
+    ids = range(mu.shape[0])
     if active is not None:
         act = torch.as_tensor(np.asarray(active))
         window = tuple(schedule.induced(int(t0) + i, act, "row").to(dev)
                        for i in range(W))
         take = act.to(dev).long()
-        flat, mu = flat.index_select(0, take), mu.index_select(0, take)
-        personal = tree.tree_map(lambda a: a.index_select(0, take),
-                                 personal)
+        mu = mu.index_select(0, take)
+        ids = act.tolist()
+        if ranks is None:
+            flat = flat.index_select(0, take)
+            personal = tree.tree_map(lambda a: a.index_select(0, take),
+                                     personal)
     else:
         window = tuple(schedule.at(int(t0) + i).to(dev) for i in range(W))
-    n = flat.shape[0]
+    n = mu.shape[0]
     if probes is None or pairs is None:
         gen = seeded_generator(seed, GRAPH_STREAM, int(t0), dev)
         probes = draw_probes(gen, n) if probes is None else probes
         pairs = draw_pairs(gen, n) if pairs is None else pairs
-    g, att = _snapshot(flat, mu, personal, window[0], window,
-                      probes=probes, pairs=pairs)
+    if ranks is None:
+        g, att = _snapshot(flat, mu, personal, window[0], window,
+                          probes=probes, pairs=pairs)
+    else:
+        g, att = _snapshot_ranks(flat, mu, personal, window[0], window, ids,
+                                 ranks, probes=probes, pairs=pairs)
     host = _gauges.to_host({"mass_total": mass_total, **(extra or {}), **g})
     sink.emit(_record.graph_record(
         run=run_id, algo=algo, step=step, m=m,

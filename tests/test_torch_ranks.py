@@ -68,7 +68,8 @@ def _jobs(tmp_factory, world: int, jobs: dict) -> dict:
     """{name: (job, meta, arrays)} run in one gloo group of `world` ranks
     -> {name: output arrays}."""
     tmp = tmp_factory.mktemp(f"ranks{world}")
-    argv = ["-m", "repro_torch.launch.ranks_check", "--world", str(world)]
+    argv = ["-m", "repro_torch.launch.ranks_check", "--world", str(world),
+            "--device", "cpu"]
     for name, (job, meta, arrays) in jobs.items():
         np.savez(tmp / f"{name}.in.npz", meta=json.dumps(meta), **arrays)
         argv += ["--job", job, str(tmp / f"{name}.in.npz"),
@@ -470,10 +471,13 @@ def test_train_main_joins_a_torchrun_group(tmp_path):
     (["--clients", "4", "--ranks", "3"], r"m % W == 0"),
     (["--arch", "recurrentgemma-9b", "--clients", "4", "--ranks", "2",
       "--tp", "2"], "ROADMAP item 17"),
-    (["--clients", "4", "--ranks", "2", "--resident", "--sample", "0.5"],
-     "ROADMAP item 18"),
-    (["--clients", "4", "--ranks", "2", "--resident", "--telemetry"],
-     "ROADMAP item 18"),
+    (["--clients", "4", "--ranks", "2", "--resident", "--sample", "0.5",
+      "--gossip", "ppermute"], "use --gossip matrix"),
+    (["--clients", "4", "--ranks", "2", "--resident", "--graph-every",
+      "1"], "add --telemetry"),
+    (["--clients", "4", "--ranks", "2", "--sample", "0.5"],
+     r"--sample < 1 gathers/scatters the resident flat buffer; add "
+     r"--resident"),
     (["--clients", "4", "--ranks", "2"], "add --resident")])
 def test_train_ranks_refusals(argv, match, capsys):
     with pytest.raises(SystemExit):

@@ -27,7 +27,7 @@ arrays) go through the reference:
   and gradients, and 2 resident matrix-mix and 2 tree-form permutation
   rounds through a one-rank client mesh, bit for bit the plain path's,
   as the card's phase `tp` holds them;
-- the refusals, each naming its ROADMAP item."""
+- the refusals, each naming its ROADMAP item where one is not ported."""
 import functools
 import json
 import os
@@ -96,7 +96,8 @@ def jobs(tmp_factory, world: int, todo: dict, meanwhile=(),
     {name: output arrays}; the callables `meanwhile` (the reference's side)
     run while the ranks do."""
     tmp = tmp_factory.mktemp(f"tp{world}")
-    argv = ["-m", "repro_torch.launch.ranks_check", "--world", str(world)]
+    argv = ["-m", "repro_torch.launch.ranks_check", "--world", str(world),
+            "--device", "cpu"]
     for name, (job, meta, arrays) in todo.items():
         np.savez(tmp / f"{name}.in.npz", meta=json.dumps(meta), **arrays)
         argv += ["--job", job, str(tmp / f"{name}.in.npz"),
@@ -211,8 +212,8 @@ def test_check_tp_refuses_a_split_of_heads_or_columns(field, T):
     (["--ranks", "4", "--tp", "4"], "does not divide n_kv_heads=2"),
     (["--ranks", "3", "--tp", "2"], r"W % T == 0"),
     (["--ranks", "4", "--tp", "2", "--clients", "3"], r"m % W == 0"),
-    (["--ranks", "2", "--tp", "2", "--sample", "0.5"], "ROADMAP item 18"),
-    (["--ranks", "2", "--tp", "2", "--telemetry"], "ROADMAP item 18")])
+    (["--ranks", "2", "--tp", "2", "--sample", "0.5", "--gossip",
+      "ppermute"], "use --gossip matrix")])
 def test_train_refuses_tp(argv, match, capsys):
     with pytest.raises(SystemExit):
         ttrain.main(["--reduced", "--device", "cpu", "--resident",

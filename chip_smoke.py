@@ -207,6 +207,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import os
@@ -596,17 +597,78 @@ def _induced_table(torch, P, n_active=50, seed=5):
     return topology.induced_subgraph(P, active.to(P.idx.device), "row")
 
 
-def _gather_plan(m, k, d, U, block_d=None):
-    """The route and tiling gossip_gather_cuda takes for these inputs."""
+def _gather_plan(m, k, d, U, block_d=None, rows=None):
+    """The route and tiling gossip_gather_cuda takes for these inputs (an
+    (m, k) table over U's `rows` rows, default m)."""
     from repro_torch.kernels import _build, gossip_gather
     return gossip_gather.plan(m, k, d, U.element_size(),
-                              _build.sm_count(U.device), block_d)
+                              _build.sm_count(U.device), block_d, rows)
+
+
+def _halo_case(torch, n, N, k, d, seed, dtype):
+    """An (n, k) table over an (N, d) buffer, N > n: row i reads itself
+    and halo row n + i mod (N - n), so every halo row is read where n >=
+    N - n, as the cross-rank matrix mix receives only the rows it reads
+    (its own rows, then the received ones)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    idx = torch.randint(0, N, (n, k), generator=g, device="cuda",
+                        dtype=torch.int32)
+    rows = torch.arange(n, device="cuda", dtype=torch.int32)
+    idx[:, 0] = rows
+    idx[:, -1] = n + rows % (N - n)
+    w = torch.rand((n, k), generator=g, device="cuda")
+    w = (w / w.sum(1, keepdim=True)).contiguous()
+    U = torch.randn((N, d), generator=g, device="cuda").to(dtype)
+    return idx, w, U
+
+
+# gossip_gather over a halo: (n, k, N, d, dtype), n table rows over N
+# buffer rows.  The panel route stages all N rows; xlstm-125m's Regime B
+# row (d 160,350,800) at 2 rows and a 2-row halo; N past the bf16 panel's
+# 7,264 rows and the f32 panel's 3,632 takes the row route
+GATHER_HALOS = ((50, 11, 80, 13328, "float32"),
+                (2, 3, 4, 160_350_800, "float32"),
+                (100, 3, 4000, 129, "float32"),
+                (100, 3, 8192, 129, "bfloat16"))
+
+
+def _gather_halo_cases(ctx):
+    """gossip_gather at the GATHER_HALOS shapes, each bit for bit its
+    plain version (`gossip_gather_ref`: the j-ordered f32 sum rounded once
+    to U's dtype); an out-of-range id (>= N) gives a NaN row there too."""
+    torch = ctx["torch"]
+    from repro_torch.kernels import ops
+    results = []
+    for n, k, N, d, dt in GATHER_HALOS:
+        idx, w, U = _halo_case(torch, n, N, k, d, 92, getattr(torch, dt))
+        p = _gather_plan(n, k, d, U, rows=N)
+        got = ops.gossip_gather(idx, w, U, force="cuda")
+        want = ops.gossip_gather(idx, w, U, force="ref")
+        check(got.shape == (n, d) and torch.equal(got, want),
+              f"gossip_gather halo ({n}, {k}) over ({N}, {d}) {dt} on the "
+              f"{p.route} route differs from its plain version by "
+              f"{max_abs(got, want)}")
+        bad = idx.clone()
+        bad[0, 0] = N
+        nan = ops.gossip_gather(bad, w, U, force="cuda")
+        check(bool(torch.isnan(nan[0].float()).all())
+              and torch.equal(nan[1:], want[1:]),
+              f"gossip_gather halo: an id >= N on the {p.route} route")
+        results.append({"kernel": "gossip_gather", "halo": [n, k, N, d],
+                        "dtype": dt, "route": p.route,
+                        "block_d": p.block_d, "smem_bytes": p.smem,
+                        "check": "bitwise the plain version; id >= N -> "
+                                 "NaN row", "ok": True})
+        del idx, w, U, got, want, nan, bad
+    torch.cuda.empty_cache()
+    return results
 
 
 def _gather_edge_cases(ctx):
     """gossip_gather on both routes: m = 0, an out-of-range neighbor id
     (its row all NaN, jnp.take's fill; the other rows bitwise), the bf16
-    row route (m = 8192) and a block_d each route refuses (ValueError)."""
+    row route (m = 8192) and a block_d each route refuses (ValueError);
+    then the halo shapes (`_gather_halo_cases`)."""
     torch = ctx["torch"]
     from repro_torch.kernels import ops
     f32, bf16 = torch.float32, torch.bfloat16
@@ -648,7 +710,7 @@ def _gather_edge_cases(ctx):
         except ValueError:
             refused = True
         check(refused, f"gossip_gather took block_d={bd} at m={m}")
-    return results
+    return results + _gather_halo_cases(ctx)
 
 
 def phase_kernels(ctx):
@@ -1872,8 +1934,8 @@ def phase_compress(ctx):
 
 
 def _state_leaves(state, prefix=""):
-    """(name, tensor) for every tensor of a round state: NamedTuples, dicts
-    and tensors, None skipped."""
+    """(name, tensor) for every tensor of a round state: NamedTuples, dicts,
+    lists (xlstm's layers) and tensors, None skipped."""
     if state is None:
         return
     if hasattr(state, "_fields"):
@@ -1882,6 +1944,9 @@ def _state_leaves(state, prefix=""):
     elif isinstance(state, dict):
         for key in sorted(state):
             yield from _state_leaves(state[key], f"{prefix}{key}/")
+    elif isinstance(state, list):
+        for i, val in enumerate(state):
+            yield from _state_leaves(val, f"{prefix}{i}/")
     else:
         yield prefix.rstrip("/"), state
 
@@ -2671,6 +2736,36 @@ def phase_async(ctx):
          seconds=round(time.perf_counter() - t_phase, 3))
 
 
+EQUAL_CHUNK = 1 << 28        # elements a chunk of `_equal` moves to the card
+
+
+def _release_pinned(torch) -> None:
+    """Hand the pinned host blocks that `_to_card(..., "cpu")` left in
+    torch's host cache back to the system (tens of GB after phase
+    `ranks`), where this torch has the call."""
+    empty = getattr(torch._C, "_host_emptyCache", None)
+    if empty is not None:
+        empty()
+
+
+def _equal(torch, x, y, chunk: int = EQUAL_CHUNK) -> bool:
+    """torch.equal of two tensors of one dtype wherever they lie: a host
+    tensor is compared on the card, `chunk` elements at a time (on the
+    host one thread compared a 20 GB state in 43–46 s, measured on one
+    H100)."""
+    if x.dtype != y.dtype or x.shape != y.shape:
+        return False
+    if x.device == y.device and (x.is_cuda or x.numel() <= chunk):
+        return torch.equal(x, y)
+    fx, fy = x.reshape(-1), y.reshape(-1)
+    for i in range(0, fx.numel(), chunk):
+        a, b = (t[i:i + chunk].to("cuda", non_blocking=True)
+                for t in (fx, fy))
+        if not torch.equal(a, b):
+            return False
+    return True
+
+
 def _hold_bitwise(torch, a, b, what: str) -> int:
     """Every leaf of two states (NamedTuples, dicts, tensors, host ints)
     equal bit for bit -> the number of leaves held."""
@@ -2680,9 +2775,11 @@ def _hold_bitwise(torch, a, b, what: str) -> int:
     for name, x in la.items():
         y = lb[name]
         if hasattr(x, "is_cuda"):
-            check(x.dtype == y.dtype and x.device == y.device
-                  and torch.equal(x, y),
-                  f"{what}: {name} differs by {max_abs(x, y)}")
+            # the gap only for the message of a leaf that differs: on a
+            # 20 GB state it costs as much as the compare
+            if not (x.device == y.device and _equal(torch, x, y)):
+                check(False, f"{what}: {name} differs by "
+                             f"{_chunked_gap(torch, x, y)}")
         else:
             check(x == y, f"{what}: {name} {x} != {y}")
     return len(la)
@@ -4194,6 +4291,17 @@ REGIME_B_PREFILL = (1, 4096)       # (B, S) per client of the prefill step
 REGIME_B_TOL = dict(rtol=1e-4, atol=2e-5)
 
 
+def _free_card(torch) -> dict:
+    """Drop what earlier work left on the card: Python's reference cycles
+    first (a Trainer in a cycle holds its state there until the collector
+    runs), then the allocator's cached blocks -> the bytes allocated
+    before and after."""
+    before = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"before_gc": before, "after": torch.cuda.memory_allocated()}
+
+
 def _train_main(ctx, argv, mesh=None) -> dict:
     """`python -m repro_torch.launch.train` in this process (on this
     rank of `mesh`: its loop, `train.run_rank`), with a JSONL sink: its
@@ -4206,7 +4314,7 @@ def _train_main(ctx, argv, mesh=None) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.launch import train
     from repro_torch.obs import record, report
-    torch.cuda.empty_cache()
+    held = _free_card(torch)
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trainB.jsonl")
@@ -4229,7 +4337,7 @@ def _train_main(ctx, argv, mesh=None) -> dict:
     return {"launches": counts, "records": recs, "state": state,
             "seconds": seconds, "report_check_rc": report_rc,
             "peak_bytes": torch.cuda.max_memory_allocated(),
-            "stdout_tail": out.getvalue()[-600:]}
+            "held_at_start": held, "stdout_tail": out.getvalue()[-600:]}
 
 
 def _round_summary(run: dict, rounds: int, m: int = 4) -> dict:
@@ -4462,12 +4570,20 @@ def _regime_b_kernels(ctx) -> dict:
 
 
 def _to_card(torch, obj, device="cuda"):
-    """A copy of tensors, dicts and NamedTuples of them on the card (or on
-    `device`)."""
+    """A copy of tensors, dicts, lists and NamedTuples of them on the card
+    (or on `device`; a card tensor's copy to "cpu" lands in pinned host
+    memory, which the card reads and writes ~10x faster than pageable
+    memory: a 20 GB state took 11.5–15.4 s pageable, measured on one
+    H100)."""
     if isinstance(obj, torch.Tensor):
+        if obj.is_cuda and torch.device(device).type == "cpu":
+            host = torch.empty(obj.shape, dtype=obj.dtype, pin_memory=True)
+            return host.copy_(obj.detach())
         return obj.detach().to(device, copy=True)
     if isinstance(obj, dict):
         return {k: _to_card(torch, v, device) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_to_card(torch, v, device) for v in obj]
     if hasattr(obj, "_fields"):
         return type(obj)(*(_to_card(torch, v, device) for v in obj))
     return obj
@@ -4651,10 +4767,12 @@ def _trainer_rounds(ctx, argv, rounds: int, mesh=None,
     torch = ctx["torch"]
     from repro_torch.kernels import ops
     from repro_torch.launch import train
-    torch.cuda.empty_cache()
+    held = _free_card(torch)
     torch.cuda.reset_peak_memory_stats()
+    t_build = time.perf_counter()
     ap = train.build_parser()
     run = train.Trainer(ap.parse_args(argv), ap, mesh)
+    build_s = time.perf_counter() - t_build
     ops.reset_launch_counts()
     ms, losses, dormant_ids = [], [], []
     for r in range(rounds):
@@ -4675,10 +4793,13 @@ def _trainer_rounds(ctx, argv, rounds: int, mesh=None,
             del before, after
         losses.append([float(metrics["loss_u"]), float(metrics["loss_v"])])
     counts = ops.launch_counts()
+    t_host = time.perf_counter()
     out = {"launches": counts, "round_ms": ms, "loss": losses,
            "peak_bytes": torch.cuda.max_memory_allocated(),
            "remat": run.cfg.remat,
-           "state": _to_card(torch, run.state, "cpu")}
+           "state": _to_card(torch, run.state, "cpu"),
+           "build_s": build_s, "held_at_start": held}
+    out["to_host_s"] = time.perf_counter() - t_host
     if dormant:
         out["dormant_clients"] = dormant_ids
     del run
@@ -4844,6 +4965,8 @@ def _ranks_sampled(ctx, mesh) -> dict:
            "dormant_rows_bitwise": True, "launches": off["launches"],
            "round_ms": off["round_ms"], "loss": off["loss"],
            "peak_bytes": off["peak_bytes"],
+           "held_at_start": {k: run["held_at_start"] for k, run in
+                             (("one", one), ("off", off), ("on", on))},
            "one_process_round_ms": one["round_ms"],
            "telemetry": {"launches": on["launches"],
                          "bitwise_off_leaves": leaves,
@@ -4954,9 +5077,11 @@ def phase_ranks(ctx):
                     across = _trainer_rounds(
                         ctx, argv + ["--gossip", gossip], RANKS_ROUNDS,
                         mesh)
+                t_cmp = time.perf_counter()
                 leaves = _hold_bitwise(torch, across["state"],
                                        single["state"],
                                        f"{gossip} rounds across ranks")
+                compare_s = time.perf_counter() - t_cmp
                 check(_only(across["launches"], gossip_gather=want),
                       f"{gossip} rounds across ranks launched "
                       f"{across['launches']}; want {want} gossip_gather")
@@ -4973,7 +5098,13 @@ def phase_ranks(ctx):
                     "loss": across["loss"],
                     "peak_bytes": across["peak_bytes"],
                     "one_process_peak_bytes": single["peak_bytes"],
-                    "mix_alone": mix}
+                    "held_at_start": [single["held_at_start"],
+                                      across["held_at_start"]],
+                    "mix_alone": mix,
+                    "build_s": [single["build_s"], across.get("build_s")],
+                    "to_host_s": [single["to_host_s"],
+                                  across.get("to_host_s")],
+                    "compare_s": compare_s}
                 if gossip == "matrix":
                     out[gossip]["telemetry"] = _telemetry_records(
                         ctx, tele, across)
@@ -5006,6 +5137,7 @@ def phase_ranks(ctx):
     ctx["ranks_launches"] = {
         k: sum(c.get(k, 0) for c in runs)
         for k in ("gossip_gather", "gossip_scatter")}
+    _release_pinned(torch)
     emit("ranks", card=ctx["smi"], arch="qwen2-0.5b", clients=4, batch=2,
          seq=128, d_flat=REGIME_B_D, deterministic_algorithms=True, **out)
 
@@ -5028,7 +5160,7 @@ def _leaf_gaps(torch, a, b) -> dict:
     for k in set(la) & set(lb):
         x, y = la[k], lb[k]
         if hasattr(x, "is_cuda"):
-            if not (x.dtype == y.dtype and torch.equal(x, y)):
+            if not _equal(torch, x, y):
                 gaps[k] = _chunked_gap(torch, x, y)
         elif x != y:
             gaps[k] = math.inf
@@ -5049,20 +5181,34 @@ def _chunked_gap(torch, a, b, chunk: int = 1 << 27) -> float:
     return worst
 
 
-def _tp_loss_gradients(ctx, mesh) -> dict:
-    """One qwen2-0.5b client at full width (B 2, S 128): its loss and
-    every leaf's gradient through the executor's loss on the rank's
-    shards (T = 1: whole leaves, one-rank NCCL collectives) under
-    vmap(grad_and_value), against the plain dense.loss_fn the same way,
-    bit for bit."""
+# phase tp's loss / gradient legs: every family at full width, B 2, S
+# 128, one client, the depth cut only where memory forces it (the cut
+# printed): recurrentgemma-9b at one (rglru, rglru, attn) period (10.4 B
+# f32 parameters at 38 layers, their gradients as much again),
+# deepseek-moe-16b at its dense layer 0 plus 2 MoE layers (16.4 B)
+TP_LOSS_ARCHS = {"qwen2-0.5b": {}, "recurrentgemma-9b": {"n_layers": 3},
+                 "deepseek-moe-16b": {"n_layers": 3}, "xlstm-125m": {},
+                 "whisper-large-v3": {}}
+# phase tp's xlstm-125m leg: full-width resident matrix-mix rounds through
+# the executor (m 4), bitwise the one-process rounds
+TP_SSM_ROUNDS = 3
+
+
+def _tp_loss_gradients(ctx, mesh, arch: str, cut: dict) -> dict:
+    """One client of `arch` at full width (B 2, S 128; `cut` replaces the
+    depth): its loss and every leaf's gradient through the executor's
+    loss on the rank's shards (T = 1: whole leaves, one-rank NCCL
+    collectives) under vmap(grad_and_value), against the family's plain
+    loss_fn the same way, bit for bit."""
     torch = ctx["torch"]
     from repro_torch.configs import get_config
     from repro_torch.device import seeded_generator
     from repro_torch.launch import tp, train
     from repro_torch.models import get_model
     from repro_torch.tree import tree_map
-    cfg = get_config("qwen2-0.5b")
+    cfg = get_config(arch).replace(**cut)
     api = get_model(cfg)
+    t0 = time.perf_counter()
     params = tree_map(lambda a: a[None], api.init_params(
         seeded_generator(0, train.INIT_STREAM, 0, "cuda"), cfg,
         device="cuda"))
@@ -5070,29 +5216,76 @@ def _tp_loss_gradients(ctx, mesh) -> dict:
         seeded_generator(0, train.DATA_STREAM, 1, "cuda"), cfg, (1, 2), 128)
     shards = tp.Executor(cfg, mesh, tree_map(lambda a: a[0], params))
     check(shards.model is not None and shards.T == 1,
-          "the executor of qwen2-0.5b at T = 1 runs the dense TP loss")
+          f"the executor of {arch} at T = 1 runs the TP loss")
     fn = torch.func.vmap(torch.func.grad_and_value(shards.loss_fn(api,
                                                                   cfg)))
+    torch.cuda.reset_peak_memory_stats()
     g, loss = fn(shards.shard(params), batch)
+    # the executor's gradients wait in pinned host memory while the plain
+    # loss runs (whisper-large-v3's are 6.4 GB; with them on the card the
+    # two runs peaked at 77.8 GB)
+    g = _to_card(torch, g, "cpu")
+    tp_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     plain = torch.func.vmap(torch.func.grad_and_value(
         lambda p, b: api.loss_fn(p, b, cfg)))
     g0, loss0 = plain(params, batch)
     gaps = _leaf_gaps(torch, {"loss": loss, "grad": g},
                       {"loss": loss0, "grad": g0})
-    leaves = len(list(_state_leaves(g0)))
-    del params, g, g0
+    leaves = list(_state_leaves(g0))
+    out = {"layers": cfg.n_layers, "depth_cut": cut or None,
+           "loss": float(loss0[0]), "bitwise": not gaps,
+           "gradient_leaves": len(leaves),
+           "parameters": sum(x.numel() for _, x in leaves),
+           "finite": bool(torch.isfinite(loss0).all()),
+           "peak_bytes": max(tp_peak, torch.cuda.max_memory_allocated()),
+           "tp_peak_bytes": tp_peak,
+           "seconds": time.perf_counter() - t0}
+    del params, g, g0, leaves
     torch.cuda.empty_cache()
-    check(not gaps, f"the TP loss / gradients differ from dense.loss_fn: "
-                    f"{gaps}")
-    return {"loss": float(loss0[0]), "bitwise": True,
-            "gradient_leaves": leaves}
+    check(not gaps, f"{arch}: the TP loss / gradients differ from the "
+                    f"plain loss_fn: {gaps}")
+    check(out["finite"], f"{arch}: the loss is not finite")
+    return out
+
+
+def _tp_ssm_rounds(ctx, mesh) -> dict:
+    """TP_SSM_ROUNDS resident matrix-mix rounds of xlstm-125m at full
+    width (m 4, its (4, 160,350,800) row) through `train.Trainer` on the
+    mesh, bitwise the one-process rounds from the same init, batches and
+    tables; one gossip_gather a round."""
+    torch = ctx["torch"]
+    argv = SSM_REGIME_B_ARGS + ["--topology", "random"]
+    single = _trainer_rounds(ctx, argv, TP_SSM_ROUNDS)
+    across = _trainer_rounds(ctx, argv + ["--gossip", "matrix", "--tp",
+                                          "1"], TP_SSM_ROUNDS, mesh)
+    gaps = _leaf_gaps(torch, across["state"], single["state"])
+    check(not gaps, f"tp xlstm-125m rounds differ from the one-process "
+                    f"run: {gaps}")
+    check(_only(across["launches"], gossip_gather=TP_SSM_ROUNDS),
+          f"tp xlstm-125m rounds launched {across['launches']}; want "
+          f"{TP_SSM_ROUNDS} gossip_gather")
+    shape = tuple(across["state"].flat.shape)
+    check(shape == (4, SSM_REGIME_B_D), f"xlstm-125m buffer {shape}")
+    return {"arch": "xlstm-125m", "rounds": TP_SSM_ROUNDS,
+            "bitwise_leaves": len(list(_state_leaves(single["state"]))),
+            "d_flat": SSM_REGIME_B_D, "launches": across["launches"],
+            "one_process_launches": single["launches"],
+            "round_ms": across["round_ms"],
+            "one_process_round_ms": single["round_ms"],
+            "loss": across["loss"], "peak_bytes": across["peak_bytes"]}
 
 
 def phase_tp(ctx):
     """Tensor parallelism across ranks on one card (launch/tp.py): a
-    one-rank NCCL group, its client mesh (data 1, model 1) of the 4
-    clients of qwen2-0.5b at full width.  The executor's loss and
-    gradients bitwise the plain dense.loss_fn; 3 resident rounds with the
+    one-rank NCCL group, its client mesh (data 1, model 1).  The
+    executor's loss and gradients bitwise the plain loss_fn of one client
+    of each family at full width (`TP_LOSS_ARCHS`, the depth cut where
+    memory forces it); 3 resident matrix-mix rounds of xlstm-125m at full
+    width bitwise the one-process rounds, gossip_gather once a round
+    (`_tp_ssm_rounds`); then the 4 clients of qwen2-0.5b: 3 resident
+    rounds with the
     matrix mix, 3 with the permutation mix and 2 tree-form permutation
     rounds through `train.Trainer` on the mesh, each bitwise the
     one-process run from the same init, batches and tables (deterministic
@@ -5117,7 +5310,11 @@ def phase_tp(ctx):
         check((mesh.world, mesh.shape["model"]) == (1, 1),
               f"mesh {mesh.shape}")
         with _deterministic(torch):
-            out["loss_gradients"] = _tp_loss_gradients(ctx, mesh)
+            out["loss_gradients"] = {
+                arch: _tp_loss_gradients(ctx, mesh, arch, cut)
+                for arch, cut in TP_LOSS_ARCHS.items()}
+            out["ssm_rounds"] = _tp_ssm_rounds(ctx, mesh)
+            counts = _add_counts(counts, out["ssm_rounds"]["launches"])
             for name, extra, rounds, want in TP_ROUNDS:
                 if name in ctx.get("ranks_legs", {}):
                     out[name] = dict(ctx["ranks_legs"][name],
@@ -5155,8 +5352,10 @@ def phase_tp(ctx):
         import shutil
         shutil.rmtree(tmp, ignore_errors=True)
     ctx["tp_launches"] = counts
+    _release_pinned(torch)
     emit("tp", card=ctx["smi"], arch="qwen2-0.5b", clients=4, batch=2,
          seq=128, d_flat=REGIME_B_D, mesh={"data": 1, "model": 1},
+         families=sorted(TP_LOSS_ARCHS),
          backend="nccl", deterministic_algorithms=True, **out)
 
 
@@ -5166,7 +5365,7 @@ def _host_gap(torch, a, b, chunk: int = 1 << 27, what: str = "remat"
     tolerance, `chunk` elements at a time on the card (a full-width leaf
     is 7.9 GB: host temporaries of whole leaves do not fit beside the two
     states in the host's memory)."""
-    if torch.equal(a, b):
+    if _equal(torch, a, b):
         return 0.0
     fa, fb = a.reshape(-1), b.reshape(-1)
     worst = 0.0
@@ -5204,6 +5403,8 @@ def phase_remat(ctx):
                "launches": runs[k]["launches"], "loss": runs[k]["loss"]}
            for k in runs}
     saved = runs["no_remat"]["peak_bytes"] - runs["remat"]["peak_bytes"]
+    del a, b, runs["remat"]["state"], runs["no_remat"]["state"]
+    _release_pinned(torch)
     emit("remat", card=ctx["smi"], arch="qwen2-0.5b", clients=4, batch=2,
          seq=128, rounds=2, bitwise=bitwise,
          max_abs_gap=max(gaps.values()), peak_saved_bytes=saved,
@@ -5935,6 +6136,31 @@ def phase_timings(ctx):
             blocks=pl.blocks, threads=pl.threads,
             table_in_smem=pl.table, smem_bytes=pl.smem,
             blocks_per_sm=pl.blocks_per_sm, balance=pl.balance)
+    # over a halo (GATHER_HALOS' f32 panel shapes): an (n, k) table over
+    # an (N, d) buffer, the distinct rows the table reads (all N at these
+    # shapes) read once, the n output rows written once, idx + w; the
+    # library yardstick torch.sparse.mm of the (n, N) table in CSR
+    halo_shapes = {}
+    for n, k, N, d, _ in GATHER_HALOS[:2]:
+        idx, w, U = _halo_case(torch, n, N, k, d, 93, torch.float32)
+        rows = torch.arange(n, device="cuda")[:, None].expand(n, k)
+        csr = torch.sparse_coo_tensor(
+            torch.stack([rows.reshape(-1), idx.long().reshape(-1)]),
+            w.reshape(-1), (n, N)).coalesce().to_sparse_csr()
+        t = measure(lambda: ops.gossip_gather(idx, w, U, force="cuda"),
+                    lambda: ops.gossip_gather(idx, w, U, force="ref"),
+                    lambda: torch.sparse.mm(csr, U))
+        read = int(torch.unique(idx).numel())
+        b_ms, b_by = bound((read + n) * d * 4 + n * k * 8, 2 * n * k * d)
+        pl = _gather_plan(n, k, d, U, rows=N)
+        halo_shapes[f"{n}x{k}/{N}x{d}"] = dict(
+            t, bound_ms=b_ms, bound_by=b_by, table=[n, k], buffer=[N, d],
+            rows_read=read, route=pl.route, block_d=pl.block_d,
+            blocks=pl.blocks,
+            threads=pl.threads, smem_bytes=pl.smem,
+            bound_share=b_ms / t["ms"])
+        del idx, w, U, csr
+        torch.cuda.empty_cache()
     main = gather_shapes["100x11"]
     kernels.append({
         "name": "gossip_gather", "route": "cuda",
@@ -5958,6 +6184,7 @@ def phase_timings(ctx):
         "regime_b_launches": ctx["regime_b_launches"]["gossip_gather"],
         "ranks_launches": ctx["ranks_launches"]["gossip_gather"],
         "tp_launches": ctx["tp_launches"]["gossip_gather"],
+        "halo": halo_shapes,
         "regime_b": ctx["regime_b_kernels"]["gossip_gather"],
         "moe_launches": ctx["moe_launches"]["gossip_gather"],
         "vlm_launches": ctx["vlm_launches"]["gossip_gather"],

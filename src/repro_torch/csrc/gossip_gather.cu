@@ -1,6 +1,9 @@
 // Neighbor-indexed gossip gather-mix over the flat client buffer:
 //
-//     out[i, c] = sum_{j < k} w[i, j] * U[idx[i, j], c]       U: (m, d)
+//     out[i, c] = sum_{j < k} w[i, j] * U[idx[i, j], c]       U: (N, d)
+//
+// for the n rows i of the (n, k) table, over a buffer of N >= n rows (the
+// cross-rank matrix mix: a rank's own rows followed by its received halo).
 //
 // Replaces the Pallas TPU kernel repro/kernels/gossip_gather.py
 // (gossip_gather_pallas / _gather_kernel).
@@ -14,14 +17,14 @@
 // __fadd_rn (no contracted FMA): for f32 U the result equals the plain
 // torch `mix_rows` (separate multiply and add ops) bit for bit.  U may be
 // f32 or bf16; the output is written in U's dtype.  An out-of-range
-// neighbor id contributes NaN (jnp.take's fill) instead of reading
-// outside U.  The route and its panel width are planned in
+// neighbor id (outside [0, N)) contributes NaN (jnp.take's fill) instead
+// of reading outside U.  The route and its panel width are planned in
 // kernels/gossip_gather.py `plan`.
 //
-// Panel route (gossip_gather_panel_kernel), where all m rows of a panel
+// Panel route (gossip_gather_panel_kernel), where all N rows of a panel
 // of 16 columns fit in shared memory:
 // - one block per column panel of bn columns stages that panel of U for
-//   all m rows in shared memory (16-byte cp.async where aligned).  Every
+//   all N buffer rows in shared memory (16-byte cp.async where aligned).  Every
 //   output row of the panel is then computed from shared memory: U is
 //   read from memory once and the output written once, where one block
 //   per output row re-read its k neighbor rows (the row route: 11x U's
@@ -34,7 +37,7 @@
 //   neighbor.  The sums are dependent chains of k loads, so the block is
 //   as large as it may be to keep many in flight.
 //
-// Row route (gossip_gather_kernel), for m too large for a panel: one block
+// Row route (gossip_gather_kernel), for N too large for a panel: one block
 // per (output row i, d-chunk); the block stages its own idx[i, :] and
 // w[i, :] in shared memory; threads stride over the chunk's columns,
 // neighbouring threads on neighbouring addresses, kCols independent
@@ -106,11 +109,12 @@ __global__ void __launch_bounds__(1024)
 gossip_gather_panel_kernel(const int32_t* __restrict__ idx,
                            const float* __restrict__ w,
                            const T* __restrict__ U, T* __restrict__ out,
-                           int m, int k, int64_t d, int bn) {
+                           int m, int N, int k, int64_t d, int bn) {
+  // m: table and output rows; N >= m: buffer rows, all staged
   extern __shared__ __align__(16) unsigned char smem[];
-  T* Us = reinterpret_cast<T*>(smem);                    // [m][bn]
+  T* Us = reinterpret_cast<T*>(smem);                    // [N][bn]
   const size_t panel_bytes =
-      (static_cast<size_t>(m) * bn * sizeof(T) + 15) / 16 * 16;
+      (static_cast<size_t>(N) * bn * sizeof(T) + 15) / 16 * 16;
   int2* tab = reinterpret_cast<int2*>(smem + panel_bytes);   // [m * k]
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int64_t c0 = static_cast<int64_t>(blockIdx.x) * bn;
@@ -118,7 +122,7 @@ gossip_gather_panel_kernel(const int32_t* __restrict__ idx,
   if (VEC) {
     constexpr int V = 16 / sizeof(T);
     const int vpr = bn / V;
-    for (int e = tid; e < m * vpr; e += nthreads) {
+    for (int e = tid; e < N * vpr; e += nthreads) {
       const int r = e / vpr, cc = (e % vpr) * V;
       const bool ok = c0 + cc < d;
       cp_async16(Us + static_cast<int64_t>(r) * bn + cc,
@@ -126,7 +130,7 @@ gossip_gather_panel_kernel(const int32_t* __restrict__ idx,
     }
     cp_async_commit();
   } else {
-    for (int e = tid; e < m * bn; e += nthreads) {
+    for (int e = tid; e < N * bn; e += nthreads) {
       const int r = e / bn, cc = e % bn;
       Us[static_cast<int64_t>(r) * bn + cc] =
           c0 + cc < d ? U[static_cast<int64_t>(r) * d + c0 + cc]
@@ -136,7 +140,7 @@ gossip_gather_panel_kernel(const int32_t* __restrict__ idx,
   if (TABLE) {   // while the panel lands
     for (int e = tid; e < m * k; e += nthreads) {
       const int32_t nb = idx[e];
-      const bool ok = static_cast<uint32_t>(nb) < static_cast<uint32_t>(m);
+      const bool ok = static_cast<uint32_t>(nb) < static_cast<uint32_t>(N);
       tab[e] = make_int2(ok ? nb * bn : -1, __float_as_int(w[e]));
     }
   }
@@ -159,7 +163,7 @@ gossip_gather_panel_kernel(const int32_t* __restrict__ idx,
         wj = __int_as_float(t.y);
       } else {
         const int32_t nb = __ldg(idx + static_cast<int64_t>(i) * k + j);
-        off = static_cast<uint32_t>(nb) < static_cast<uint32_t>(m)
+        off = static_cast<uint32_t>(nb) < static_cast<uint32_t>(N)
                   ? nb * bn : -1;
         wj = __ldg(w + static_cast<int64_t>(i) * k + j);
       }
@@ -189,9 +193,9 @@ gossip_gather_panel_kernel(const int32_t* __restrict__ idx,
 
 template <typename T, bool VEC, bool TABLE>
 int launch_panel_as(const void* idx, const void* w, const void* U, void* out,
-                    int m, int k, int64_t d, int bn, int threads,
+                    int m, int N, int k, int64_t d, int bn, int threads,
                     cudaStream_t stream) {
-  size_t smem = (static_cast<size_t>(m) * bn * sizeof(T) + 15) / 16 * 16;
+  size_t smem = (static_cast<size_t>(N) * bn * sizeof(T) + 15) / 16 * 16;
   if (TABLE) smem += static_cast<size_t>(m) * k * sizeof(int2);
   if (smem > static_cast<size_t>(kMaxSmem))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -207,15 +211,16 @@ int launch_panel_as(const void* idx, const void* w, const void* U, void* out,
   gossip_gather_panel_kernel<T, VEC, TABLE><<<panels, threads, smem,
                                               stream>>>(
       static_cast<const int32_t*>(idx), static_cast<const float*>(w),
-      static_cast<const T*>(U), static_cast<T*>(out), m, k, d, bn);
+      static_cast<const T*>(U), static_cast<T*>(out), m, N, k, d, bn);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_panel(const void* idx, const void* w, const void* U, void* out,
-                 int m, int k, long long d, int bn, int threads, int table,
-                 void* stream) {
+                 int m, int N, int k, long long d, int bn, int threads,
+                 int table, void* stream) {
   if (m == 0 || d == 0) return 0;
+  if (N < m) return static_cast<int>(cudaErrorInvalidValue);
   constexpr int V = 16 / sizeof(T);
   if (bn < V || bn % V || threads < bn / TN || threads > 1024)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -225,14 +230,14 @@ int launch_panel(const void* idx, const void* w, const void* U, void* out,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t dd = d;
   if (vec)
-    return table ? launch_panel_as<T, true, true>(idx, w, U, out, m, k, dd,
-                                                  bn, threads, s)
-                 : launch_panel_as<T, true, false>(idx, w, U, out, m, k, dd,
-                                                   bn, threads, s);
-  return table ? launch_panel_as<T, false, true>(idx, w, U, out, m, k, dd,
-                                                 bn, threads, s)
-               : launch_panel_as<T, false, false>(idx, w, U, out, m, k, dd,
-                                                  bn, threads, s);
+    return table ? launch_panel_as<T, true, true>(idx, w, U, out, m, N, k,
+                                                  dd, bn, threads, s)
+                 : launch_panel_as<T, true, false>(idx, w, U, out, m, N, k,
+                                                   dd, bn, threads, s);
+  return table ? launch_panel_as<T, false, true>(idx, w, U, out, m, N, k,
+                                                 dd, bn, threads, s)
+               : launch_panel_as<T, false, false>(idx, w, U, out, m, N, k,
+                                                  dd, bn, threads, s);
 }
 
 // ------------------------------------------------------------------ row
@@ -240,7 +245,7 @@ template <typename T>
 __global__ void gossip_gather_kernel(const int32_t* __restrict__ idx,
                                      const float* __restrict__ w,
                                      const T* __restrict__ U,
-                                     T* __restrict__ out, int m, int k,
+                                     T* __restrict__ out, int N, int k,
                                      int64_t d) {
   extern __shared__ unsigned char smem[];
   int32_t* s_idx = reinterpret_cast<int32_t*>(smem);
@@ -261,7 +266,7 @@ __global__ void gossip_gather_kernel(const int32_t* __restrict__ idx,
   for (int j = 0; j < k; ++j) {
     const int32_t nb = s_idx[j];
     const float wj = s_w[j];
-    const bool ok = static_cast<uint32_t>(nb) < static_cast<uint32_t>(m);
+    const bool ok = static_cast<uint32_t>(nb) < static_cast<uint32_t>(N);
     const T* row = U + static_cast<int64_t>(ok ? nb : 0) * d;
 #pragma unroll
     for (int t = 0; t < kCols; ++t) {
@@ -282,8 +287,9 @@ __global__ void gossip_gather_kernel(const int32_t* __restrict__ idx,
 
 template <typename T>
 int launch_row(const void* idx, const void* w, const void* U, void* out,
-               int m, int k, long long d, int threads, void* stream) {
+               int m, int N, int k, long long d, int threads, void* stream) {
   if (m == 0 || d == 0) return 0;
+  if (N < m) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t per_block = static_cast<int64_t>(threads) * kCols;
   dim3 grid(static_cast<unsigned>(m),
             static_cast<unsigned>((d + per_block - 1) / per_block));
@@ -291,7 +297,7 @@ int launch_row(const void* idx, const void* w, const void* U, void* out,
   gossip_gather_kernel<T><<<grid, threads, smem,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(idx), static_cast<const float*>(w),
-      static_cast<const T*>(U), static_cast<T*>(out), m, k,
+      static_cast<const T*>(U), static_cast<T*>(out), N, k,
       static_cast<int64_t>(d));
   return static_cast<int>(cudaGetLastError());
 }
@@ -300,29 +306,31 @@ int launch_row(const void* idx, const void* w, const void* U, void* out,
 
 extern "C" {
 
+// idx, w: (n, k); U: (N, d), N >= n; out: (n, d).
 int gossip_gather_f32(const void* idx, const void* w, const void* U,
-                      void* out, int m, int k, long long d, int threads,
-                      void* stream) {
-  return launch_row<float>(idx, w, U, out, m, k, d, threads, stream);
+                      void* out, int n, int N, int k, long long d,
+                      int threads, void* stream) {
+  return launch_row<float>(idx, w, U, out, n, N, k, d, threads, stream);
 }
 
 int gossip_gather_bf16(const void* idx, const void* w, const void* U,
-                       void* out, int m, int k, long long d, int threads,
-                       void* stream) {
-  return launch_row<__nv_bfloat16>(idx, w, U, out, m, k, d, threads, stream);
+                       void* out, int n, int N, int k, long long d,
+                       int threads, void* stream) {
+  return launch_row<__nv_bfloat16>(idx, w, U, out, n, N, k, d, threads,
+                                   stream);
 }
 
 int gossip_gather_panel_f32(const void* idx, const void* w, const void* U,
-                            void* out, int m, int k, long long d, int bn,
-                            int threads, int table, void* stream) {
-  return launch_panel<float>(idx, w, U, out, m, k, d, bn, threads, table,
+                            void* out, int n, int N, int k, long long d,
+                            int bn, int threads, int table, void* stream) {
+  return launch_panel<float>(idx, w, U, out, n, N, k, d, bn, threads, table,
                              stream);
 }
 
 int gossip_gather_panel_bf16(const void* idx, const void* w, const void* U,
-                             void* out, int m, int k, long long d, int bn,
-                             int threads, int table, void* stream) {
-  return launch_panel<__nv_bfloat16>(idx, w, U, out, m, k, d, bn, threads,
+                             void* out, int n, int N, int k, long long d,
+                             int bn, int threads, int table, void* stream) {
+  return launch_panel<__nv_bfloat16>(idx, w, U, out, n, N, k, d, bn, threads,
                                      table, stream);
 }
 

@@ -1,6 +1,9 @@
 """CUDA gossip gather-mix over the flat client buffer (csrc/gossip_gather.cu).
 
-    out[i, :] = sum_{j < k} w[i, j] * U[idx[i, j], :]        U: (m, d)
+    out[i, :] = sum_{j < k} w[i, j] * U[idx[i, j], :]        U: (N, d)
+
+for the n rows i of the (n, k) table, over a buffer of N >= n rows (the
+cross-rank matrix mix hands it its own rows plus the received halo).
 
 Replaces the Pallas TPU kernel `repro/kernels/gossip_gather.py`
 (`gossip_gather_pallas`).  Memory-bound on an H100: at the main path's
@@ -12,16 +15,17 @@ in f32 with rounded multiply then add — so for f32 U the kernel equals
 
 Two routes, chosen by shape alone in `plan` (never on a failure):
   - "panel": one block per column panel of `block_d` columns stages the
-    panel for all m rows in shared memory and computes every output row
-    of it there, so U is read once.  Taken whenever a panel of 16 columns
-    of all m rows fits in a block's shared memory (m <= 3,632 in f32,
-    7,264 in bf16).  block_d: a multiple of 16 bytes of U's dtype (4 f32
+    panel for all N buffer rows in shared memory and computes every output
+    row of it there, so U is read once.  Taken whenever a panel of 16
+    columns of all N rows fits in a block's shared memory (N <= 3,632 in
+    f32, 7,264 in bf16).  block_d: a multiple of 16 bytes of U's dtype (4 f32
     or 8 bf16 columns) whose panel fits, at most TN x PANEL_THREADS =
     4,096 (a thread owns TN columns of a panel); the default spreads the
     panels evenly over the SMs (at few rows and a wide buffer, as Regime
     B's (4, d 494,031,872), the widest: 4,096).
   - "row": one block per (output row, chunk of `block_d` columns) gathers
-    its k neighbor rows from L2 (the first port's kernel).  block_d: a
+    its k neighbor rows from L2 (the first port's kernel); N bounds the
+    ids only.  block_d: a
     multiple of 128 in [128, 4096]; default 1024.
 """
 from __future__ import annotations
@@ -54,23 +58,26 @@ class Plan(NamedTuple):
     balance: float       # panel: the mean SM's columns over the busiest's
 
 
-def _panel_bytes(m: int, bn: int, elem_bytes: int) -> int:
-    return -(-m * bn * elem_bytes // 16) * 16
+def _panel_bytes(rows: int, bn: int, elem_bytes: int) -> int:
+    return -(-rows * bn * elem_bytes // 16) * 16
 
 
 @functools.lru_cache(maxsize=256)   # once per shape: calls are hot
 def plan(m: int, k: int, d: int, elem_bytes: int, sms: int,
-         block_d: int | None = None) -> Plan:
-    """Route and tiling for idx (m, k), U (m, d) with U's element size
-    `elem_bytes` on a card of `sms` SMs.  Raises ValueError, naming the
-    valid values, for a block_d its route cannot take."""
-    if m < 1 or d < 1 or sms < 1 or k < 0:
-        raise ValueError(f"plan needs m, d, sms >= 1, k >= 0; got {m}, "
-                         f"{d}, {sms}, {k}")
-    if m * PANEL_MIN_COLS * elem_bytes > MAX_SMEM:      # the row route
+         block_d: int | None = None, rows: int | None = None) -> Plan:
+    """Route and tiling for idx (m, k) over U (N, d), N = `rows` (default
+    m, at least m), with U's element size `elem_bytes` on a card of `sms`
+    SMs: the panel stages N rows, the table and the output hold m.  Raises
+    ValueError, naming the valid values, for a block_d its route cannot
+    take."""
+    N = m if rows is None else int(rows)
+    if m < 1 or d < 1 or sms < 1 or k < 0 or N < m:
+        raise ValueError(f"plan needs m, d, sms >= 1, k >= 0 and rows >= "
+                         f"m; got {m}, {d}, {sms}, {k}, rows {N}")
+    if N * PANEL_MIN_COLS * elem_bytes > MAX_SMEM:      # the row route
         bd = ROW_BLOCK_D if block_d is None else int(block_d)
         if bd % 128 or not 128 <= bd <= 4096:
-            raise ValueError(f"block_d={bd} on the row route (m={m}): a "
+            raise ValueError(f"block_d={bd} on the row route (N={N}): a "
                              f"multiple of 128 in [128, 4096] (4 columns "
                              f"per thread)")
         if k > MAX_K:
@@ -85,7 +92,7 @@ def plan(m: int, k: int, d: int, elem_bytes: int, sms: int,
                     -(-blocks // sms), 1.0)
     align = 16 // elem_bytes
     # the panel fits shared memory, and its column groups the block
-    max_bd = min(MAX_SMEM // (m * elem_bytes) // align * align,
+    max_bd = min(MAX_SMEM // (N * elem_bytes) // align * align,
                  TN * PANEL_THREADS)
     if block_d is None:
         best = None
@@ -98,14 +105,14 @@ def plan(m: int, k: int, d: int, elem_bytes: int, sms: int,
     else:
         bn = int(block_d)
         if bn % align or not align <= bn <= max_bd:
-            raise ValueError(f"block_d={bn} on the panel route (m={m}, "
+            raise ValueError(f"block_d={bn} on the panel route (N={N}, "
                              f"{elem_bytes}-byte U): a multiple of {align} "
-                             f"in [{align}, {max_bd}], so that m x block_d "
+                             f"in [{align}, {max_bd}], so that N x block_d "
                              f"fits {MAX_SMEM} B of shared memory and "
                              f"block_d / {TN} column groups {PANEL_THREADS} "
                              f"threads")
     threads = min(PANEL_THREADS, -(-(bn // TN * m) // 32) * 32)
-    panel = _panel_bytes(m, bn, elem_bytes)
+    panel = _panel_bytes(N, bn, elem_bytes)
     table = panel + 8 * m * k <= MAX_SMEM
     blocks = -(-d // bn)
     per_sm = -(-blocks // sms)
@@ -117,15 +124,16 @@ def plan(m: int, k: int, d: int, elem_bytes: int, sms: int,
 def _lib() -> ctypes.CDLL:
     lib = _build.load("gossip_gather")
     if not getattr(lib, "_repro_typed", False):
+        # (idx, w, U, out, n, N, k, d, ...)
         for fn in (lib.gossip_gather_f32, lib.gossip_gather_bf16):
             fn.argtypes = [ctypes.c_void_p] * 4 + [
-                ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                ctypes.c_void_p]
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
         for fn in (lib.gossip_gather_panel_f32, lib.gossip_gather_panel_bf16):
             fn.argtypes = [ctypes.c_void_p] * 4 + [
-                ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib._repro_typed = True
     return lib
@@ -143,10 +151,10 @@ def _check_inputs(idx, w, U):
     if U.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"U must be float32 or bfloat16; got {U.dtype}")
     if U.dim() != 2 or idx.dim() != 2 or w.shape != idx.shape \
-            or idx.shape[0] != U.shape[0]:
+            or idx.shape[0] > U.shape[0]:
         raise ValueError(f"shapes idx {tuple(idx.shape)}, w "
                          f"{tuple(w.shape)}, U {tuple(U.shape)}: want "
-                         f"(m, k), (m, k), (m, d)")
+                         f"(n, k), (n, k), (N, d) with N >= n")
     if not (idx.is_contiguous() and w.is_contiguous()
             and U.is_contiguous()):
         raise ValueError("gossip_gather_cuda needs contiguous idx, w and U")
@@ -154,25 +162,26 @@ def _check_inputs(idx, w, U):
 
 def gossip_gather_cuda(idx: torch.Tensor, w: torch.Tensor, U: torch.Tensor,
                        *, block_d: int | None = None) -> torch.Tensor:
-    """Launch the kernel on the current stream.  idx (m, k) int32 neighbor
-    ids in [0, m), w (m, k) f32 weights, U (m, d) f32 or bf16 — all CUDA
-    and contiguous.  Returns a new (m, d) tensor in U's dtype.  m = 0 or
-    d = 0 returns without a launch.  block_d: columns per block on the
-    route `plan` takes (see the module docstring for the valid values)."""
+    """Launch the kernel on the current stream.  idx (n, k) int32 neighbor
+    ids in [0, N) (an id outside gives a NaN row), w (n, k) f32 weights,
+    U (N, d) f32 or bf16 with N >= n — all CUDA and contiguous.  Returns a
+    new (n, d) tensor in U's dtype.  n = 0 or d = 0 returns without a
+    launch.  block_d: columns per block on the route `plan` takes (see
+    the module docstring for the valid values)."""
     _check_inputs(idx, w, U)
     m, k = idx.shape
-    d = U.shape[1]
-    out = torch.empty_like(U)
+    N, d = U.shape
+    out = torch.empty((m, d), dtype=U.dtype, device=U.device)
     if m == 0 or d == 0:
         return out
     sms = _build.sm_count(U.device)
-    p = plan(m, k, d, U.element_size(), sms, block_d)
+    p = plan(m, k, d, U.element_size(), sms, block_d, N)
     lib = _lib()
     f32 = U.dtype == torch.float32
     with torch.cuda.device(U.device):
         stream = torch.cuda.current_stream(U.device).cuda_stream
         args = (idx.data_ptr(), w.data_ptr(), U.data_ptr(), out.data_ptr(),
-                m, k, d)
+                m, N, k, d)
         if p.route == "panel":
             fn = lib.gossip_gather_panel_f32 if f32 \
                 else lib.gossip_gather_panel_bf16

@@ -26,7 +26,7 @@ gossips over the run's one `TopologySchedule` while `lm_head` and
 On one device every client lives on it and the gossip is the matrix mix
 (the `gossip_gather` kernel on the resident buffer).  Across the ranks of
 a (data, model) client mesh each data index holds a contiguous block of
-clients, its model ranks split those clients' models (the dense and vlm
-families; `tp.py`), and the mixes exchange the rows that cross data
+clients, its model ranks split those clients' models (every family;
+`tp.py`), and the mixes exchange the rows that cross data
 indices among the ranks of one model index.
 """

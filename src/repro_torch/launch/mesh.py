@@ -76,10 +76,6 @@ class ClientMesh(NamedTuple):
         return q * self.shape["model"] + self.model_index
 
 
-TP_ACROSS_RANKS = ("tensor parallelism of this family across ranks is not "
-                   "ported yet (ROADMAP item 17b)")
-
-
 def make_production_mesh(*, multi_pod: bool = False) -> MeshSpec:
     """The description of the single-pod (data 16, model 16) or multi-pod
     (pod 2, data 16, model 16) mesh.  Nothing runs on it: the dry run

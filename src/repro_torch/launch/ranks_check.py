@@ -43,7 +43,8 @@ Jobs (m clients, every array leading with m):
   "mom_v/<path>" (the momentum trees' placeholder leaves (m,)) and the
   batches -> the final state's leaves under the same names;
 - `tp_loss`: each client's loss on the rank's shards of "params/<path>"
-  and the batch "tokens", "labels" (and a vlm's "vision"), under
+  and the batch "tokens", "labels" (and a vlm's "vision", an encdec's
+  "frames"), under
   `vmap(grad_and_value(...))` over the clients -> "loss" (m,) and the
   whole gradients "grad/<path>".
 The tests of the cross-rank mixes run these jobs on gloo and hold the
@@ -102,14 +103,14 @@ def _config(meta: dict):
 
 
 def _batch(data: dict, prefix: str, dev, lo: int, hi: int) -> dict:
-    """The batch leaves under `prefix` (tokens and labels as int64), the
-    rows [lo, hi)."""
+    """The batch leaves under `prefix` (tokens and labels as int64; a
+    vlm's "vision", an encdec's "frames"), the rows [lo, hi)."""
     out = {}
-    for name in ("tokens", "labels", "vision"):
+    for name in ("tokens", "labels", "vision", "frames"):
         key = prefix + name
         if key in data:
             x = _tensor(data[key], dev)[lo:hi]
-            out[name] = x if name == "vision" else x.long()
+            out[name] = x if name in ("vision", "frames") else x.long()
     return out
 
 

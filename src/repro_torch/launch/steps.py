@@ -31,9 +31,8 @@ Layouts (from the reference):
 - ``fsdp``: one client FSDP-sharded over 'data' and TP-sharded over
   'model', for deepseek-v2-236b (one pod per client on the multi-pod
   mesh) and for long_500k decode (global batch 1 cannot feed 16 clients).
-On a client mesh the ranks of a data group execute the TP placement of
-the dense and vlm families (`launch/tp.py`); the other families run at
-T = 1 (ROADMAP item 17b).
+On a client mesh the ranks of a model group execute the TP placement of
+every family (`launch/tp.py`).
 """
 from __future__ import annotations
 
@@ -580,7 +579,7 @@ def build_train_algo(cfg: ModelConfig, mesh, layout: Layout,
     `mesh`: None (one device: the matrix mix of `gossip.mix_flat`), or a
     client mesh (`mesh.make_host_mesh`), whose rank runs its model index's
     shard of the clients of its block (`algo.tp`, a `tp.Executor`; the
-    loss is the dense / vlm family's on shards, `tp.ModelShards`, and the
+    loss is the family's on shards, `tp.ModelShards`, and the
     caller shards the init with `algo.tp.shard` / `.shard_state`):
     gossip="ppermute" then mixes through
     `make_ppermute_mix_flat` (resident) or `make_ppermute_mix` (tree

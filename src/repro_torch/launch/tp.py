@@ -8,15 +8,27 @@ shard plan (`shard_plan`) takes every leaf's split dim from
 `_resolve` relocation included: granite-3-2b's vocab 49,155 moves the
 split of `embed` and `lm_head` to d_model); model rank t holds the t-th of
 T equal pieces along that dim, or the whole leaf where the plan
-replicates it.  The dense and vlm families (`TP_FAMILIES`) run their
-shards as Megatron does (`ModelShards`, handed to their `loss_fn` as
-`tp=`):
-- attention: wq / wk / wv and their biases column-parallel, whole heads
-  (H / T and Hkv / T of them, at the full config's head dim), wo
-  row-parallel; SwiGLU: wg / wu column-parallel, wd row-parallel.  A
-  block's input enters through `copy` (identity forward, all-reduce
-  backward) and its partial output leaves through `reduce` (all-reduce
-  forward, identity backward);
+replicates it.  Every family runs its shards as Megatron does
+(`ModelShards`, handed to its `loss_fn` as `tp=`):
+- attention (every family's GQA / MQA, whisper's self and cross
+  attention): wq / wk / wv and their biases column-parallel, the rank's
+  H / T query heads at the full config's head dim, wo row-parallel.
+  Where T divides n_kv_heads the rank holds whole KV heads; where the
+  plan cuts K / V inside a head (recurrentgemma's one MQA head, qwen2's 2
+  KV heads at T 4) the rank's K / V columns are all-gathered and the KV
+  heads of its query heads taken (`ModelShards.kv`);
+- SwiGLU: wg / wu column-parallel, wd row-parallel; where the hidden
+  width is not a multiple of T (xlstm's sLSTM MLP, 2,047) the plan
+  relocates them to d_model: wg / wu split over their input rows (each
+  rank's partial products reduced before the gate) and wd over its
+  output columns (all-gathered); whisper's GELU MLP: w1 / b1
+  column-parallel, w2 row-parallel, b2 after the reduce;
+- MoE (`models/moe.py`): each rank holds E / T experts and runs their
+  slots of the replicated routing, its partial combine reduced; MLA: wq_a
+  column-parallel (cq all-gathered before q_norm), wq_b / wkv_b over
+  heads, wkv_a replicated, wo row-parallel;
+- the RG-LRU (`models/hybrid.py`) and xLSTM's mLSTM / sLSTM
+  (`models/ssm.py`) over their channels and heads, as their modules say;
 - embed split over the vocabulary: a masked lookup, then `reduce`; split
   over d_model: the lookup of the rank's columns, then an all-gather
   (the rank's slice backward);
@@ -24,6 +36,14 @@ shards as Megatron does (`ModelShards`, handed to their `loss_fn` as
   vocab-parallel cross-entropy (`ModelShards.xent`: each rank's
   logsumexp combined over the ranks by a max shift); split over d_model:
   the rank's slice of the features, then `reduce` of the partial logits.
+Replicated work runs on a replicated stream whose gradient is whole on
+every rank: a replicated tensor enters the rank's own work through `copy`
+(identity forward, all-reduce backward), a partial result leaves it
+through `reduce` (all-reduce forward, identity backward), and a split
+activation joins the stream through `gather` (all-gather forward, the
+rank's slice backward).  So every replicated leaf's gradient is whole and
+equal on every rank, as `Executor.finish_grad` assumes.  `check_tp`
+refuses the splits the forwards do not run.
 The collectives are `torch.autograd.Function`s with a `setup_context` and
 a `vmap` rule that runs the collective once on the batched tensor: a
 collective is elementwise across ranks and every rank of a model group
@@ -48,6 +68,7 @@ executor's loss and gradients are the plain loss's bit for bit.
 """
 from __future__ import annotations
 
+import re
 from typing import Optional
 
 import torch
@@ -55,30 +76,92 @@ import torch
 from ..models import layers as L
 from ..tree import from_paths, paths
 from . import sharding
-from .mesh import TP_ACROSS_RANKS
 
-TP_FAMILIES = ("dense", "vlm")
 MODEL_AXES = ("model",)
+# leaves whose relocated split the forward runs: embed / lm_head over
+# d_model or replicated (`ModelShards.embed` / `.logits`), a SwiGLU's
+# wg / wu over their input rows and wd over its output columns
+# (`layers.swiglu`)
+_ANY_SPLIT = re.compile(r"^(embed|lm_head)$")
+_ROWS = re.compile(r"(shared|mlp)/w[gu]$")
+_COLS = re.compile(r"(shared|mlp)/wd$")
+# the leaf that splits whole query heads, by family
+_HEAD_LEAF = re.compile(r"(attn/wq_b|attn/wq|(^|/)wq)$")
 
 
-def check_tp(cfg, T: int) -> None:
-    """Refuse a split the executor cannot run: T < 1, and at T > 1 a
-    family other than dense / vlm (ROADMAP item 17b) or a T that does not
-    divide n_heads and n_kv_heads (attention splits whole heads) or d_ff
-    (the MLP's columns)."""
+def _preferred_dim(path: str, shape) -> Optional[int]:
+    """The dim of a leaf `sharding.RULES` asks to split ('model'), before
+    `_resolve` relocates a split that does not divide; None where the rule
+    replicates the leaf or no rule matches."""
+    for pat, spec in sharding.RULES:
+        if re.search(pat, path):
+            lead = len(shape) - len(spec)
+            if lead < 0 or sharding.TP not in spec:
+                return None
+            return lead + spec.index(sharding.TP)
+    return None
+
+
+def _forward_cuts(path: str, shape, dim: Optional[int]) -> bool:
+    """The families' forwards run leaf `path` split on `dim` (None:
+    replicated): the rule's own dim, or a relocation `_ANY_SPLIT`,
+    `_ROWS` / `_COLS` name."""
+    if dim == _preferred_dim(path, shape) or _ANY_SPLIT.search(path):
+        return True
+    n = len(shape)
+    return (dim == n - 2 and _ROWS.search(path) is not None) or \
+        (dim == n - 1 and _COLS.search(path) is not None)
+
+
+def check_tp(cfg, T: int, template=None) -> None:
+    """Refuse a split the executor cannot run: T < 1, and at T > 1 a T
+    that does not divide n_heads (attention splits whole query heads) or,
+    for moe, n_experts (whole experts), and a leaf the plan replicates or
+    splits on a dim the family's forward does not cut.  Each refusal
+    names the leaf and the dim.  `template`: one client's tree (meta
+    tensors will do; default the config's, traced without memory)."""
     if T < 1:
         raise ValueError(f"tp={T}: want at least one model rank")
     if T == 1:
         return
-    if cfg.family not in TP_FAMILIES:
-        raise NotImplementedError(f"tp={T} on {cfg.arch_id} ({cfg.family} "
-                                  f"family): {TP_ACROSS_RANKS}")
-    for name in ("n_heads", "n_kv_heads", "d_ff"):
+    if template is None:
+        from .steps import stacked_param_struct
+        template = from_paths((p, x[0]) for p, x in
+                              paths(stacked_param_struct(cfg, 1)))
+    leaves = dict(paths(template))
+    strs = {p: sharding.path_str(p) for p in leaves}
+
+    def leaf(pattern) -> str:
+        for p, x in leaves.items():
+            if pattern.search(strs[p]):
+                d = _preferred_dim(strs[p], tuple(x.shape))
+                return f"leaf {strs[p]} {tuple(x.shape)}, dim {d}"
+        return "no such leaf"
+
+    for name, what, pattern in (
+            ("n_heads", "query heads", _HEAD_LEAF),
+            ("n_experts", "experts", re.compile(r"moe/wg$"))):
         n = getattr(cfg, name)
-        if n % T:
+        if n and n % T:
             raise ValueError(f"tp={T} does not divide {name}={n} of "
-                             f"{cfg.arch_id}: attention splits whole heads "
-                             f"and the MLP whole columns")
+                             f"{cfg.arch_id}: the forward splits whole "
+                             f"{what} ({leaf(pattern)})")
+    if cfg.kv_lora and not cfg.q_lora:
+        raise ValueError(f"tp={T} on {cfg.arch_id}: MLA without q_lora "
+                         f"({leaf(re.compile(r'attn/wq$'))}): the plan "
+                         f"cuts the query head dim, which the forward does "
+                         f"not cut")
+    plan = shard_plan(template, T)
+    for p, x in leaves.items():
+        shape, dim = tuple(x.shape), plan[p]
+        if not _forward_cuts(strs[p], shape, dim):
+            want = _preferred_dim(strs[p], shape)
+            got = "replicates it" if dim is None else \
+                f"splits its dim {dim} ({shape[dim]})"
+            raise ValueError(f"tp={T} on {cfg.arch_id}: leaf {strs[p]} "
+                             f"{shape}: the plan {got}, where the forward "
+                             f"splits dim {want} ({shape[want]}, not a "
+                             f"multiple of {T})")
 
 
 # ---------------------------------------------------------------------------
@@ -291,14 +374,19 @@ def _zero(x: torch.Tensor) -> torch.Tensor:
 
 
 class ModelShards:
-    """What a dense / vlm forward needs to run model rank t's shard: the
-    model group of T ranks and the plan's split dims of `embed` (0 vocab,
-    1 d_model, None replicated) and `lm_head` (1 vocab, 0 d_model, None
-    replicated).  Passed to the families' `loss_fn(..., tp=)`."""
+    """What a family's forward needs to run model rank t's shard: the
+    model group of T ranks, the plan's split dims of `embed` (0 vocab, 1
+    d_model, None replicated) and `lm_head` (1 vocab, 0 d_model, None
+    replicated), and `mlp_d_model`, the shard shapes (f, D / T) of the
+    SwiGLU down projections whose split the plan relocated to d_model
+    (`layers.swiglu` takes its route from it).  Passed to the families'
+    `loss_fn(..., tp=)`."""
 
-    def __init__(self, group, T: int, t: int, embed_dim, head_dim):
+    def __init__(self, group, T: int, t: int, embed_dim, head_dim,
+                 mlp_d_model=frozenset()):
         self.group, self.T, self.t = group, T, t
         self.embed_dim, self.head_dim = embed_dim, head_dim
+        self.mlp_d_model = frozenset(mlp_d_model)
 
     def copy(self, x: torch.Tensor) -> torch.Tensor:
         return _Copy.apply(x, self.group)
@@ -306,10 +394,39 @@ class ModelShards:
     def reduce(self, x: torch.Tensor) -> torch.Tensor:
         return _Reduce.apply(x, self.group)
 
-    def heads(self, cfg):
-        """The config of the rank's attention shard: H / T and Hkv / T
-        heads at the full config's head dim."""
-        return cfg.shard_heads(self.T)
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The T ranks' pieces of the last dim put together in rank order
+        (onto the replicated stream); the rank's slice backward."""
+        return _Gather.apply(x, self.group, self.T, self.t)
+
+    def own(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """The rank's t-th of T pieces of `dim` of x (a view): of a
+        replicated tensor only after `copy`, so that the other ranks'
+        pieces get their gradients there."""
+        n = x.shape[dim] // self.T
+        return x.narrow(dim, self.t * n, n)
+
+    def kv(self, k: torch.Tensor, v: torch.Tensor, cfg):
+        """The rank's K and V projections (B, S, Hkv hd / T) -> the KV
+        heads of its H / T query heads, (B, S, h, hd) each.  Where T
+        divides Hkv they are the rank's own whole heads; else the columns
+        are all-gathered and enter through `copy`, and the rank takes the
+        one KV head its query heads share (T / Hkv ranks to a head) or,
+        where they straddle heads, each query head's own (g 1)."""
+        B, S = k.shape[:2]
+        H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        if Hkv % self.T == 0:
+            return (k.reshape(B, S, Hkv // self.T, hd),
+                    v.reshape(B, S, Hkv // self.T, hd))
+        k = self.copy(self.gather(k)).reshape(B, S, Hkv, hd)
+        v = self.copy(self.gather(v)).reshape(B, S, Hkv, hd)
+        h, g = H // self.T, H // Hkv
+        first = self.t * h
+        if g % h == 0:
+            j = first // g
+            return k[:, :, j:j + 1], v[:, :, j:j + 1]
+        ids = torch.arange(first, first + h, device=k.device) // g
+        return k[:, :, ids], v[:, :, ids]
 
     def embed(self, table: torch.Tensor, tokens: torch.Tensor):
         """The replicated embeddings of `tokens` from the rank's shard of
@@ -369,19 +486,20 @@ class Executor:
     cfg: the model; mesh: the client mesh (`mesh.make_host_mesh`);
     template: one client's tree (meta tensors will do); flat_layout: the
     resident buffer's layout (None for the tree form).  `model` is the
-    `ModelShards` of a dense / vlm model (None for another family, which
-    runs only at T = 1)."""
+    `ModelShards` every family's loss runs on."""
 
     def __init__(self, cfg, mesh, template, flat_layout=None):
         T = mesh.shape["model"]
-        check_tp(cfg, T)
+        check_tp(cfg, T, template)
         self.T, self.t, self.group = T, mesh.model_index, mesh.model_group
         self.plan = shard_plan(template, T)
-        self.model = None
-        if cfg.family in TP_FAMILIES:
-            self.model = ModelShards(self.group, T, self.t,
-                                     self.plan[("embed",)],
-                                     self.plan[("lm_head",)])
+        mlp_d_model = {(x.shape[-2], x.shape[-1] // T)
+                       for p, x in paths(template)
+                       if _COLS.search(sharding.path_str(p))
+                       and self.plan[p] == x.dim() - 1}
+        self.model = ModelShards(self.group, T, self.t,
+                                 self.plan[("embed",)],
+                                 self.plan[("lm_head",)], mlp_d_model)
         self.d_flat = self.cols = self.replicated = None
         if flat_layout is not None:
             d = flat_layout.d_flat
@@ -411,8 +529,6 @@ class Executor:
     def loss_fn(self, api, cfg):
         """(params, batch) -> one client's loss on the rank's shards."""
         model = self.model
-        if model is None:
-            return lambda p, batch: api.loss_fn(p, batch, cfg)
         return lambda p, batch: api.loss_fn(p, batch, cfg, tp=model)
 
     # -- trees ------------------------------------------------------------
@@ -489,7 +605,8 @@ class Executor:
         the model group where the columns are split (`obs.gauges.l2_norm`
         otherwise)."""
         import torch.distributed as dist
-        sq = torch.sum(torch.square(g.to(torch.float32)), dim=1)
+        from ..obs.gauges import sum_squares
+        sq = sum_squares(g, dim=1)
         if self.split_columns:
             dist.all_reduce(sq, group=self.group)
         return torch.sqrt(sq)

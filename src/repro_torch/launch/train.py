@@ -21,11 +21,11 @@ a mesh.
 rendezvous), or joins the group torchrun's environment describes.  With
 `--tp T` the W ranks form the client mesh (data W / T, model T): each
 data index holds a block of m / (W / T) clients, and its T model ranks
-split those clients' models (`launch/tp.py`: the dense and vlm families;
-the others run at T = 1, ROADMAP item 17b).  The schedule and the batch
-draws are the same on every rank, each slicing its rows.  The mix
-crosses data indices: `--gossip ppermute` the permutation mix (tree form
-or --resident), `--gossip matrix` the resident matrix mix.  With
+split those clients' models (`launch/tp.py`, every family).  The
+schedule and the batch draws are the same on every rank, each slicing
+its rows.  The mix crosses data indices: `--gossip ppermute` the
+permutation mix (tree form or --resident), `--gossip matrix` the
+resident matrix mix.  With
 `--sample f` each rank steps the round's active clients of its block,
 their compact mix crosses ranks (`--gossip matrix`) and each row goes
 back on its owner.  The rounds reduce their losses, mu range and
@@ -207,7 +207,7 @@ def check_ranks_args(ap, args, world: int) -> None:
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     try:
         tp.check_tp(cfg, T)
-    except (ValueError, NotImplementedError) as e:
+    except ValueError as e:
         ap.error(f"--tp {T}: {e}")
     check_flags(ap, args, args.gossip)
     if args.gossip == "matrix" and not args.resident:

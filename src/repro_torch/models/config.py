@@ -94,13 +94,6 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
-    def shard_heads(self, T: int) -> "ModelConfig":
-        """The attention of one of T tensor-parallel shards: n_heads / T
-        and n_kv_heads / T heads at this config's head dim (`hd` falls back
-        to d_model // n_heads, which the local head count would change)."""
-        return self.replace(n_heads=self.n_heads // T,
-                            n_kv_heads=self.n_kv_heads // T, head_dim=self.hd)
-
     def param_count(self, active_only: bool = False) -> int:
         """Analytic parameter count (the reference's formula)."""
         D, F, V, L = self.d_model, self.d_ff, self.vocab, self.n_layers

@@ -92,24 +92,6 @@ def backbone(params: dict, x: torch.Tensor, positions: torch.Tensor,
     return L.rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
 
 
-def embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-          tp=None) -> torch.Tensor:
-    """The tokens' embeddings in the compute dtype: gather, then cast (the
-    reference's cast-then-gather without a (vocab, d_model) temporary);
-    with `tp` from the rank's shard of the table."""
-    table = params["embed"]
-    x = table[tokens] if tp is None else tp.embed(table, tokens)
-    return x.to(cfg.cdtype)
-
-
-def head(params: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
-    """Features -> logits through lm_head (with `tp`: the rank's logits,
-    `launch.tp.ModelShards.logits`)."""
-    if tp is None:
-        return x @ params["lm_head"].to(x.dtype)
-    return tp.logits(x, params["lm_head"])
-
-
 def forward_train(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
                   positions=None, last_only: bool = False,
                   route: str = "kernel", tp=None) -> torch.Tensor:
@@ -119,22 +101,14 @@ def forward_train(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     `tp` (`launch.tp.ModelShards`) params hold model rank t's shards and
     the logits are the rank's (its vocabulary slice where lm_head is
     split over the vocabulary)."""
-    x = embed(params, tokens, cfg, tp)
+    x = L.embed(params, tokens, cfg, tp)
     if positions is None:
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)[None, :]
     x = backbone(params, x, positions, cfg, route, tp)
     if last_only:
         x = x[:, -1:]
-    return head(params, x, tp)
-
-
-def xent(logits: torch.Tensor, labels: torch.Tensor, tp=None):
-    """`layers.softmax_xent`, or its tensor-parallel form over the rank's
-    logits (`launch.tp.ModelShards.xent`)."""
-    if tp is None:
-        return L.softmax_xent(logits, labels)
-    return tp.xent(logits, labels)
+    return L.head(params, x, tp)
 
 
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig,
@@ -144,7 +118,7 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig,
     same value on every rank of the model group."""
     logits = forward_train(params, batch["tokens"], cfg, route="plain",
                            tp=tp)
-    return xent(logits, batch["labels"], tp)
+    return L.xent(logits, batch["labels"], tp)
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,13 @@ decoder block on the training route (`remat.py`).  `prefill_cross` (the
 encoder
 run once and the cross-attention keys and values cached) is a module
 function outside `ModelApi`, as in the reference.
+
+With `tp` (`launch.tp.ModelShards`, the training route) the blocks hold
+model rank t's shard: the encoder's attention and the decoder's self and
+cross attention split over the rank's H / T heads (wq / wk / wv and
+their biases column-parallel, wo row-parallel; the encoder output enters
+each block's cross attention through `tp.copy`), the GELU MLP as
+`layers.gelu_mlp`; the LayerNorms and b2 replicated.
 """
 from __future__ import annotations
 
@@ -99,100 +106,117 @@ def _full(sq: int, sk: int, device) -> torch.Tensor:
     return torch.ones((sq, sk), dtype=torch.bool, device=device)
 
 
+def _out(a: torch.Tensor, wo: torch.Tensor, tp) -> torch.Tensor:
+    """The heads' output (B, S, h, hd) through wo (row-parallel with
+    `tp`: the partial product reduced)."""
+    out = a.reshape(*a.shape[:2], -1) @ wo.to(a.dtype)
+    return out if tp is None else tp.reduce(out)
+
+
 def _enc_block(lp: dict, x: torch.Tensor, full: torch.Tensor,
-               cfg: ModelConfig) -> torch.Tensor:
+               cfg: ModelConfig, tp=None) -> torch.Tensor:
     hn = _ln(x, lp["ln1"])
-    q, k, v = L._qkv(lp["attn"], hn, cfg)
+    q, k, v = (L._qkv(lp["attn"], hn, cfg) if tp is None
+               else L.qkv_shard(lp["attn"], hn, cfg, tp))
     a = L.gqa_attend(q, k, v, full)
-    x = x + a.reshape(*x.shape[:2], -1) @ lp["attn"]["wo"].to(x.dtype)
+    x = x + _out(a, lp["attn"]["wo"], tp)
     hn = _ln(x, lp["ln2"])
-    return x + L.gelu_mlp(lp["mlp"], hn)
+    return x + L.gelu_mlp(lp["mlp"], hn, tp)
 
 
 def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig,
-           rematerialize: bool = False) -> torch.Tensor:
+           rematerialize: bool = False, tp=None) -> torch.Tensor:
     """frames (B, F, D), the stub conv frontend's output -> encoder
     features (B, F, D) in the compute dtype: bidirectional attention
     (`gqa_attend` under a full mask).  rematerialize: each block through
-    `remat.call` (the training forward under cfg.remat)."""
+    `remat.call` (the training forward under cfg.remat); `tp`: the blocks
+    hold model rank t's shards, the features are replicated."""
     x = frames.to(cfg.cdtype)
     x = x + L.sinusoid_positions(x.shape[1], cfg.d_model,
                                  x.device).to(x.dtype)[None]
     full = _full(x.shape[1], x.shape[1], x.device)
     for lp in L.unstack(params["enc_layers"]):
-        x = remat.maybe(rematerialize, _enc_block, lp, x, full, cfg)
+        x = remat.maybe(rematerialize, _enc_block, lp, x, full, cfg, tp)
     return _ln(x, params["enc_norm"])
 
 
 def _cross_attend(lp: dict, h: torch.Tensor, enc_kv,
-                  cfg: ModelConfig) -> torch.Tensor:
-    """enc_kv: the encoder's (k, v), each (B, F, Hkv, hd)."""
+                  cfg: ModelConfig, tp=None) -> torch.Tensor:
+    """enc_kv: the encoder's (k, v), each (B, F, Hkv, hd) (the rank's
+    heads with `tp`; h enters through `tp.copy`)."""
     B, S, _ = h.shape
-    q = (h @ lp["wq"].to(h.dtype)).reshape(B, S, cfg.n_heads, cfg.hd)
+    H = cfg.n_heads
+    if tp is not None:
+        h, H = tp.copy(h), H // tp.T
+    q = (h @ lp["wq"].to(h.dtype)).reshape(B, S, H, cfg.hd)
     k, v = enc_kv
     a = L.gqa_attend(q, k.to(h.dtype), v.to(h.dtype),
                      _full(S, k.shape[1], h.device))
-    return a.reshape(B, S, -1) @ lp["wo"].to(h.dtype)
+    return _out(a, lp["wo"], tp)
 
 
-def _enc_kv(lp: dict, enc_out: torch.Tensor, cfg: ModelConfig):
+def _enc_kv(lp: dict, enc_out: torch.Tensor, cfg: ModelConfig, tp=None):
     B, F, _ = enc_out.shape
-    k = (enc_out @ lp["wk"].to(enc_out.dtype)).reshape(B, F, cfg.n_kv_heads,
-                                                       cfg.hd)
-    v = (enc_out @ lp["wv"].to(enc_out.dtype)).reshape(B, F, cfg.n_kv_heads,
-                                                       cfg.hd)
-    return k, v
+    k = enc_out @ lp["wk"].to(enc_out.dtype)
+    v = enc_out @ lp["wv"].to(enc_out.dtype)
+    if tp is not None:
+        return tp.kv(k, v, cfg)
+    return (k.reshape(B, F, cfg.n_kv_heads, cfg.hd),
+            v.reshape(B, F, cfg.n_kv_heads, cfg.hd))
 
 
 def _dec_block(lp: dict, h: torch.Tensor, enc_out: torch.Tensor,
                positions: torch.Tensor, cfg: ModelConfig,
-               route: str) -> torch.Tensor:
+               route: str, tp=None) -> torch.Tensor:
     # one autograd use of enc_out per block: its gradient sums the block's
     # two uses (keys, values) first, in the same order whether or not the
-    # block is rematerialized (remat.py)
-    enc_out = enc_out.view_as(enc_out)
+    # block is rematerialized (remat.py); with `tp` that use is the
+    # block's `tp.copy` into its heads
+    enc_out = enc_out.view_as(enc_out) if tp is None else tp.copy(enc_out)
     hn = _ln(h, lp["ln1"])
     h = h + L.attention_train(lp["self_attn"], hn, positions, cfg,
-                              theta=0.0, route=route)
+                              theta=0.0, route=route, tp=tp)
     hn = _ln(h, lp["ln_x"])
     h = h + _cross_attend(lp["cross_attn"], hn,
-                          _enc_kv(lp["cross_attn"], enc_out, cfg), cfg)
+                          _enc_kv(lp["cross_attn"], enc_out, cfg, tp), cfg,
+                          tp)
     hn = _ln(h, lp["ln2"])
-    return h + L.gelu_mlp(lp["mlp"], hn)
+    return h + L.gelu_mlp(lp["mlp"], hn, tp)
 
 
 def forward_train(params: dict, batch: dict, cfg: ModelConfig,
                   last_only: bool = False,
-                  route: str = "kernel") -> torch.Tensor:
+                  route: str = "kernel", tp=None) -> torch.Tensor:
     """batch: {frames (B, F, D), tokens (B, S)} -> logits (B, S, vocab),
     or (B, 1, vocab) with last_only, in the compute dtype.  route: the
     decoder self-attention's (`layers.ROUTES`); "plain" is the training
-    route."""
+    route.  With `tp` (`launch.tp.ModelShards`) params hold model rank t's
+    shards and the logits are the rank's, as in `dense.forward_train`."""
     if route not in L.ROUTES:
         raise ValueError(f"route={route!r}; known: {L.ROUTES}")
     on = remat.enabled(cfg, route)
-    enc_out = encode(params, batch["frames"], cfg, on)
+    enc_out = encode(params, batch["frames"], cfg, on, tp)
     tokens = batch["tokens"]
     S = tokens.shape[1]
-    # gather, then cast: the reference's cast-then-gather without a
-    # (vocab, d_model) temporary
-    x = params["embed"][tokens].to(cfg.cdtype)
+    x = L.embed(params, tokens, cfg, tp)
     x = x + L.sinusoid_positions(S, cfg.d_model, x.device).to(x.dtype)[None]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
     for lp in L.unstack(params["dec_layers"]):
         x = remat.maybe(on, _dec_block, lp, x, enc_out, positions, cfg,
-                        route)
+                        route, tp)
     x = _ln(x, params["dec_norm"])
     if last_only:
         x = x[:, -1:]
-    return x @ params["lm_head"].to(x.dtype)
+    return L.head(params, x, tp)
 
 
-def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig,
+            tp=None) -> torch.Tensor:
     """Mean next-token cross-entropy on the training route (plain
-    attention under autograd)."""
-    logits = forward_train(params, batch, cfg, route="plain")
-    return L.softmax_xent(logits, batch["labels"])
+    attention under autograd); with `tp` over model rank t's shards, the
+    same value on every rank of the model group."""
+    logits = forward_train(params, batch, cfg, route="plain", tp=tp)
+    return L.xent(logits, batch["labels"], tp)
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,14 @@ the reference's `jax.lax.associative_scan` order ported, and the
 reference's `gqa_attend` / `block_attention`, under autograd (`loss_fn`,
 the training route: neither kernel has a backward).
 
+With `tp` (`launch.tp.ModelShards`, the training route) the blocks hold
+model rank t's shard: the RG-LRU's w_in_x / w_in_y, conv_w, w_a / w_i and
+b_a / b_i / lam split over the W channels (the depthwise conv and the
+recurrence on the rank's W / T of them; the (W, W) gate matrices read
+all of xi, all-gathered), w_out row-parallel; the local attention's
+query heads split, its one MQA head's K / V all-gathered where the plan
+cuts them inside it (`layers.qkv_shard`); the MLP as `layers.swiglu`.
+
 Parameters keep the reference's layout: periods of (2 recurrent + 1
 attention) layers stacked on leading dims (`period_lru` (P, 2, ...),
 `period_attn` (P, ...)) and the non-multiple tail (`tail_lru`
@@ -79,12 +87,17 @@ def _causal_conv1d(x: torch.Tensor, w: torch.Tensor, state=None):
     return out, new_state
 
 
-def _rglru_gates(p: dict, xi: torch.Tensor):
+def _rglru_gates(p: dict, xi: torch.Tensor, tp=None):
+    """(a, gated x) of the channels of w_a / w_i's columns: xi holds every
+    channel the gate matrices read; they gate xi's channels, or with `tp`
+    the rank's (`tp.own`, taken where it is used: its gradient then
+    arrives in the plain order)."""
     r = torch.sigmoid(xi @ p["w_a"].to(xi.dtype) + p["b_a"].to(xi.dtype))
     i = torch.sigmoid(xi @ p["w_i"].to(xi.dtype) + p["b_i"].to(xi.dtype))
     log_a = -_C_RGLRU * F.softplus(p["lam"]) * r.to(torch.float32)
     a = torch.exp(log_a)
-    gated_x = (i * xi).to(torch.float32) * torch.sqrt(
+    own = xi if tp is None else tp.own(xi)
+    gated_x = (i * own).to(torch.float32) * torch.sqrt(
         torch.clamp(1.0 - a * a, min=1e-12))
     return a, gated_x
 
@@ -137,13 +150,19 @@ def _linear_combine(c1, c2):
 
 
 def rglru_scan(p: dict, xi: torch.Tensor, h0=None,
-               route: str = "kernel") -> torch.Tensor:
+               route: str = "kernel", tp=None) -> torch.Tensor:
     """xi: (B, S, W).  h_t = a_t h_{t-1} + b_t in f32, through
     `ops.rglru` (route "kernel") or `associative_scan` (route "plain",
-    differentiable); an initial state h0 folds into b_0 as a_0 * h0."""
+    differentiable); an initial state h0 folds into b_0 as a_0 * h0.
+    With `tp` xi holds the rank's W / T channels: all of them are
+    all-gathered for the gate matrices and enter through `tp.copy`, and
+    the recurrence runs on the rank's."""
     if route not in L.ROUTES:
         raise ValueError(f"route={route!r}; known: {L.ROUTES}")
-    a, b = _rglru_gates(p, xi)                       # (B, S, W) f32 each
+    if tp is None:
+        a, b = _rglru_gates(p, xi)                   # (B, S, W) f32 each
+    else:
+        a, b = _rglru_gates(p, tp.copy(tp.gather(xi)), tp)
     if h0 is not None:
         b = b.clone()
         b[:, 0] += a[:, 0] * h0.to(torch.float32)
@@ -160,15 +179,20 @@ def rglru_step(p: dict, xi: torch.Tensor, h: torch.Tensor):
 
 
 def recurrent_block(p: dict, x: torch.Tensor, cfg: ModelConfig, state=None,
-                    route: str = "kernel"):
+                    route: str = "kernel", tp=None):
     """Griffin recurrent temporal block.  state: None | (h, conv_state);
-    route: the full-sequence recurrence's (`rglru_scan`)."""
+    route: the full-sequence recurrence's (`rglru_scan`).  With `tp` (a
+    full sequence) p holds model rank t's channels: x enters through
+    `tp.copy` and the partial output leaves through `tp.reduce`."""
+    if tp is not None:
+        x = tp.copy(x)
     y = F.gelu(x @ p["w_in_y"].to(x.dtype), approximate="tanh")
     xi = x @ p["w_in_x"].to(x.dtype)
     if state is None:
         xi, _ = _causal_conv1d(xi, p["conv_w"])
-        h = rglru_scan(p, xi, route=route)
-        return (h * y) @ p["w_out"].to(x.dtype), None
+        h = rglru_scan(p, xi, route=route, tp=tp)
+        out = (h * y) @ p["w_out"].to(x.dtype)
+        return (out if tp is None else tp.reduce(out)), None
     h0, conv_state = state
     xi, conv_state = _causal_conv1d(xi, p["conv_w"], conv_state)
     hseq, hn = rglru_step(p, xi, h0)
@@ -234,42 +258,42 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
 # forward
 # ---------------------------------------------------------------------------
 def _lru_layer_fwd(lp: dict, x: torch.Tensor, cfg: ModelConfig, state=None,
-                   route: str = "kernel"):
+                   route: str = "kernel", tp=None):
     h = L.rms_norm(x, lp["ln1"].to(x.dtype), cfg.norm_eps)
-    r, state = recurrent_block(lp["rec"], h, cfg, state, route)
+    r, state = recurrent_block(lp["rec"], h, cfg, state, route, tp)
     x = x + r
     h = L.rms_norm(x, lp["ln2"].to(x.dtype), cfg.norm_eps)
-    return x + L.swiglu(lp["mlp"], h), state
+    return x + L.swiglu(lp["mlp"], h, tp=tp), state
 
 
 def _attn_layer_fwd(lp: dict, x: torch.Tensor, positions: torch.Tensor,
-                    cfg: ModelConfig, route: str) -> torch.Tensor:
+                    cfg: ModelConfig, route: str, tp=None) -> torch.Tensor:
     h = L.rms_norm(x, lp["ln1"].to(x.dtype), cfg.norm_eps)
     x = x + L.attention_train(lp["attn"], h, positions, cfg,
-                              window=cfg.local_window, route=route)
+                              window=cfg.local_window, route=route, tp=tp)
     h = L.rms_norm(x, lp["ln2"].to(x.dtype), cfg.norm_eps)
-    return x + L.swiglu(lp["mlp"], h)
+    return x + L.swiglu(lp["mlp"], h, tp=tp)
 
 
 def _period_fwd(lru: dict, attn: dict, x: torch.Tensor,
                 positions: torch.Tensor, cfg: ModelConfig,
-                route: str) -> torch.Tensor:
+                route: str, tp=None) -> torch.Tensor:
     """One period of the pattern: two RG-LRU layers, then local attention
     (the reference's rematerialized unit)."""
     for lj in L.unstack(lru):
-        x, _ = _lru_layer_fwd(lj, x, cfg, route=route)
-    return _attn_layer_fwd(attn, x, positions, cfg, route)
+        x, _ = _lru_layer_fwd(lj, x, cfg, route=route, tp=tp)
+    return _attn_layer_fwd(attn, x, positions, cfg, route, tp)
 
 
 def forward_train(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
                   positions=None, last_only: bool = False,
-                  route: str = "kernel") -> torch.Tensor:
+                  route: str = "kernel", tp=None) -> torch.Tensor:
     """Logits (B, S, vocab), or (B, 1, vocab) with last_only, in the
     compute dtype.  route: the recurrence's and the attention's
-    (`layers.ROUTES`); "plain" is the training route."""
-    # gather, then cast: the reference's cast-then-gather without a
-    # (vocab, d_model) temporary
-    x = params["embed"][tokens].to(cfg.cdtype)
+    (`layers.ROUTES`); "plain" is the training route.  With `tp`
+    (`launch.tp.ModelShards`) params hold model rank t's shards and the
+    logits are the rank's, as in `dense.forward_train`."""
+    x = L.embed(params, tokens, cfg, tp)
     if positions is None:
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)[None, :]
@@ -279,20 +303,24 @@ def forward_train(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
         for lru, attn in zip(L.unstack(params["period_lru"]),
                              L.unstack(params["period_attn"])):
             x = remat.maybe(on, _period_fwd, lru, attn, x, positions, cfg,
-                            route)
+                            route, tp)
     if tail:
         for lt in L.unstack(params["tail_lru"]):
-            x, _ = _lru_layer_fwd(lt, x, cfg, route=route)
+            x, _ = _lru_layer_fwd(lt, x, cfg, route=route, tp=tp)
     x = L.rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
     if last_only:
         x = x[:, -1:]
-    return x @ params["lm_head"].to(x.dtype)
+    return L.head(params, x, tp)
 
 
-def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
-    """Mean next-token cross-entropy on the training route."""
-    logits = forward_train(params, batch["tokens"], cfg, route="plain")
-    return L.softmax_xent(logits, batch["labels"])
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig,
+            tp=None) -> torch.Tensor:
+    """Mean next-token cross-entropy on the training route; with `tp`
+    over model rank t's shards, the same value on every rank of the model
+    group."""
+    logits = forward_train(params, batch["tokens"], cfg, route="plain",
+                           tp=tp)
+    return L.xent(logits, batch["labels"], tp)
 
 
 # ---------------------------------------------------------------------------

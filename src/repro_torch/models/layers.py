@@ -265,6 +265,24 @@ def attend_auto(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return ops.flash_attention(q, k, v, window=window, scale=scale)
 
 
+def qkv_shard(p: dict, x: torch.Tensor, cfg: ModelConfig, tp):
+    """`_qkv` of model rank t's shard (`launch.tp.ModelShards`): x enters
+    through `tp.copy`, the rank's H / T query heads, and the KV heads they
+    read (`tp.kv`: the rank's own, or gathered where the plan cuts K / V
+    inside a head).  cfg: the full config."""
+    B, S, _ = x.shape
+    x = tp.copy(x)
+    q = x @ p["wq"].to(x.dtype)
+    k = x @ p["wk"].to(x.dtype)
+    v = x @ p["wv"].to(x.dtype)
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    k, v = tp.kv(k, v, cfg)
+    return q.reshape(B, S, cfg.n_heads // tp.T, cfg.hd), k, v
+
+
 def attention_train(p: dict, x: torch.Tensor, positions: torch.Tensor,
                     cfg: ModelConfig, window: int = 0,
                     theta: Optional[float] = None,
@@ -272,14 +290,14 @@ def attention_train(p: dict, x: torch.Tensor, positions: torch.Tensor,
     """Full-sequence attention block; `route` picks the attention
     (`ROUTES`): the caller states it, nothing falls back.  With `tp` (a
     `launch.tp.ModelShards`) p holds one tensor-parallel shard: wq / wk /
-    wv and their biases column-parallel (whole heads), wo row-parallel;
-    x enters through `tp.copy` and the partial output leaves through
-    `tp.reduce`."""
+    wv and their biases column-parallel (`qkv_shard`), wo row-parallel;
+    the partial output leaves through `tp.reduce`."""
     if route not in ROUTES:
         raise ValueError(f"route={route!r}; known: {ROUTES}")
-    if tp is not None:
-        x, cfg = tp.copy(x), tp.heads(cfg)
-    q, k, v = _qkv(p, x, cfg)
+    if tp is None:
+        q, k, v = _qkv(p, x, cfg)
+    else:
+        q, k, v = qkv_shard(p, x, cfg, tp)
     th = theta if theta is not None else cfg.rope_theta
     if th > 0:
         q = apply_rope(q, positions, th)
@@ -361,9 +379,20 @@ def init_swiglu(generator: torch.Generator, d: int, f: int,
 
 
 def swiglu(p: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
-    """SiLU(x Wg) * (x Wu) Wd; with `tp` (`launch.tp.ModelShards`) Wg / Wu
-    column-parallel and Wd row-parallel shards, x through `tp.copy` and
-    the partial output through `tp.reduce`."""
+    """SiLU(x Wg) * (x Wu) Wd.  With `tp` (`launch.tp.ModelShards`) p
+    holds model rank t's shard: Wg / Wu column-parallel and Wd
+    row-parallel, x through `tp.copy` and the partial output through
+    `tp.reduce`; or, where the plan relocated the split to d_model (a
+    hidden width T does not divide: Wd's shard shape is in
+    `tp.mlp_d_model`), Wg / Wu over the rank's input rows with their
+    partial products reduced before the gate, and Wd's output columns
+    all-gathered."""
+    if tp is not None and tuple(p["wd"].shape[-2:]) in tp.mlp_d_model:
+        xc = tp.own(tp.copy(x))
+        g = tp.reduce(xc @ p["wg"].to(x.dtype))
+        u = tp.reduce(xc @ p["wu"].to(x.dtype))
+        h = tp.copy(F.silu(g) * u)
+        return tp.gather(h @ p["wd"].to(x.dtype))
     if tp is not None:
         x = tp.copy(x)
     h = F.silu(x @ p["wg"].to(x.dtype)) * (x @ p["wu"].to(x.dtype))
@@ -380,12 +409,19 @@ def init_gelu_mlp(generator: torch.Generator, d: int, f: int,
             "b2": torch.zeros(lead + (d,), dtype=dtype, device=device)}
 
 
-def gelu_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+def gelu_mlp(p: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
     """x W1 + b1, GELU (tanh form: `jax.nn.gelu`'s default), then W2 +
-    b2."""
+    b2.  With `tp` (`launch.tp.ModelShards`) W1 / b1 column-parallel and
+    W2 row-parallel: x through `tp.copy`, the partial product through
+    `tp.reduce`, then the replicated b2."""
+    if tp is not None:
+        x = tp.copy(x)
     h = F.gelu(x @ p["w1"].to(x.dtype) + p["b1"].to(x.dtype),
                approximate="tanh")
-    return h @ p["w2"].to(x.dtype) + p["b2"].to(x.dtype)
+    out = h @ p["w2"].to(x.dtype)
+    if tp is not None:
+        out = tp.reduce(out)
+    return out + p["b2"].to(x.dtype)
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
@@ -398,3 +434,32 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     nll = lse - ll
     w = (labels != ignore).to(torch.float32)
     return torch.sum(nll * w) / torch.clamp(torch.sum(w), min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# the embedding, the head and the loss of every family
+# ---------------------------------------------------------------------------
+def embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+          tp=None) -> torch.Tensor:
+    """The tokens' embeddings in the compute dtype: gather, then cast (the
+    reference's cast-then-gather without a (vocab, d_model) temporary);
+    with `tp` from the rank's shard of the table."""
+    table = params["embed"]
+    x = table[tokens] if tp is None else tp.embed(table, tokens)
+    return x.to(cfg.cdtype)
+
+
+def head(params: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """Features -> logits through lm_head (with `tp`: the rank's logits,
+    `launch.tp.ModelShards.logits`)."""
+    if tp is None:
+        return x @ params["lm_head"].to(x.dtype)
+    return tp.logits(x, params["lm_head"])
+
+
+def xent(logits: torch.Tensor, labels: torch.Tensor, tp=None):
+    """`softmax_xent`, or its tensor-parallel form over the rank's
+    logits (`launch.tp.ModelShards.xent`)."""
+    if tp is None:
+        return softmax_xent(logits, labels)
+    return tp.xent(logits, labels)

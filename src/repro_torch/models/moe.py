@@ -47,6 +47,18 @@ rematerializes every dense and moe block on the training route
 (`remat.py`), except when the caller collects or hands in the routes
 (`routes`, `given`: a recompute would record or consume them twice).
 `moe_seq_chunk` becomes a Python loop over the chunks.
+
+With `tp` (`launch.tp.ModelShards`, the training route) the blocks hold
+model rank t's shard: the E / T experts [t E / T, (t+1) E / T) of
+`moe/w[gud]`; the router, its routing, capacity and drops and the aux
+loss replicated (every rank computes them from all the tokens); each
+rank dispatches and runs only its experts' slots, the tokens and combine
+weights entering through `tp.copy`, and its partial combine leaves
+through `tp.reduce`.  The shared experts and the dense MLP go through
+`layers.swiglu`; GQA attention through `layers.attention_train`; MLA
+with wq_a column-parallel (cq all-gathered before q_norm), wq_b / wkv_b
+over the rank's H / T heads, wkv_a replicated (c_kv and k_rope enter
+through `tp.copy`) and wo row-parallel.
 """
 from __future__ import annotations
 
@@ -90,7 +102,8 @@ def _capacity(n_tokens: int, cfg: ModelConfig) -> int:
 
 
 def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig,
-            routes: Optional[list] = None, given: Optional[Iterator] = None):
+            routes: Optional[list] = None, given: Optional[Iterator] = None,
+            tp=None):
     """x: (B, S, D) -> (y, aux_loss).  A sequence longer than a positive
     `moe_seq_chunk` that it divides runs through the dispatch chunk by
     chunk (capacity applies per chunk), aux the chunks' mean.  `routes`,
@@ -99,7 +112,8 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig,
     of its own top-k (their weights the router's probabilities there,
     renormalised), so that a comparison can run on another run's routes.
     The expert stacks are cast to the compute dtype once, for every
-    chunk."""
+    chunk.  With `tp` p holds the rank's experts (see the module
+    docstring)."""
     B, S, D = x.shape
     w = {k: p[k].to(x.dtype) for k in ("wg", "wu", "wd")}
     ch = cfg.moe_seq_chunk
@@ -109,16 +123,16 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig,
         ys = []
         for i in range(n):
             y, a = _moe_ffn_dispatch(p, w, x[:, i * ch:(i + 1) * ch], cfg,
-                                     routes, given)
+                                     routes, given, tp)
             aux = aux + a
             ys.append(y)
         return torch.cat(ys, dim=1), aux / n
-    return _moe_ffn_dispatch(p, w, x, cfg, routes, given)
+    return _moe_ffn_dispatch(p, w, x, cfg, routes, given, tp)
 
 
 def _moe_ffn_dispatch(p: dict, w: dict, x: torch.Tensor, cfg: ModelConfig,
                       routes: Optional[list] = None,
-                      given: Optional[Iterator] = None):
+                      given: Optional[Iterator] = None, tp=None):
     B, S, D = x.shape
     T = B * S
     E, K = cfg.n_experts, cfg.top_k
@@ -151,19 +165,35 @@ def _moe_ffn_dispatch(p: dict, w: dict, x: torch.Tensor, cfg: ModelConfig,
     offsets = torch.searchsorted(se, torch.arange(E, device=dev))
     pos = torch.arange(T * K, device=dev) - offsets[se]
     C = _capacity(T, cfg)
-    keep = (pos < C).to(dt)
     slot = torch.clamp(pos, max=C - 1)
+    xs = xt
+    if tp is not None:
+        # the rank's experts [e0, e0 + E / T): local ids, the other
+        # experts' pairs dropped here (their weight 0; another rank's)
+        n_e = w["wg"].shape[0]
+        e0 = tp.t * n_e
+        se = se - e0
+        mine = (se >= 0) & (se < n_e)
+        E = n_e
+        keep = ((pos < C) & mine).to(dt)
+        xs, sw = tp.copy(xt), tp.copy(sw)
+        se_row = se.clamp(0, n_e - 1)
+    else:
+        keep = (pos < C).to(dt)
+        se_row = se
 
-    buf = dispatch(xt, se, st, pos, E, C)
+    buf = dispatch(xs, se, st, pos, E, C)
     # batched expert SwiGLU: (E, C, D) x (E, D, F)
     h = F.silu(torch.bmm(buf, w["wg"]))
     h = h * torch.bmm(buf, w["wu"])
     out_buf = torch.bmm(h, w["wd"])
 
-    vals = out_buf[se, slot] * (sw.to(dt) * keep)[:, None]          # (T*K, D)
+    vals = out_buf[se_row, slot] * (sw.to(dt) * keep)[:, None]      # (T*K, D)
     y = combine(vals, order, topi)
+    if tp is not None:
+        y = tp.reduce(y)
     if "shared" in p:
-        y = y + L.swiglu(p["shared"], xt)
+        y = y + L.swiglu(p["shared"], xt, tp=tp)
     return y.reshape(B, S, D), aux
 
 
@@ -172,8 +202,9 @@ def dispatch(xt: torch.Tensor, se: torch.Tensor, st: torch.Tensor,
     """The (E, C, D) dispatch buffer: the token st of each sorted pair
     whose position pos within its expert se is below C in row (se, pos),
     zeros elsewhere.  Written through the flat (E * C + 1, D) buffer whose
-    spare last row takes every dropped pair and is cut off."""
-    row = torch.where(pos < C, se * C + pos, E * C)
+    spare last row takes every dropped pair, and every pair of an expert
+    outside [0, E) (another rank's), and is cut off."""
+    row = torch.where((pos < C) & (se >= 0) & (se < E), se * C + pos, E * C)
     buf = torch.zeros((E * C + 1, xt.shape[1]), dtype=xt.dtype,
                       device=xt.device)
     return buf.index_put((row,), xt[st])[:E * C].view(E, C, xt.shape[1])
@@ -224,9 +255,19 @@ def init_mla(generator: torch.Generator, cfg: ModelConfig, lead=(),
     return p
 
 
-def _mla_q(p: dict, x: torch.Tensor, cfg: ModelConfig):
+def _mla_q(p: dict, x: torch.Tensor, cfg: ModelConfig, tp=None):
+    """(q_nope, q_rope) of the heads of wq_b's shard.  With `tp` wq_a is
+    column-parallel: x enters through `tp.copy`, the rank's columns of cq
+    are all-gathered for q_norm (over all of q_lora), and the normed cq
+    enters the rank's heads through `tp.copy`."""
     if "wq_a" in p:
-        cq = L.rms_norm(x @ p["wq_a"].to(x.dtype), p["q_norm"].to(x.dtype))
+        if tp is None:
+            cq = x @ p["wq_a"].to(x.dtype)
+        else:
+            cq = tp.gather(tp.copy(x) @ p["wq_a"].to(x.dtype))
+        cq = L.rms_norm(cq, p["q_norm"].to(x.dtype))
+        if tp is not None:
+            cq = tp.copy(cq)
         q = torch.einsum("bsl,lhd->bshd", cq, p["wq_b"].to(x.dtype))
     else:
         q = torch.einsum("bsd,dhe->bshe", x, p["wq"].to(x.dtype))
@@ -246,21 +287,26 @@ def _mla_kv_a(p: dict, x: torch.Tensor, positions: torch.Tensor,
 
 
 def mla_train(p: dict, x: torch.Tensor, positions: torch.Tensor,
-              cfg: ModelConfig) -> torch.Tensor:
+              cfg: ModelConfig, tp=None) -> torch.Tensor:
     """Full-sequence MLA, always through `layers.attend_plain` (QK head
-    dim nope + rope, V head dim v_head_dim)."""
+    dim nope + rope, V head dim v_head_dim).  With `tp` (see the module
+    docstring) the rank's H / T heads; the partial output leaves through
+    `tp.reduce`."""
     B, S, D = x.shape
-    H = cfg.n_heads
+    H = cfg.n_heads if tp is None else cfg.n_heads // tp.T
     nh, rh, vh = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
-    q_nope, q_rope = _mla_q(p, x, cfg)
+    q_nope, q_rope = _mla_q(p, x, cfg, tp)
     q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
     c_kv, k_rope = _mla_kv_a(p, x, positions, cfg)
+    if tp is not None:
+        c_kv, k_rope = tp.copy(c_kv), tp.copy(k_rope)
     kv = torch.einsum("bsl,lhd->bshd", c_kv, p["wkv_b"].to(x.dtype))
     k_nope, v = torch.split(kv, [nh, vh], dim=-1)
     k = torch.cat([k_nope, k_rope.expand(B, S, H, rh)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
     out = L.attend_plain(q, k, v, scale=1.0 / math.sqrt(nh + rh))
-    return out.reshape(B, S, H * vh) @ p["wo"].to(x.dtype)
+    out = out.reshape(B, S, H * vh) @ p["wo"].to(x.dtype)
+    return out if tp is None else tp.reduce(out)
 
 
 def mla_decode_into(p: dict, x: torch.Tensor, pos: int,
@@ -354,66 +400,71 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
 
 
 def _attn_train(lp: dict, h: torch.Tensor, positions: torch.Tensor,
-                cfg: ModelConfig, route: str) -> torch.Tensor:
+                cfg: ModelConfig, route: str, tp=None) -> torch.Tensor:
     if cfg.kv_lora:
-        return mla_train(lp["attn"], h, positions, cfg)
-    return L.attention_train(lp["attn"], h, positions, cfg, route=route)
+        return mla_train(lp["attn"], h, positions, cfg, tp)
+    return L.attention_train(lp["attn"], h, positions, cfg, route=route,
+                             tp=tp)
 
 
-def _dense_block(lp, x, positions, cfg: ModelConfig, route: str):
+def _dense_block(lp, x, positions, cfg: ModelConfig, route: str, tp=None):
     h = L.rms_norm(x, lp["ln1"].to(x.dtype), cfg.norm_eps)
-    x = x + _attn_train(lp, h, positions, cfg, route)
+    x = x + _attn_train(lp, h, positions, cfg, route, tp)
     h = L.rms_norm(x, lp["ln2"].to(x.dtype), cfg.norm_eps)
-    return x + L.swiglu(lp["mlp"], h)
+    return x + L.swiglu(lp["mlp"], h, tp=tp)
 
 
 def _moe_block(lp, x, positions, cfg: ModelConfig, route: str, routes,
-               given):
+               given, tp=None):
     h = L.rms_norm(x, lp["ln1"].to(x.dtype), cfg.norm_eps)
-    x = x + _attn_train(lp, h, positions, cfg, route)
+    x = x + _attn_train(lp, h, positions, cfg, route, tp)
     h = L.rms_norm(x, lp["ln2"].to(x.dtype), cfg.norm_eps)
-    y, aux = moe_ffn(lp["moe"], h, cfg, routes, given)
+    y, aux = moe_ffn(lp["moe"], h, cfg, routes, given, tp)
     return x + y, aux
 
 
 def forward_train(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
                   positions=None, last_only: bool = False,
                   route: str = "kernel", routes: Optional[list] = None,
-                  given: Optional[Iterator] = None):
+                  given: Optional[Iterator] = None, tp=None):
     """-> (logits (B, S, vocab), or (B, 1, vocab) with last_only, in the
     compute dtype; the summed router aux loss, f32).  route: the GQA
     attention's (`layers.ROUTES`; "plain" is the training route; MLA is
     always plain).  `routes`, a list, receives every dispatch's (T, K)
-    expert ids, layer by layer; `given` hands them in (`moe_ffn`)."""
+    expert ids, layer by layer; `given` hands them in (`moe_ffn`).  With
+    `tp` (`launch.tp.ModelShards`) params hold model rank t's shards and
+    the logits are the rank's, as in `dense.forward_train`."""
     if route not in L.ROUTES:
         raise ValueError(f"route={route!r}; known: {L.ROUTES}")
-    x = params["embed"][tokens].to(cfg.cdtype)
+    x = L.embed(params, tokens, cfg, tp)
     if positions is None:
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)[None, :]
     on = remat.enabled(cfg, route) and routes is None and given is None
     if cfg.first_dense_layers:
         for lp in L.unstack(params["dense_layers"]):
-            x = remat.maybe(on, _dense_block, lp, x, positions, cfg, route)
+            x = remat.maybe(on, _dense_block, lp, x, positions, cfg, route,
+                            tp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in L.unstack(params["moe_layers"]):
         x, a = remat.maybe(on, _moe_block, lp, x, positions, cfg, route,
-                           routes, given)
+                           routes, given, tp)
         aux = aux + a
     x = L.rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
     if last_only:
         x = x[:, -1:]
-    return x @ params["lm_head"].to(x.dtype), aux
+    return L.head(params, x, tp), aux
 
 
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig,
-            given: Optional[Iterator] = None) -> torch.Tensor:
+            given: Optional[Iterator] = None, tp=None) -> torch.Tensor:
     """Mean next-token cross-entropy plus the router aux loss, on the
     training route (plain attention under autograd); `given` as in
-    `moe_ffn`."""
+    `moe_ffn`; with `tp` over model rank t's shards, the same value on
+    every rank of the model group."""
     logits, aux = forward_train(params, batch["tokens"], cfg, route="plain",
-                                given=given)
-    return L.softmax_xent(logits, batch["labels"]) + aux
+                                given=given, tp=tp)
+    return L.xent(logits, batch["labels"], tp) + aux
 
 
 # ---------------------------------------------------------------------------

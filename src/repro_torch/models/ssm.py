@@ -20,6 +20,20 @@ TPU kernel lies on this family's path, and it has no attention, so the
 forward's `route` has no effect (it is checked and kept for the
 registry's common signature).  `remat` rematerializes each layer in
 `loss_fn`'s forward (`remat.py`).
+
+With `tp` (`launch.tp.ModelShards`, the training route) the layers hold
+model rank t's shard, its H / T heads:
+- mLSTM: w_up column-parallel, its product all-gathered (at T 2 the
+  halves are exactly xm and z) and entering through `tp.copy`; conv_w,
+  wq, wk and wv over the rank's channels and heads (the depthwise conv on
+  its channels, its conv output all-gathered for the q / k / gate
+  products); w_if and b_if replicated, the gates computed on the
+  replicated stream and the rank's heads' taken after `tp.copy`; gn over
+  the rank's groups; w_down row-parallel, then `tp.reduce`;
+- sLSTM: w_gates / b_gates in whole heads (4 hd columns each) and r_gates
+  over heads, so the per-position loop runs on the rank's heads with no
+  collective inside it; gn over the rank's groups, h all-gathered once
+  after it, then the residual and the SwiGLU MLP (`layers.swiglu`).
 """
 from __future__ import annotations
 
@@ -172,31 +186,53 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, n_groups: int,
     return (xg.reshape(shp) * weight).to(dt)
 
 
-def mlstm_block(p: dict, x: torch.Tensor, cfg: ModelConfig, state=None):
+def _enter(x: torch.Tensor, tp) -> torch.Tensor:
+    """x entering the rank's own work: through `tp.copy`, or a view of x
+    without tp, so that both group the gradients of its uses alike (and
+    the executor at T = 1 sums them in the plain order)."""
+    return x.view_as(x) if tp is None else tp.copy(x)
+
+
+def _own(x: torch.Tensor, tp) -> torch.Tensor:
+    return x if tp is None else tp.own(x)
+
+
+def mlstm_block(p: dict, x: torch.Tensor, cfg: ModelConfig, state=None,
+                tp=None):
     """x (B, S, D); state None (the chunkwise form) or (C, n, m,
     conv_state) (one decode step, S = 1) -> (x + block(x), new state or
-    None)."""
+    None).  With `tp` (a full sequence) p holds model rank t's shard (see
+    the module docstring)."""
     B, S, D = x.shape
     H = cfg.n_heads
     xin = L.rms_norm(x, p["ln"].to(x.dtype), cfg.norm_eps)
-    xm, z = torch.chunk(xin @ p["w_up"].to(x.dtype), 2, dim=-1)
-    up = xm.shape[-1]
-    hd = up // H
+    if tp is None:
+        h2 = xin @ p["w_up"].to(x.dtype)
+    else:
+        h2 = tp.copy(tp.gather(tp.copy(xin) @ p["w_up"].to(x.dtype)))
+        H = H // tp.T
+    xm, z = torch.chunk(h2, 2, dim=-1)
+    hd = xm.shape[-1] // cfg.n_heads
+    up = hd * H                              # the rank's channels
     if state is None:
-        xc, _ = _causal_conv(xm, p["conv_w"])
+        xc, _ = _causal_conv(_own(xm, tp), p["conv_w"])
     else:
         C, n, m, conv_state = state
         xc, conv_state = _causal_conv(xm, p["conv_w"], conv_state)
     xc = F.silu(xc)
-    q = (xc @ p["wq"].to(x.dtype)).reshape(B, S, H, hd)
+    if tp is not None:
+        xc = tp.gather(xc)
+    xq = _enter(xc, tp)
+    q = (xq @ p["wq"].to(x.dtype)).reshape(B, S, H, hd)
     # sqrt(hd) rounded to x's dtype first, as the reference's weakly typed
     # Python float is (bf16: sqrt(384) -> 19.625)
-    k = (xc @ p["wk"].to(x.dtype)).reshape(B, S, H, hd) / torch.full(
+    k = (xq @ p["wk"].to(x.dtype)).reshape(B, S, H, hd) / torch.full(
         (), math.sqrt(hd), dtype=x.dtype, device=x.device)
     v = (xm @ p["wv"].to(x.dtype)).reshape(B, S, H, hd)
     gates = (xc @ p["w_if"].to(x.dtype) +
              p["b_if"].to(x.dtype)).to(torch.float32)
-    log_i, f_raw = torch.chunk(gates, 2, dim=-1)
+    log_i, f_raw = torch.chunk(_enter(gates, tp), 2, dim=-1)
+    log_i, f_raw = _own(log_i, tp), _own(f_raw, tp)
     log_f = F.logsigmoid(f_raw)
     if state is None:
         h = mlstm_chunkwise(q, k, v, log_i, log_f, cfg.mlstm_chunk)
@@ -208,7 +244,9 @@ def mlstm_block(p: dict, x: torch.Tensor, cfg: ModelConfig, state=None):
         new_state = (C, n, m, conv_state)
     h = h.to(x.dtype).reshape(B, S, up)
     h = group_norm(h, p["gn"].to(x.dtype), H)
-    out = (h * F.silu(z)) @ p["w_down"].to(x.dtype)
+    out = (h * F.silu(_own(z, tp))) @ p["w_down"].to(x.dtype)
+    if tp is not None:
+        out = tp.reduce(out)
     return x + out, new_state
 
 
@@ -255,14 +293,18 @@ def _slstm_cell(r_gates: torch.Tensor, gx: torch.Tensor, state, H: int,
     return (c, n, m_new, h_new.to(h.dtype))
 
 
-def slstm_block(p: dict, x: torch.Tensor, cfg: ModelConfig, state=None):
+def slstm_block(p: dict, x: torch.Tensor, cfg: ModelConfig, state=None,
+                tp=None):
     """x (B, S, D); state None (zeros, m at -1e30) or (c, n, m, h) ->
     (the block's output, the state after the last position).  A Python
-    loop over the S positions (the reference's `lax.scan`)."""
+    loop over the S positions (the reference's `lax.scan`).  With `tp` p
+    holds model rank t's heads (see the module docstring), the state too."""
     B, S, D = x.shape
     H = cfg.n_heads
     hd = D // H
     xin = L.rms_norm(x, p["ln"].to(x.dtype), cfg.norm_eps)
+    if tp is not None:
+        xin, H = tp.copy(xin), H // tp.T
     gx = xin @ p["w_gates"].to(x.dtype) + p["b_gates"].to(x.dtype)
     if state is None:
         zeros = torch.zeros((B, H, hd), dtype=torch.float32, device=x.device)
@@ -277,11 +319,13 @@ def slstm_block(p: dict, x: torch.Tensor, cfg: ModelConfig, state=None):
     for t in range(S):
         st = _slstm_cell(r_gates, gx[:, t], st, H, hd)
         hs.append(st[3])
-    h = torch.stack(hs, dim=1).reshape(B, S, D)
+    h = torch.stack(hs, dim=1).reshape(B, S, H * hd)
     h = group_norm(h, p["gn"].to(x.dtype), H)
+    if tp is not None:
+        h = tp.gather(h)
     x = x + h
     hn = L.rms_norm(x, p["ln2"].to(x.dtype), cfg.norm_eps)
-    return x + L.swiglu(p["mlp"], hn), st
+    return x + L.swiglu(p["mlp"], hn, tp=tp), st
 
 
 # ---------------------------------------------------------------------------
@@ -312,36 +356,40 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     }
 
 
-def _layer_out(fn, lp: dict, x: torch.Tensor, cfg: ModelConfig):
+def _layer_out(fn, lp: dict, x: torch.Tensor, cfg: ModelConfig, tp=None):
     """A layer's output without its final state (the training forward)."""
-    return fn(lp, x, cfg)[0]
+    return fn(lp, x, cfg, tp=tp)[0]
 
 
 def forward_train(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
                   positions=None, last_only: bool = False,
-                  route: str = "kernel") -> torch.Tensor:
+                  route: str = "kernel", tp=None) -> torch.Tensor:
     """Logits (B, S, vocab), or (B, 1, vocab) with last_only, in the
     compute dtype.  `positions` is unused (the recurrences carry order)
     and `route` has no effect (no attention; both routes are the same
-    stock torch ops)."""
+    stock torch ops).  With `tp` (`launch.tp.ModelShards`) params hold
+    model rank t's shards and the logits are the rank's, as in
+    `dense.forward_train`."""
     if route not in L.ROUTES:
         raise ValueError(f"route={route!r}; known: {L.ROUTES}")
-    # gather, then cast: the reference's cast-then-gather without a
-    # (vocab, d_model) temporary
-    x = params["embed"][tokens].to(cfg.cdtype)
+    x = L.embed(params, tokens, cfg, tp)
     on = remat.enabled(cfg, route)
     for i, lp in enumerate(params["layers"]):
         fn = mlstm_block if _kind(i, cfg) == "mlstm" else slstm_block
-        x = remat.maybe(on, _layer_out, fn, lp, x, cfg)
+        x = remat.maybe(on, _layer_out, fn, lp, x, cfg, tp)
     x = L.rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
     if last_only:
         x = x[:, -1:]
-    return x @ params["lm_head"].to(x.dtype)
+    return L.head(params, x, tp)
 
 
-def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
-    logits = forward_train(params, batch["tokens"], cfg, route="plain")
-    return L.softmax_xent(logits, batch["labels"])
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig,
+            tp=None) -> torch.Tensor:
+    """Mean next-token cross-entropy; with `tp` over model rank t's
+    shards, the same value on every rank of the model group."""
+    logits = forward_train(params, batch["tokens"], cfg, route="plain",
+                           tp=tp)
+    return L.xent(logits, batch["labels"], tp)
 
 
 # ---------------------------------------------------------------------------

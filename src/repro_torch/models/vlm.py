@@ -49,9 +49,10 @@ def build_positions(n_vis: int, n_text: int, start_text_only: int = 0,
 
 def _mrope_attention(p: dict, x: torch.Tensor, positions3: torch.Tensor,
                      cfg: ModelConfig, route: str, tp=None) -> torch.Tensor:
-    if tp is not None:
-        x, cfg = tp.copy(x), tp.heads(cfg)
-    q, k, v = L._qkv(p, x, cfg)
+    if tp is None:
+        q, k, v = L._qkv(p, x, cfg)
+    else:
+        q, k, v = L.qkv_shard(p, x, cfg, tp)
     q = L.apply_mrope(q, positions3, cfg.mrope_sections, cfg.rope_theta)
     k = L.apply_mrope(k, positions3, cfg.mrope_sections, cfg.rope_theta)
     if route == "plain":
@@ -81,7 +82,7 @@ def forward_train(params: dict, batch: dict, cfg: ModelConfig,
     `dense.forward_train`."""
     if route not in L.ROUTES:
         raise ValueError(f"route={route!r}; known: {L.ROUTES}")
-    tok_emb = dense.embed(params, batch["tokens"], cfg, tp)
+    tok_emb = L.embed(params, batch["tokens"], cfg, tp)
     vis = batch["vision"].to(cfg.cdtype)
     x = torch.cat([vis, tok_emb], dim=1)
     n_vis, n_text = vis.shape[1], tok_emb.shape[1]
@@ -91,7 +92,7 @@ def forward_train(params: dict, batch: dict, cfg: ModelConfig,
         x = remat.maybe(on, _block, lp, x, positions3, cfg, route, tp)
     x = L.rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
     x = x[:, -1:] if last_only else x[:, n_vis:]   # text positions only
-    return dense.head(params, x, tp)
+    return L.head(params, x, tp)
 
 
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig,
@@ -100,7 +101,7 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig,
     training route (plain attention under autograd); with `tp` over model
     rank t's shards."""
     logits = forward_train(params, batch, cfg, route="plain", tp=tp)
-    return dense.xent(logits, batch["labels"], tp)
+    return L.xent(logits, batch["labels"], tp)
 
 
 # ---------------------------------------------------------------------------

@@ -31,14 +31,56 @@ from ..core.topology import SparseTopology
 # ---------------------------------------------------------------------------
 # gauges (pure reads)
 # ---------------------------------------------------------------------------
+# elements of a gauge's f32 temporaries at a time: the (m, d_flat) buffer
+# of qwen2-0.5b at full width (m 4) is 7.36 GiB in f32, and its gauges
+# whole held two or three such temporaries beside the round's state
+GAUGE_CHUNK = 1 << 27
+
+
+def _column_slices(x: torch.Tensor) -> list:
+    """Slices of x's last dim, each at most GAUGE_CHUNK elements over all
+    of x's rows; one slice, the whole of x, below that (the gauges then
+    run the same arithmetic as unchunked)."""
+    d = x.shape[-1]
+    rows = max(1, x.numel() // max(1, d))
+    w = max(1, GAUGE_CHUNK // rows)
+    return [slice(lo, min(lo + w, d)) for lo in range(0, d, w)] \
+        or [slice(0, d)]
+
+
+def _gap_squares(u: torch.Tensor, mu: torch.Tensor,
+                 z_bar: torch.Tensor) -> torch.Tensor:
+    """(rows,) f32 sums over the columns of (u_i / mu_i - z_bar)^2, chunk
+    by chunk (`_column_slices`)."""
+    mu32 = mu[:, None].to(torch.float32)
+    ss = None
+    for s in _column_slices(u):
+        z = u[:, s].to(torch.float32) / mu32
+        part = torch.sum(torch.square(z - z_bar[None, s]), dim=1)
+        ss = part if ss is None else ss + part
+    return ss
+
+
+def sum_squares(x: torch.Tensor, dim=None) -> torch.Tensor:
+    """The f32 sum of squares of x, over everything or (dim = the last
+    dim) each row, chunk by chunk (`_column_slices`)."""
+    if x.dim() == 0 or (dim is not None and dim not in (-1, x.dim() - 1)):
+        return torch.sum(torch.square(x.to(torch.float32)), dim)
+    out = None
+    for s in _column_slices(x):
+        sq = torch.square(x[..., s].to(torch.float32))
+        part = torch.sum(sq) if dim is None else torch.sum(sq, dim)
+        out = part if out is None else out + part
+    return out
+
+
 def consensus_gap(flat: torch.Tensor, mu: torch.Tensor) -> dict:
     """De-biased row distance to the mass-weighted mean: mean / max over
     clients of ||u_i / mu_i - sum_j u_j / sum_j mu_j||_2, in f32 — the
     runtime face of the graph's connectivity term."""
-    u = flat.to(torch.float32)
-    z = u / mu[:, None].to(torch.float32)
-    z_bar = torch.sum(u, dim=0) / torch.sum(mu).to(torch.float32)
-    d = torch.sqrt(torch.sum(torch.square(z - z_bar[None, :]), dim=1))
+    z_bar = torch.sum(flat, dim=0, dtype=torch.float32) / \
+        torch.sum(mu).to(torch.float32)
+    d = torch.sqrt(_gap_squares(flat, mu, z_bar))
     return {"consensus_gap_mean": torch.mean(d),
             "consensus_gap_max": torch.max(d)}
 
@@ -74,15 +116,24 @@ def l2_norm(x: torch.Tensor, dim=None) -> torch.Tensor:
     reference's `jnp.linalg.norm`: torch's CPU `vector_norm` accumulates
     less exactly (1.2e-4 relative at 1.3M elements, reduced()
     qwen2-0.5b's update of four clients)."""
-    sq = torch.square(x.to(torch.float32))
-    return torch.sqrt(torch.sum(sq) if dim is None else torch.sum(sq, dim))
+    return torch.sqrt(sum_squares(x, dim))
 
 
 def buffer_update_norm(flat_before: torch.Tensor,
                        flat_after: torch.Tensor) -> torch.Tensor:
     """Frobenius norm of the local-phase displacement of the buffer, f32."""
-    d = flat_after.to(torch.float32) - flat_before.to(torch.float32)
-    return l2_norm(d)
+    return torch.sqrt(_update_squares(flat_before, flat_after))
+
+
+def _update_squares(before: torch.Tensor,
+                    after: torch.Tensor) -> torch.Tensor:
+    """The f32 sum of (after - before)^2, chunk by chunk."""
+    out = None
+    for s in _column_slices(after):
+        d = after[..., s].to(torch.float32) - before[..., s].to(torch.float32)
+        part = torch.sum(torch.square(d))
+        out = part if out is None else out + part
+    return out
 
 
 def wire_edges(P, fired: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -190,12 +241,10 @@ def consensus_gap_ranks(flat: torch.Tensor, mu: torch.Tensor,
     the data group's column sums of u and its sum of mu; each row's
     squared distance summed over the split columns before the square
     root; the mean and max over the data group."""
-    u = flat.to(torch.float32)
-    z = u / mu[:, None].to(torch.float32)
-    z_bar = sum_rows(torch.sum(u, dim=0), groups) / \
+    z_bar = sum_rows(torch.sum(flat, dim=0, dtype=torch.float32),
+                     groups) / \
         sum_rows(torch.sum(mu).to(torch.float32), groups)
-    d = torch.sqrt(sum_columns(torch.sum(torch.square(z - z_bar[None, :]),
-                                         dim=1), groups))
+    d = torch.sqrt(sum_columns(_gap_squares(flat, mu, z_bar), groups))
     return {"consensus_gap_mean": mean_ranks(torch.sum(d),
                                              groups.world * groups.n_rows,
                                              groups),
@@ -206,9 +255,8 @@ def update_norm_ranks(flat_before: torch.Tensor, flat_after: torch.Tensor,
                       groups: RankGroups) -> torch.Tensor:
     """`buffer_update_norm` of the rows of every rank (none on some, in a
     sampled round): the squares summed over both groups."""
-    d = flat_after.to(torch.float32) - flat_before.to(torch.float32)
-    return torch.sqrt(sum_columns(sum_rows(torch.sum(torch.square(d)),
-                                           groups), groups))
+    return torch.sqrt(sum_columns(sum_rows(
+        _update_squares(flat_before, flat_after), groups), groups))
 
 
 def to_host(values: dict) -> dict:

@@ -276,3 +276,101 @@ def test_gather_panel_emulation_bf16_rounds_once():
     got = emulate_gather_panels(idx, w, U, plan)
     want = tgossip.mix_rows(idx, w, U.float()).bfloat16()
     assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# gossip_gather over a halo: an (n, k) table over an (N, d) buffer, N > n
+# (the cross-rank matrix mix: a rank's own rows, then the rows it received)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("n,N,k,d,elem_bytes", [
+    (50, 80, 11, 13328, 4), (2, 4, 3, 160_350_800, 4), (50, 80, 11, 13328, 2),
+    (6, 7, 3, 64, 4)])
+def test_gather_plan_sizes_the_panel_by_the_buffer_rows(n, N, k, d,
+                                                        elem_bytes):
+    p = gg.plan(n, k, d, elem_bytes, SMS, rows=N)
+    assert p.route == "panel"
+    # the panel stages all N rows; the table and the threads serve n
+    assert p.block_d * N * elem_bytes <= SMEM
+    panel = -(-N * p.block_d * elem_bytes // 16) * 16
+    assert p.smem == panel + (8 * n * k if p.table else 0)
+    assert p.threads == min(gg.PANEL_THREADS,
+                            -(-(p.block_d // gg.TN * n) // 32) * 32)
+    assert p.blocks == -(-d // p.block_d)
+    # the widest panel a buffer of N rows allows is narrower than n's
+    align = 16 // elem_bytes
+    top = min(SMEM // (N * elem_bytes) // align * align,
+              gg.TN * gg.PANEL_THREADS)
+    assert gg.plan(n, k, d, elem_bytes, SMS, top, N).block_d == top
+    if top + align <= gg.TN * gg.PANEL_THREADS:
+        with pytest.raises(ValueError, match=f"N={N}"):
+            gg.plan(n, k, d, elem_bytes, SMS, top + align, N)
+    # N = n is the plan of the square shape
+    assert gg.plan(n, k, d, elem_bytes, SMS, rows=n) == \
+        gg.plan(n, k, d, elem_bytes, SMS)
+
+
+@pytest.mark.parametrize("elem_bytes,n_max", [(4, 3632), (2, 7264)])
+def test_gather_plan_takes_the_row_route_when_the_buffer_outgrows_a_panel(
+        elem_bytes, n_max):
+    # the table's rows fit a panel, the buffer's do not: the row route,
+    # one block per (table row, chunk)
+    assert gg.plan(100, 3, 4096, elem_bytes, SMS, rows=n_max).route == \
+        "panel"
+    p = gg.plan(100, 3, 4096, elem_bytes, SMS, rows=n_max + 1)
+    assert p.route == "row" and p.block_d == gg.ROW_BLOCK_D
+    assert p.blocks == 100 * 4 and p.threads == 256 and p.smem == 8 * 3
+
+
+def test_gather_plan_refuses_a_buffer_smaller_than_the_table():
+    with pytest.raises(ValueError, match="rows >= m"):
+        gg.plan(5, 3, 64, 4, SMS, rows=4)
+
+
+def emulate_gather_rows(idx, w, U, block_d):
+    """The row kernel's order: one block per (table row, chunk of block_d
+    columns), its k neighbor rows read in j order, a rounded f32 product
+    and a rounded f32 add per column; the output in U's dtype."""
+    m, k = idx.shape
+    d = U.shape[1]
+    out = torch.empty((m, d), dtype=U.dtype)
+    for i in range(m):
+        for c0 in range(0, d, block_d):
+            c1 = min(d, c0 + block_d)
+            acc = None
+            for j in range(k):
+                term = w[i, j].float() * U[int(idx[i, j]), c0:c1].float()
+                acc = term if j == 0 else acc + term
+            out[i, c0:c1] = acc.to(U.dtype)
+    return out
+
+
+def _halo_inputs(n, h, k, d, seed, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, n + h, size=(n, k)).astype(np.int32)
+    idx[:, 0] = np.arange(n)                # each row reads itself first
+    idx[:, -1] = n + rng.integers(0, h, size=n)     # and one halo row
+    w = rng.random((n, k)).astype(np.float32)
+    w /= w.sum(1, keepdims=True)
+    U = torch.as_tensor(rng.standard_normal((n + h, d)).astype(np.float32))
+    return torch.as_tensor(idx), torch.as_tensor(w), U.to(dtype)
+
+
+@pytest.mark.parametrize("n,h,k,d,sms", [(50, 30, 11, 520, SMS),
+                                         (2, 2, 3, 300, 4),
+                                         (13, 1, 4, 97, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_halo_emulations_are_bitwise_the_plain_version(n, h, k, d,
+                                                               sms, dtype):
+    from repro_torch.kernels.ref import gossip_gather_ref
+    idx, w, U = _halo_inputs(n, h, k, d, n * 7 + h, dtype)
+    want = gossip_gather_ref(idx, w, U)
+    assert want.shape == (n, d) and want.dtype == dtype
+    eb = U.element_size()
+    panel = gg.plan(n, k, d, eb, sms, rows=n + h)
+    assert panel.route == "panel"
+    assert torch.equal(emulate_gather_panels(idx, w, U, panel), want)
+    # the row route at its smallest block_d, which cuts the columns into
+    # chunks
+    assert torch.equal(emulate_gather_rows(idx, w, U, 128), want)
+    if dtype == torch.float32:
+        assert torch.equal(want, tgossip.mix_rows(idx, w, U))

@@ -87,6 +87,26 @@ def test_consensus_gap_and_norms_match_reference():
                                          jnp.asarray(after))))
 
 
+@pytest.mark.parametrize("chunk", [1, 16, 64])
+def test_chunked_gauges_match_reference(monkeypatch, chunk):
+    """The gauges taken over column chunks of at most `chunk` elements (as
+    a full-width buffer takes them, `gauges.GAUGE_CHUNK`) equal the
+    reference's unchunked gauges."""
+    monkeypatch.setattr(gauges, "GAUGE_CHUNK", chunk)
+    flat, mu = _inputs(m=4, d=37, seed=2)
+    after = flat + 0.3 * _inputs(m=4, d=37, seed=3)[0]
+    assert len(gauges._column_slices(_t(flat))) > 1
+    _close_gauges(gauges.consensus_gap(_t(flat), _t(mu)),
+                  jgauges.consensus_gap(jnp.asarray(flat), jnp.asarray(mu)))
+    _close(float(gauges.buffer_update_norm(_t(flat), _t(after))),
+           float(jgauges.buffer_update_norm(jnp.asarray(flat),
+                                            jnp.asarray(after))))
+    _close(gauges.l2_norm(_t(after), dim=1).numpy(),
+           jnp.linalg.norm(jnp.asarray(after), axis=1))
+    _close(float(gauges.l2_norm(_t(after))),
+           float(jnp.linalg.norm(jnp.asarray(after))))
+
+
 @pytest.mark.parametrize("with_mask", [False, True])
 def test_mass_ledger_matches_reference(with_mask):
     _, mu = _inputs()

@@ -469,8 +469,8 @@ def test_train_main_joins_a_torchrun_group(tmp_path):
 
 @pytest.mark.parametrize("argv,match", [
     (["--clients", "4", "--ranks", "3"], r"m % W == 0"),
-    (["--arch", "recurrentgemma-9b", "--clients", "4", "--ranks", "2",
-      "--tp", "2"], "ROADMAP item 17"),
+    (["--arch", "xlstm-125m", "--clients", "4", "--ranks", "8", "--tp",
+      "8"], "does not divide n_heads=4"),
     (["--clients", "4", "--ranks", "2", "--resident", "--sample", "0.5",
       "--gossip", "ppermute"], "use --gossip matrix"),
     (["--clients", "4", "--ranks", "2", "--resident", "--graph-every",

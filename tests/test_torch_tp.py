@@ -27,7 +27,8 @@ arrays) go through the reference:
   and gradients, and 2 resident matrix-mix and 2 tree-form permutation
   rounds through a one-rank client mesh, bit for bit the plain path's,
   as the card's phase `tp` holds them;
-- the refusals, each naming its ROADMAP item where one is not ported."""
+- the refusals: a split the forward does not run, named by leaf and dim
+  (tests/test_torch_tp_families.py holds the other families)."""
 import functools
 import json
 import os
@@ -90,11 +91,9 @@ def _run(argv, tmp: Path, timeout: int = TIMEOUT) -> None:
     _finish(_start(argv, tmp), timeout)
 
 
-def jobs(tmp_factory, world: int, todo: dict, meanwhile=(),
-         timeout: int = TIMEOUT):
-    """{name: (job, meta, arrays)} in one gloo group of `world` ranks ->
-    {name: output arrays}; the callables `meanwhile` (the reference's side)
-    run while the ranks do."""
+def start_jobs(tmp_factory, world: int, todo: dict):
+    """{name: (job, meta, arrays)} started in one gloo group of `world`
+    ranks -> the handle `finish_jobs` takes."""
     tmp = tmp_factory.mktemp(f"tp{world}")
     argv = ["-m", "repro_torch.launch.ranks_check", "--world", str(world),
             "--device", "cpu"]
@@ -102,13 +101,28 @@ def jobs(tmp_factory, world: int, todo: dict, meanwhile=(),
         np.savez(tmp / f"{name}.in.npz", meta=json.dumps(meta), **arrays)
         argv += ["--job", job, str(tmp / f"{name}.in.npz"),
                  str(tmp / f"{name}.out.npz")]
-    proc = _start(argv, tmp)
+    return _start(argv, tmp), tmp, tuple(todo)
+
+
+def finish_jobs(handle, timeout: int = TIMEOUT) -> dict:
+    """The group's end -> {name: output arrays}."""
+    proc, tmp, names = handle
+    _finish(proc, timeout)
+    return {name: dict(np.load(tmp / f"{name}.out.npz")) for name in names}
+
+
+def jobs(tmp_factory, world: int, todo: dict, meanwhile=(),
+         timeout: int = TIMEOUT):
+    """{name: (job, meta, arrays)} in one gloo group of `world` ranks ->
+    {name: output arrays}; the callables `meanwhile` (the reference's side)
+    run while the ranks do."""
+    handle = start_jobs(tmp_factory, world, todo)
     try:
         for fn in meanwhile:
             fn()
     finally:
-        _finish(proc, timeout)
-    return {name: dict(np.load(tmp / f"{name}.out.npz")) for name in todo}
+        out = finish_jobs(handle, timeout)
+    return out
 
 
 def flat_paths(tree_, prefix):
@@ -186,30 +200,49 @@ def test_shards_put_back_together_bitwise(arch, T):
 # ---------------------------------------------------------------------------
 # the refusals
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "deepseek-moe-16b",
-                                  "xlstm-125m", "whisper-large-v3"])
-def test_check_tp_refuses_other_families(arch):
+@pytest.mark.parametrize("arch,replace,T,match", [
+    ("recurrentgemma-9b", {"lru_width": 130}, 4,
+     r"leaf period_lru/rec/b_a \(1, 2, 130\): the plan replicates it"),
+    ("deepseek-moe-16b", {"n_experts": 6}, 4,
+     r"does not divide n_experts=6.*leaf moe_layers/moe/wg"),
+    ("xlstm-125m", {}, 8, r"does not divide n_heads=4.*leaf layers/0/wq"),
+    ("whisper-large-v3", {"d_ff": 250}, 4,
+     r"leaf dec_layers/mlp/b1 \(2, 250\): the plan replicates it")])
+def test_check_tp_refuses_other_families(arch, replace, T, match):
+    # every family runs across ranks (its reduced() model at T 2); what
+    # each refuses is a split its forward does not run, named by leaf
     cfg = configs.get_reduced(arch)
     ttp.check_tp(cfg, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17b"):
-        ttp.check_tp(cfg, 2)
+    ttp.check_tp(cfg, 2)
+    with pytest.raises(ValueError, match=match):
+        ttp.check_tp(cfg.replace(**replace), T)
 
 
 @pytest.mark.parametrize("field,T", [("n_kv_heads", 4), ("n_heads", 3),
                                      ("d_ff", 3)])
 def test_check_tp_refuses_a_split_of_heads_or_columns(field, T):
-    # d_ff 256 with 6 / 3 heads at T 3: the heads split, the MLP not
+    # n_kv_heads: 3 KV heads of 33 columns at T 4 cut inside a head, which
+    # the gathered K / V run, but 99 columns relocate wk's split to
+    # d_model; n_heads: whole query heads; d_ff: 256 at T 3 (6 / 3 heads
+    # split) replicates the MLP, which the forward splits
     cfg = configs.get_reduced("qwen2-0.5b").replace(
-        n_heads=6 if field == "d_ff" else 4,
-        n_kv_heads=3 if field == "d_ff" else 2)
-    with pytest.raises(ValueError, match=f"does not divide {field}="):
+        n_heads={"n_kv_heads": 12, "n_heads": 4, "d_ff": 6}[field],
+        n_kv_heads={"n_kv_heads": 3, "n_heads": 2, "d_ff": 3}[field],
+        head_dim=33 if field == "n_kv_heads" else 0)
+    match = {"n_kv_heads": r"leaf layers/attn/bk \(2, 99\): the plan "
+                           r"replicates it",
+             "n_heads": "does not divide n_heads=4",
+             "d_ff": r"leaf layers/mlp/wd \(2, 256, 128\): the plan "
+                     r"replicates it"}[field]
+    with pytest.raises(ValueError, match=match):
         ttp.check_tp(cfg, T)
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--arch", "recurrentgemma-9b", "--ranks", "2", "--tp", "2"],
-     "ROADMAP item 17b"),
-    (["--ranks", "4", "--tp", "4"], "does not divide n_kv_heads=2"),
+    (["--arch", "xlstm-125m", "--ranks", "8", "--tp", "8", "--clients",
+      "1"], "does not divide n_heads=4"),
+    (["--ranks", "3", "--tp", "3", "--clients", "3"],
+     "does not divide n_heads=4"),
     (["--ranks", "3", "--tp", "2"], r"W % T == 0"),
     (["--ranks", "4", "--tp", "2", "--clients", "3"], r"m % W == 0"),
     (["--ranks", "2", "--tp", "2", "--sample", "0.5", "--gossip",

@@ -92,6 +92,14 @@ line is never printed):
                 save and restore ms and bytes;
 13. serve     — mixed-user batches served from the trained state through
                 head_gather_matmul, against force="ref" and serve_naive;
+13b. examples — the port's twins of the four example scripts
+                (examples/*_torch.py), each main on the card: quickstart
+                at its own size, paper_reproduction (3 rounds, 8 clients,
+                dfedpgp and fedrep), datacenter_gossip (2 rounds),
+                serve_decode (4 tokens): one gossip_gather per DFedPGP
+                round and none for the others, one head_gather_matmul
+                per decode step, finite losses, accuracies in [0, 1];
+                launches, seconds and peak memory on one JSON line;
 14. lm        — recurrentgemma-9b at full width and depth (38 layers, f32
                 params drawn on the card, bf16 compute): prefill_logits
                 at B 2, S 4096 (12 flash_attention and 26 rglru launches
@@ -220,7 +228,8 @@ from pathlib import Path
 
 PHASES = ("device", "build", "kernels", "train", "parity", "sampled",
           "kernel_mix", "compress", "baselines", "async", "analysis", "obs",
-          "checkpoint", "serve", "lm", "dense", "regime_b", "ranks", "tp",
+          "checkpoint", "serve", "examples", "lm", "dense", "regime_b",
+          "ranks", "tp",
           "remat",
           "moe", "vlm", "ssm", "encdec", "timings")
 # the paper's comparison rows (the port's simulator.ALGOS but dfedpgp)
@@ -3516,6 +3525,140 @@ def phase_serve(ctx):
          launches=counts, by_batch=rows)
 
 
+# phase examples: the port's twins of the four example scripts, each
+# twin's main at its name's arguments (quickstart at its own size)
+EXAMPLE_ARGS = (("quickstart", []),
+                ("paper_reproduction", ["--rounds", "3", "--clients", "8",
+                                        "--algos", "dfedpgp,fedrep"]),
+                ("datacenter_gossip", ["--rounds", "2"]),
+                ("serve_decode", ["--tokens", "4"]))
+
+
+def _example_twin(name: str):
+    """examples/<name>_torch.py, loaded by path."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "examples" / f"{name}_torch.py"
+    spec = importlib.util.spec_from_file_location(f"{name}_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _sim_runs(torch, mod, runs: list) -> None:
+    """Wrap the twin's `run_experiment` so that each call appends (algo,
+    rounds, its launches, its history, its seconds) to `runs`: the counts
+    read just before and just after the call."""
+    from repro_torch.kernels import ops
+    inner = mod.run_experiment
+
+    def run(algo, sim, **kw):
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        hist = inner(algo, sim, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        after = ops.launch_counts()
+        runs.append((algo, sim.rounds, {k: after[k] - before[k]
+                                        for k in after}, hist, seconds))
+        return hist
+
+    mod.run_experiment = run
+
+
+def _check_sim_runs(name: str, runs: list) -> dict:
+    """One gossip_gather launch per DFedPGP round and none for the other
+    algorithms; finite losses, accuracies in [0, 1]."""
+    out = {}
+    for algo, rounds, counts, hist, seconds in runs:
+        want = rounds if algo == "dfedpgp" else 0
+        check(_only(counts, gossip_gather=want),
+              f"{name} {algo}: {rounds} rounds launched {counts}; want "
+              f"{want} gossip_gather")
+        check(all(math.isfinite(x) for x in hist["loss"]),
+              f"{name} {algo}: non-finite loss {hist['loss']}")
+        check(all(0.0 <= a <= 1.0 for a in hist["acc"]),
+              f"{name} {algo}: accuracy outside [0, 1] {hist['acc']}")
+        out[algo] = {"rounds": rounds, "launches": counts,
+                     "seconds": seconds,
+                     "final_acc": hist["final_acc"],
+                     "loss_last": hist["loss"][-1],
+                     "round_ms": [s * 1e3 for s in hist["round_s"]]}
+    return out
+
+
+def phase_examples(ctx):
+    """The four `examples/*_torch.py` twins on the card, each twin's main
+    at `EXAMPLE_ARGS`: quickstart (local, fedavg, dfedpgp at m 16 for 20
+    rounds) and paper_reproduction (dfedpgp and fedrep, 3 rounds of 8
+    clients, its JSON to a temporary directory): one gossip_gather launch
+    per DFedPGP round and none for the others, finite losses, accuracies
+    in [0, 1]; datacenter_gossip (2 tree-form rounds of reduced()
+    qwen2-0.5b through `launch.train`): one gossip_gather a round, finite
+    losses; serve_decode (4 greedy tokens): one head_gather_matmul launch
+    per decode step.  Launches (set to 0 before each twin, read after),
+    seconds and peak device memory of each."""
+    torch = ctx["torch"]
+    import io
+    import tempfile
+    from repro_torch.kernels import ops
+    runs, total = {}, {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, argv in EXAMPLE_ARGS:
+            mod = _example_twin(name)
+            sims = []
+            if hasattr(mod, "run_experiment"):
+                _sim_runs(torch, mod, sims)
+            if name == "paper_reproduction":
+                argv = argv + ["--out", os.path.join(tmp, "paper.json")]
+            _free_card(torch)
+            torch.cuda.reset_peak_memory_stats()
+            out = io.StringIO()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                ret = mod.main(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            text = out.getvalue()
+            run = {"seconds": seconds, "launches": counts,
+                   "peak_bytes": torch.cuda.max_memory_allocated()}
+            if sims:
+                run["runs"] = _check_sim_runs(name, sims)
+            if name == "paper_reproduction":
+                saved = json.loads(Path(tmp, "paper.json").read_text())
+                check(sorted(saved) == ["dfedpgp", "fedrep"],
+                      f"paper_reproduction wrote {sorted(saved)}")
+            if name == "datacenter_gossip":
+                losses = [float(x) for x in
+                          re.findall(r"dfedpgp loss=(\S+)", text)]
+                check(len(losses) == 2 and all(map(math.isfinite, losses)),
+                      f"datacenter_gossip losses {losses}")
+                check(_only(counts, gossip_gather=2),
+                      f"datacenter_gossip: 2 rounds launched {counts}")
+                check(bool(torch.isfinite(ret.mu).all()),
+                      "datacenter_gossip: non-finite mu")
+                run["loss"] = losses
+            if name == "serve_decode":
+                seqs = re.findall(r"req \d+ \(user \d+\) \[([^\]]*)\]",
+                                  text)
+                check(ret == 0 and len(seqs) == 4
+                      and all(len(q.split(",")) == 4 for q in seqs),
+                      f"serve_decode printed {seqs}")
+                check(_only(counts, head_gather_matmul=4),
+                      f"serve_decode: 4 decode steps launched {counts}")
+            run["stdout_tail"] = text.strip().splitlines()[-3:]
+            runs[name] = run
+            total = _add_counts(total, counts)
+            del mod, ret
+    ctx["examples_launches"] = total
+    emit("examples", card=ctx["smi"], seconds=time.perf_counter() - t_phase,
+         launches=total,
+         peak_bytes=max(r["peak_bytes"] for r in runs.values()),
+         twins=runs)
+
+
 # the device symbols of each LM kernel: the f32 SIMT flash kernel and the
 # bf16 wgmma one (the model's prefill runs the latter)
 LM_KERNEL_SYMBOLS = {
@@ -6184,6 +6327,7 @@ def phase_timings(ctx):
         "regime_b_launches": ctx["regime_b_launches"]["gossip_gather"],
         "ranks_launches": ctx["ranks_launches"]["gossip_gather"],
         "tp_launches": ctx["tp_launches"]["gossip_gather"],
+        "examples_launches": ctx["examples_launches"]["gossip_gather"],
         "halo": halo_shapes,
         "regime_b": ctx["regime_b_kernels"]["gossip_gather"],
         "moe_launches": ctx["moe_launches"]["gossip_gather"],
@@ -6251,6 +6395,8 @@ def phase_timings(ctx):
         "checkpoint_launches":
             ctx["checkpoint_launches"]["head_gather_matmul"],
         "dense_launches": ctx["dense_launches"]["head_gather_matmul"],
+        "examples_launches":
+            ctx["examples_launches"]["head_gather_matmul"],
         "dense_shape": ctx["dense_head"],
         "max_abs_err": ctx["head_err"], "ms": big["ms"],
         "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
@@ -6693,7 +6839,7 @@ def main(argv=None) -> int:
     needs = {"serve": {"train"}, "compress": {"train"},
              "timings": {"kernels", "train", "sampled", "kernel_mix",
                          "compress", "baselines", "async", "analysis", "obs",
-                         "checkpoint", "serve", "lm", "dense",
+                         "checkpoint", "serve", "examples", "lm", "dense",
                          "regime_b", "ranks", "tp", "moe", "vlm", "ssm",
                          "encdec"}}
     for phase in only:
@@ -6707,7 +6853,8 @@ def main(argv=None) -> int:
            "baselines": phase_baselines, "async": phase_async,
            "analysis": phase_analysis,
            "obs": phase_obs, "checkpoint": phase_checkpoint,
-           "serve": phase_serve, "lm": phase_lm, "dense": phase_dense,
+           "serve": phase_serve, "examples": phase_examples,
+           "lm": phase_lm, "dense": phase_dense,
            "regime_b": phase_regime_b, "ranks": phase_ranks,
            "tp": phase_tp, "remat": phase_remat, "moe": phase_moe, "vlm": phase_vlm,
            "ssm": phase_ssm, "encdec": phase_encdec,

@@ -46,7 +46,12 @@ Jobs (m clients, every array leading with m):
   and the batch "tokens", "labels" (and a vlm's "vision", an encdec's
   "frames"), under
   `vmap(grad_and_value(...))` over the clients -> "loss" (m,) and the
-  whole gradients "grad/<path>".
+  whole gradients "grad/<path>";
+- `collectives`: one train step of `dryrun.count_collectives` on the
+  rank's share (meta.gossip, meta.resident, meta.k_u, meta.k_v,
+  meta.bf16_grads, meta.gossip_dtype; batch meta.batch at S meta.seq),
+  from the family's init and random batches -> "counts", the JSON of
+  rank 0's {op: {count, bytes}} on its model group (no input arrays).
 The tests of the cross-rank mixes run these jobs on gloo and hold the
 results against the JAX reference on the same arrays.
 """
@@ -68,7 +73,7 @@ from . import mesh as mesh_mod
 from . import ranks, steps, tp
 
 JOBS = ("mix_flat", "mix_tree", "matrix", "rounds", "sampled_rounds",
-        "tree_rounds", "tp_loss")
+        "tree_rounds", "tp_loss", "collectives")
 
 
 def _tensor(a: np.ndarray, dev) -> torch.Tensor:
@@ -275,6 +280,19 @@ def _loss_job(meta: dict, data: dict, mesh) -> dict:
     return out
 
 
+def _collectives_job(meta: dict, mesh) -> dict:
+    import dataclasses
+    from ..configs import SHAPES
+    from .dryrun import count_collectives
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=meta["seq"])
+    counts = count_collectives(
+        _config(meta), mesh, shape, per_client_batch=meta["batch"],
+        device=mesh.device, **{k: meta[k] for k in (
+            "gossip", "resident", "k_u", "k_v", "bf16_grads",
+            "gossip_dtype") if k in meta})
+    return {"counts": np.array(json.dumps(counts))}
+
+
 def _rank(rank: int, jobs, world: int, init_file: str, device: str) -> None:
     if torch.device(device).type == "cpu":
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
@@ -289,6 +307,8 @@ def _rank(rank: int, jobs, world: int, init_file: str, device: str) -> None:
                 res = _rounds_job(job, meta, data, mesh)
             elif job == "tp_loss":
                 res = _loss_job(meta, data, mesh)
+            elif job == "collectives":
+                res = _collectives_job(meta, mesh)
             else:
                 res = _mix_job(job, meta, data, mesh)
             if rank == 0:
